@@ -1,0 +1,359 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (roomnet_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's RoomNet serving forward at 224² on the converted
+reference checkpoint (artifacts/roomnet_params.npz) through its four CUDA
+kernels, in phases; any failure raises and the script exits non-zero:
+
+  1. The card's name and power limit; build the kernels from csrc/ (one
+     nvcc per source, in parallel) and print the build time and ptxas usage.
+  2. Each kernel against its plain PyTorch version on the operands of every
+     launch of one forward at batch 8 (real activations of the golden batch),
+     f32 and bf16. f32: rtol = atol = 1e-5, conv 1e-4 (sum order). bf16:
+     outputs within one bf16 ulp (rtol 2^-7) after identical f32 math in
+     another order; the residual also within one ulp of its bf16-rounded
+     intermediate (atol 2^-7 * max|s| * max|res|).
+  3. Each kernel's time at batch 256, f32 and bf16, summed over its launches
+     in one forward, beside its plain version, a PyTorch library call where
+     one computes the same function (F.conv2d; F.avg_pool2d + the BN affine),
+     and its bound: max(bytes / 3.35 TB/s, FLOPs / peak), peak 67 TFLOP/s for
+     f32 arithmetic and 989 TFLOP/s for bf16 convolutions (H100 SXM). Bytes
+     count each input element the function reads once (for the pool and the
+     residual, only the rows and columns its windows or weights reach) and
+     each output once.
+  4. The full forward against the TF-graph goldens (forward_golden.npz, 7
+     images, and forward_golden_wide.npz, 64): f32 logits within 1e-4 and
+     argmax exact (float and uint8-fold input); bf16 argmax exact and
+     |dlogit| within BF16_DLOGIT; launch counts 10/10/3/1 per forward.
+  5. The main path: RoomNetClassifier at batch 256 (throughput) and requests
+     of batch 1, 3 and 8 (latency), bf16 and f32, with the launch counters
+     zeroed before and read after each dtype's run.
+
+Then one JSON line of per-kernel results and, last, the device line.
+f32 parity needs TF32 off; the script turns it off for everything it runs.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_F32 = 67e12
+PEAK_BF16_TENSOR = 989e12
+GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
+# bf16 |dlogit| against the TF graph. The card has no JAX, so the JAX
+# package's own bf16 distance on each golden batch is pinned here;
+# tests/test_torch_forward.py checks on the CPU that the pin is what the JAX
+# forward gives and that the port's plain forward stays within it plus
+# BF16_MARGIN. The limit is that sum, and never below the 0.15 that
+# tests/test_forward_golden.py holds the JAX package to.
+JAX_BF16_DLOGIT = {"forward_golden": 0.111933, "forward_golden_wide": 0.225824}
+BF16_MARGIN = 0.01
+BF16_DLOGIT = {k: max(0.15, v + BF16_MARGIN) for k, v in JAX_BF16_DLOGIT.items()}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is false; the port's smoke run needs a GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    from roomnet_tpu_torch.infer.classify import RoomNetClassifier
+    from roomnet_tpu_torch.models import roomnet as M
+    from roomnet_tpu_torch.ops.kernels import _build
+    from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
+    from roomnet_tpu_torch.ops.kernels import dense_head as KD
+    from roomnet_tpu_torch.ops.kernels import pool as KP
+    from roomnet_tpu_torch.ops.kernels import residual as KR
+    from roomnet_tpu_torch.params.schema import load_npz
+
+    kernels = {
+        "conv3x3": (KC.conv3x3, KC.conv3x3_plain, "roomnet_tpu/ops/pallas/conv_b2.py:70"),
+        "relu6_pool_bn": (KP.relu6_pool_bn, KP.relu6_pool_bn_plain, "roomnet_tpu/ops/pallas/pool.py:83"),
+        "residual_bn": (KR.residual_bn, KR.residual_bn_plain, "roomnet_tpu/ops/pallas/residual.py:104"),
+        "dense_head": (KD.dense_head, KD.dense_head_plain, "roomnet_tpu/ops/pallas/dense_head.py:53"),
+    }
+    per_forward = {"conv3x3": 10, "relu6_pool_bn": 10, "residual_bn": 3, "dense_head": 1}
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+
+    # -- phase 1: card, build -------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(f"card: {smi}")
+    t0 = time.perf_counter()
+    _build.build()
+    for name in _build.SOURCES:
+        _build.load(name)
+    log(f"build: {time.perf_counter() - t0:.2f} s for {len(_build.SOURCES)} kernels "
+        f"into {_build.BUILD_DIR}")
+    for name in _build.SOURCES:
+        logf = _build.BUILD_DIR / f"{name}.log"
+        if logf.exists():
+            for line in logf.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  ptxas {name}: {line.strip()}")
+
+    cfgs = {"f32": M.DEFAULT_CONFIG, "bf16": M.FAST_CONFIG}
+    variables = load_npz(pathlib.Path(__file__).resolve().parent / "artifacts" / "roomnet_params.npz",
+                         device=dev)
+    folded = {d: M.fold_variables(variables, c) for d, c in cfgs.items()}
+    g = dict(np.load(GOLDEN / "forward_golden.npz"))
+    gw = dict(np.load(GOLDEN / "forward_golden_wide.npz"))
+
+    def record(dt: str, x: torch.Tensor) -> list:
+        """The (kernel, args, kwargs) of every launch of one forward."""
+        sites = []
+        saved = {n: getattr(M, n) for n in kernels}
+
+        def recorder(name):
+            def call(*args, **kwargs):
+                sites.append((name, args, kwargs))
+                return saved[name](*args, **kwargs)
+            return call
+
+        try:
+            for n in kernels:
+                setattr(M, n, recorder(n))
+            with torch.no_grad():
+                M.forward_folded(folded[dt], x, cfgs[dt])
+        finally:
+            for n, fn in saved.items():
+                setattr(M, n, fn)
+        return sites
+
+    def normalized(x_uint8: np.ndarray) -> torch.Tensor:
+        return M.normalize_bgr_uint8(torch.from_numpy(x_uint8).to(dev))
+
+    def out0(y):
+        return y if isinstance(y, torch.Tensor) else y[0]
+
+    # -- phase 2: each kernel against its plain version, batch 8 -------------
+    x8 = normalized(np.concatenate([g["x_uint8_bgr"], gw["x_uint8_bgr"][:1]]))
+    max_err = {}
+    for dt in cfgs:
+        for i, (name, args, kwargs) in enumerate(record(dt, x8)):
+            kern, plain, _ = kernels[name]
+            got, want = kern(*args, **kwargs), plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            pairs = list(zip(got, want)) if name == "dense_head" else [(got, want)]
+            err = 0.0
+            for a, b in pairs:
+                a, b = a.float(), b.float()
+                if dt == "f32" or name == "dense_head":
+                    tol = 1e-4 if name == "conv3x3" else 1e-5
+                    rtol, atol = tol, tol
+                else:
+                    rtol, atol = 2.0 ** -7, 1e-3
+                    if name == "residual_bn":
+                        atol = 2.0 ** -7 * args[2].abs().max().item() * args[1].float().abs().max().item()
+                bad = (a - b).abs() > atol + rtol * b.abs()
+                if bad.any() or not torch.isfinite(a).all():
+                    raise AssertionError(
+                        f"{name}[{dt}] site {i}: kernel disagrees with plain at {int(bad.sum())} "
+                        f"of {b.numel()} values, max |d| {(a - b).abs().max().item():.3g}")
+                err = max(err, (a - b).abs().max().item())
+            max_err[(name, dt)] = max(max_err.get((name, dt), 0.0), err)
+            log(f"check {name}[{dt}] site {i} {tuple(out0(want).shape)}: max |d| {err:.3g}")
+
+    # -- phase 3: kernel / plain / library / bound at batch 256 --------------
+    def library_call(name, args, kwargs):
+        if name == "conv3x3":
+            x, k, bias = args
+            wk = k.permute(3, 2, 0, 1).contiguous()
+            xn = x.permute(0, 3, 1, 2)
+            return lambda: F.conv2d(xn, wk, None if bias is None else bias.to(x.dtype))
+        if name == "relu6_pool_bn":
+            x, w, b = args
+            xn = x.permute(0, 3, 1, 2)
+            w4, b4 = w.to(x.dtype).view(1, -1, 1, 1), b.to(x.dtype).view(1, -1, 1, 1)
+            return lambda: F.avg_pool2d(F.relu6(xn), kwargs["ksize"], kwargs["stride"]) * w4 + b4
+        return None
+
+    def work(name, dt, args, kwargs, out):
+        """(bytes, FLOPs, peak) the function needs on this launch's operands."""
+        if name == "conv3x3":
+            x, k, bias = args
+            flops = 2 * out.numel() * 9 * x.shape[3]
+            return nbytes(x, k, bias, out), flops, PEAK_BF16_TENSOR if dt == "bf16" else PEAK_F32
+        if name == "relu6_pool_bn":
+            # Only the rows and columns some window covers: k4/s2 skips the last.
+            x, w, b = args
+            k, st = kwargs["ksize"], kwargs["stride"]
+            n, _, _, c = x.shape
+            read = n * ((out.shape[1] - 1) * st + k) * ((out.shape[2] - 1) * st + k) * c
+            nb = read * x.element_size() + nbytes(w, b, out)
+            return nb, out.numel() * (k * k + 3) + read, PEAK_F32
+        if name == "residual_bn":
+            # Only the res rows and columns with a nonzero interpolation
+            # weight: 21->2 reads 3 of 21 of each.
+            x, res, s, t = args
+            n, _, _, c = res.shape
+            hidx, hwt = KR.source_pairs(res.shape[1], x.shape[1], x.dtype)
+            widx, wwt = KR.source_pairs(res.shape[2], x.shape[2], x.dtype)
+            rows, cols = np.unique(hidx[hwt != 0]).size, np.unique(widx[wwt != 0]).size
+            nb = n * rows * cols * c * res.element_size() + nbytes(x, s, t, out)
+            flops = 3 * n * x.shape[1] * cols * c + 6 * x.numel()
+            return nb, flops, PEAK_F32
+        x, packed, widths = args
+        flops = x.shape[0] * (2 * sum(widths[i] * widths[i + 1] for i in range(len(widths) - 1))
+                              + 4 * sum(widths[1:]))
+        return nbytes(x, packed, *out), flops, PEAK_F32
+
+    rng = np.random.RandomState(0)
+    x256_u8 = rng.randint(0, 256, size=(256, 224, 224, 3), dtype=np.uint8)
+    timing = {}
+    for dt in cfgs:
+        sites = record(dt, normalized(x256_u8))
+        for i, (name, args, kwargs) in enumerate(sites):
+            kern, plain, _ = kernels[name]
+            out = kern(*args, **kwargs)
+            nb, flops, peak = work(name, dt, args, kwargs, out)
+            bound = max(nb / HBM_BYTES_PER_S, flops / peak) * 1e3
+            by = "bytes" if nb / HBM_BYTES_PER_S >= flops / peak else "operations"
+            k_ms = cuda_ms(lambda: kern(*args, **kwargs))
+            p_ms = cuda_ms(lambda: plain(*args, **kwargs))
+            lib = library_call(name, args, kwargs)
+            l_ms = cuda_ms(lib) if lib is not None else None
+            acc = timing.setdefault((name, dt), {"ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+                                                 "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0})
+            acc["ms"] += k_ms
+            acc["plain_ms"] += p_ms
+            if l_ms is not None:
+                acc["library_ms"] = (acc["library_ms"] or 0.0) + l_ms
+            acc["bound_ms"] += bound
+            acc["bytes_ms"] += nb / HBM_BYTES_PER_S * 1e3
+            acc["ops_ms"] += flops / peak * 1e3
+            lib_s = f"{l_ms:.4f}" if l_ms is not None else "n/a"
+            log(f"time {name}[{dt}] site {i} in {tuple(args[0].shape)} -> {tuple(out0(out).shape)}: "
+                f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib_s} ms, "
+                f"bound {bound:.4f} ms ({by})")
+            del out
+        del sites
+        torch.cuda.empty_cache()
+
+    # -- phase 4: full forward vs the TF-graph goldens, launches per forward --
+    def counts():
+        return {n: kernels[n][0].launches for n in kernels}
+
+    def zero_counts():
+        for n in kernels:
+            kernels[n][0].launches = 0
+
+    for label, gd in (("forward_golden", g), ("forward_golden_wide", gw)):
+        xu8 = torch.from_numpy(gd["x_uint8_bgr"]).to(dev)
+        for dt, cfg in cfgs.items():
+            zero_counts()
+            logits = M.forward(variables, M.normalize_bgr_uint8(xu8), cfg).cpu().numpy()
+            if counts() != per_forward:
+                raise AssertionError(f"{label}[{dt}]: launches {counts()} != {per_forward}")
+            d = np.abs(logits - gd["logits"]).max()
+            if not np.array_equal(logits.argmax(-1), gd["argmax"]):
+                raise AssertionError(f"{label}[{dt}]: argmax differs from the TF graph")
+            limit = 1e-4 if dt == "f32" else BF16_DLOGIT[label]
+            if not d <= limit:
+                raise AssertionError(f"{label}[{dt}]: max |dlogit| {d:.3g} > {limit}")
+            log(f"golden {label}[{dt}]: max |dlogit| {d:.3g} (limit {limit}), argmax exact, "
+                f"launches {counts()}")
+        logits_u8 = M.forward(variables, xu8, M.DEFAULT_CONFIG).cpu().numpy()
+        d = np.abs(logits_u8 - gd["logits"]).max()
+        if not (d <= 1e-4 and np.array_equal(logits_u8.argmax(-1), gd["argmax"])):
+            raise AssertionError(f"{label}[uint8 fold, f32]: max |dlogit| {d:.3g}")
+        log(f"golden {label}[uint8 fold, f32]: max |dlogit| {d:.3g}, argmax exact")
+
+    # -- phase 5: the main path, RoomNetClassifier ---------------------------
+    serving = {}
+    launches = {}
+    for dt, cfg in cfgs.items():
+        clf = RoomNetClassifier(variables, cfg, batch_size=256, device=dev)
+        xb = torch.from_numpy(x256_u8).to(dev)
+        fwd_ms = cuda_ms(lambda: clf._predict(xb), reps=10)
+        zero_counts()
+        forwards = 0
+        for _ in range(2):
+            clf.predict(x256_u8)
+        t0 = time.perf_counter()
+        reps = 10
+        for _ in range(reps):
+            ids, probs = clf.predict(x256_u8)
+        thr = reps * 256 / (time.perf_counter() - t0)
+        forwards += 2 + reps
+        if not (np.isfinite(probs).all() and np.allclose(probs.sum(-1), 1.0, atol=1e-5)
+                and ids.shape == (256,)):
+            raise AssertionError(f"serving[{dt}]: malformed output")
+        lat = {}
+        for n in (1, 3, 8):
+            times = []
+            for i in range(20):
+                t1 = time.perf_counter()
+                ids_n, _ = clf.predict(gw["x_uint8_bgr"][i: i + n])
+                times.append((time.perf_counter() - t1) * 1e3)
+            forwards += 20
+            if not np.array_equal(ids_n, gw["argmax"][19: 19 + n]):
+                raise AssertionError(f"serving[{dt}]: batch-{n} request argmax differs from the TF graph")
+            lat[n] = statistics.median(times)
+        got = counts()
+        want = {n: c * forwards for n, c in per_forward.items()}
+        if got != want:
+            raise AssertionError(f"serving[{dt}]: launches {got} != {want} for {forwards} forwards")
+        launches[dt] = got
+        serving[dt] = {"img_per_s_batch256": thr, "device_forward_ms_batch256": fwd_ms,
+                       "p50_ms": {f"batch{n}": v for n, v in lat.items()}, "forwards": forwards}
+        log(f"serving[{dt}]: {thr:.1f} img/s at batch 256 (host clock, H2D included), device "
+            f"forward {fwd_ms:.3f} ms; p50 latency " +
+            ", ".join(f"batch {n} {v:.2f} ms" for n, v in lat.items()) +
+            f"; launches {got} over {forwards} forwards")
+        del clf, xb
+        torch.cuda.empty_cache()
+
+    log(json.dumps({"card": smi, "serving": serving}))
+    rows = []
+    for dt in cfgs:
+        for name, (_, _, replaces) in kernels.items():
+            t = timing[(name, dt)]
+            rows.append({
+                "name": f"{name}[{dt}]", "route": "cuda",
+                "source": f"roomnet_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+                "launches": launches[dt][name], "max_abs_err": max_err[(name, dt)],
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
+                "library_ms": t["library_ms"],
+            })
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

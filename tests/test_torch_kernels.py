@@ -1,0 +1,234 @@
+"""The port's four kernels: each plain version against the Pallas kernel it
+replaces, run as tests/test_pallas_kernels.py runs it (interpret mode on the
+CPU), and each wrapper's dispatch (plain on the CPU, raise elsewhere).
+
+Tolerances: f32 at rtol = atol = 1e-5, the conv at 1e-4 in rtol (sum
+order), as the JAX package's kernel tests hold them. bf16 within one bf16
+ulp (rtol 2^-7), the residual also within one ulp of its bf16-rounded
+intermediate scaled by the BN scale (atol 2^-7 * max|s| * max|res|). The
+CUDA kernels themselves are held against these plain versions on the card
+by tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from roomnet_tpu.ops import blocks as JB
+from roomnet_tpu.ops.pallas.conv_b2 import conv3x3_pallas
+from roomnet_tpu.ops.pallas.dense_head import dense_head_pallas
+from roomnet_tpu.ops.pallas.pool import fused_relu6_pool_bn
+from roomnet_tpu.ops.pallas.residual import residual_bn_pallas
+from roomnet_tpu.params import schema as jschema
+from roomnet_tpu_torch.ops import blocks as TB
+from roomnet_tpu_torch.ops.kernels import _build
+from roomnet_tpu_torch.ops.kernels.conv3x3 import conv3x3_plain
+from roomnet_tpu_torch.ops.kernels.dense_head import dense_head_plain, pack_head
+from roomnet_tpu_torch.ops.kernels.pool import relu6_pool_bn_plain
+from roomnet_tpu_torch.ops.kernels.residual import residual_bn_plain, source_pairs
+from roomnet_tpu_torch.ops.resize import interp_matrix_tf1
+from tests.conftest import ARTIFACTS
+from tests.torch_port_util import outputs, random_bn, torch_tree, wrapper_cases
+
+BF16_ULP = 2.0 ** -7
+T = torch.from_numpy
+
+
+@pytest.fixture(scope="module")
+def dense_layers_np():
+    with np.load(ARTIFACTS / "roomnet_params.npz") as data:
+        flat = dict(data)
+    return jschema.unflatten_jax(flat)["dense"]
+
+
+def _affine(bn, eps=JB.BN_EPS):
+    w, b = TB.bn_fold(torch_tree(bn), eps)
+    return w, b
+
+
+# -- conv3x3 -----------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(2, 18, 20, 8, 16), (2, 10, 13, 3, 8), (1, 26, 9, 32, 32)])
+def test_conv3x3_plain_matches_pallas(shape):
+    b, h, w, cin, cout = shape
+    rng = np.random.RandomState(1)
+    x = rng.randn(b, h, w, cin).astype(np.float32)
+    k = (rng.randn(3, 3, cin, cout) * 0.1).astype(np.float32)
+    want = np.asarray(conv3x3_pallas(x, k, row_tile=8, interpret=True))
+    got = conv3x3_plain(T(x), T(k)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_conv3x3_plain_bias_is_added_in_f32():
+    """The folded conv-0 bias: conv + bias, matching the JAX forward's
+    ``conv2d_valid(x, k') + b'`` in f32."""
+    rng = np.random.RandomState(2)
+    x = rng.randint(0, 256, size=(2, 12, 12, 3)).astype(np.float32)
+    k = (rng.randn(3, 3, 3, 8) * 0.01).astype(np.float32)
+    bias = rng.randn(8).astype(np.float32)
+    want = np.asarray(JB.conv2d_valid(x, k) + bias)
+    got = conv3x3_plain(T(x), T(k), T(bias)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_conv3x3_plain_bf16_rounds_once():
+    rng = np.random.RandomState(3)
+    x = T(rng.randn(1, 9, 9, 8).astype(np.float32)).bfloat16()
+    k = T(rng.randn(3, 3, 8, 16).astype(np.float32)).bfloat16()
+    got = conv3x3_plain(x, k)
+    assert got.dtype == torch.bfloat16
+    want = TB.conv2d_valid(x.float(), k.float()).bfloat16()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# -- relu6_pool_bn -----------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(12, 12, 8, 3), (13, 15, 32, 4), (107, 53, 8, 3)])
+def test_pool_plain_matches_pallas_stride1(shape):
+    h, w, c, k = shape
+    rng = np.random.RandomState(0)
+    x = (rng.randn(2, h, w, c) * 3).astype(np.float32)
+    bn = random_bn(rng, c)
+    jw, jb = JB.bn_fold(bn, JB.BN_EPS)
+    want = np.asarray(fused_relu6_pool_bn(x, jw, jb, ksize=k, stride=1, interpret=True))
+    got = relu6_pool_bn_plain(T(x), *_affine(bn), ksize=k, stride=1).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(203, 203, 4, 4, 2), (19, 19, 16, 4, 2), (14, 11, 8, 1, 1)])
+def test_pool_plain_matches_blocks_composition(shape):
+    """Stride 2 (the Pallas kernel refuses it) and B4's 1x1 window, against
+    the JAX forward's relu6 -> avg_pool_valid -> batch_norm."""
+    h, w, c, k, s = shape
+    rng = np.random.RandomState(1)
+    x = (rng.randn(2, h, w, c) * 3).astype(np.float32)
+    bn = random_bn(rng, c)
+    want = np.asarray(JB.batch_norm(JB.avg_pool_valid(JB.relu6(x), k, s), bn))
+    got = relu6_pool_bn_plain(T(x), *_affine(bn), ksize=k, stride=s).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_pool_plain_divides_by_window_area():
+    """Sum then divide, as parity mode requires: a 3x3 window summing to 17
+    gives float32(17)/9, which is not float32(17) * float32(1/9)."""
+    x = torch.full((1, 3, 3, 1), 2.0)
+    x[0, 0, 0, 0] = 1.0
+    got = relu6_pool_bn_plain(x, torch.ones(1), torch.zeros(1), ksize=3, stride=1).item()
+    assert got == np.float32(17) / np.float32(9)
+    assert got != np.float32(17) * (np.float32(1) / np.float32(9))
+
+
+# -- residual_bn ---------------------------------------------------------------
+
+@pytest.mark.parametrize("shapes", [((21, 19), (25, 23)), ((48, 48), (100, 100)), ((2, 2), (21, 21))])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_residual_plain_matches_pallas(shapes, dtype):
+    (ho, wo), (hi, wi) = shapes
+    rng = np.random.RandomState(3)
+    c = 8
+    bn = random_bn(rng, c)
+    x = rng.randn(2, ho, wo, c).astype(np.float32)
+    res = rng.randn(2, hi, wi, c).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    want = np.asarray(residual_bn_pallas(jnp.asarray(x, jdt), jnp.asarray(res, jdt), bn,
+                                         interpret=True).astype(jnp.float32))
+    s, t = _affine(bn)
+    tdt = getattr(torch, dtype)
+    got = residual_bn_plain(T(x).to(tdt), T(res).to(tdt), s, t).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        xb = T(res).to(tdt).float()
+        atol = BF16_ULP * s.abs().max().item() * xb.abs().max().item()
+        np.testing.assert_allclose(got, want, rtol=BF16_ULP, atol=atol)
+
+
+@pytest.mark.parametrize("src,dst", [(215, 205), (100, 48), (21, 2), (7, 13), (9, 9)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_residual_source_pairs_rebuild_the_interp_matrix(src, dst, dtype):
+    """The kernel's two (index, weight) pairs per output hold exactly the
+    nonzeros of the port's own float32 matrix (bf16-rounded in bf16)."""
+    m = torch.from_numpy(interp_matrix_tf1(src, dst)).to(dtype).float().numpy()
+    idx, wts = source_pairs(src, dst, dtype)
+    rebuilt = np.zeros_like(m)
+    for j in range(dst):
+        for p in range(2):
+            if wts[j, p] != 0:
+                rebuilt[idx[j, p], j] += wts[j, p]
+    np.testing.assert_array_equal(rebuilt, m)
+
+
+# -- dense_head ----------------------------------------------------------------
+
+@pytest.mark.parametrize("bsz", [1, 16, 300])
+def test_dense_head_plain_matches_pallas(dense_layers_np, bsz):
+    x = np.random.RandomState(0).randn(bsz, 64).astype(np.float32)
+    want = np.asarray(dense_head_pallas(dense_layers_np, x))
+    logits, probs = dense_head_plain(T(x), *pack_head(torch_tree(dense_layers_np)))
+    np.testing.assert_allclose(probs.numpy(), want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(probs.sum(-1).numpy(), 1.0, atol=1e-5)
+    assert logits.min() >= 0 and logits.max() <= 6
+
+
+def test_dense_head_plain_honors_bn_eps(dense_layers_np):
+    eps = 1e-2
+    x = np.random.RandomState(1).randn(8, 64).astype(np.float32)
+    want = np.asarray(dense_head_pallas(dense_layers_np, x, bn_eps=eps))
+    tl = torch_tree(dense_layers_np)
+    _, got = dense_head_plain(T(x), *pack_head(tl, eps))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    _, default = dense_head_plain(T(x), *pack_head(tl))
+    assert (default - got).abs().max() > 1e-6
+
+
+def test_dense_head_plain_takes_any_widths():
+    """roomnet-tiny's 256 -> 16 -> 8 -> 6 head (three layers), against the
+    JAX forward's dense -> relu6 -> BN chain."""
+    rng = np.random.RandomState(2)
+    widths = (256, 16, 8, 6)
+    layers = []
+    for i in range(3):
+        last = i == 2
+        layers.append({"kernel": (rng.randn(widths[i], widths[i + 1]) * 0.2).astype(np.float32),
+                       "bias": rng.randn(6).astype(np.float32) if last else None,
+                       "bn": None if last else random_bn(rng, widths[i + 1])})
+    x = rng.randn(5, 256).astype(np.float32)
+    h = x
+    for layer in layers:
+        h = JB.relu6(JB.dense(h, layer["kernel"], layer["bias"]))
+        if layer["bn"] is not None:
+            h = JB.batch_norm(h, layer["bn"])
+    packed, got_widths = pack_head(torch_tree(layers))
+    assert got_widths == widths
+    logits, probs = dense_head_plain(T(x), packed, got_widths)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(h), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(probs.numpy(), np.asarray(jax.nn.softmax(h, -1)), rtol=1e-5, atol=1e-6)
+
+
+# -- the wrappers: plain on CPU, kernel or raise elsewhere -----------------------
+
+@pytest.mark.parametrize("case", range(4))
+def test_wrapper_on_cpu_runs_plain_and_counts_nothing(case):
+    kern, plain, args, kwargs = wrapper_cases("cpu")[case]
+    before = kern.launches
+    for a, b in zip(outputs(kern(*args, **kwargs)), outputs(plain(*args, **kwargs))):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert kern.launches == before
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_wrapper_on_meta_device_raises(case):
+    """No fallback: a tensor that is neither on the CPU nor on a CUDA card is refused."""
+    kern, _, args, kwargs = wrapper_cases("meta")[case]
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kern(*args, **kwargs)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()

@@ -1,0 +1,71 @@
+"""Shared helpers of the tests of the PyTorch port (tests/test_torch_*.py).
+
+Inputs are made with numpy from a seed and handed to both packages as
+arrays; JAX runs on the CPU, PyTorch on the CPU unless a test is marked
+`cuda` (skipped where no GPU is present).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from roomnet_tpu_torch.ops.blocks import bn_fold
+from roomnet_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_plain
+from roomnet_tpu_torch.ops.kernels.dense_head import dense_head, dense_head_plain, pack_head
+from roomnet_tpu_torch.ops.kernels.pool import relu6_pool_bn, relu6_pool_bn_plain
+from roomnet_tpu_torch.ops.kernels.residual import residual_bn, residual_bn_plain
+
+
+@pytest.fixture
+def cuda_device():
+    """The CUDA device for a `cuda`-marked test; skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode); run on the card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def random_bn(rng: np.random.RandomState, c: int) -> dict[str, np.ndarray]:
+    return {
+        "scale": (rng.rand(c) + 0.5).astype(np.float32),
+        "bias": rng.randn(c).astype(np.float32),
+        "mean": rng.randn(c).astype(np.float32),
+        "var": (rng.rand(c) + 0.5).astype(np.float32),
+    }
+
+
+def torch_tree(tree, device="cpu"):
+    """numpy/JAX leaves -> torch tensors, same structure."""
+    if isinstance(tree, dict):
+        return {k: torch_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [torch_tree(v, device) for v in tree]
+    return None if tree is None else torch.from_numpy(np.array(tree)).to(device)
+
+
+def wrapper_cases(device, dtype=torch.float32):
+    """(wrapper, plain, args, kwargs) of each of the four kernels at a small
+    shape, activations in `dtype` on `device`."""
+    rng = np.random.RandomState(4)
+    s, t = (v.to(device) for v in bn_fold(torch_tree(random_bn(rng, 8))))
+
+    def act(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device, dtype)
+
+    x, k, res, flat = act(2, 12, 11, 8), act(3, 3, 8, 8), act(2, 15, 14, 8), act(5, 8)
+    packed, widths = pack_head(torch_tree([
+        {"kernel": rng.randn(8, 4).astype(np.float32), "bias": None, "bn": random_bn(rng, 4)},
+        {"kernel": rng.randn(4, 3).astype(np.float32), "bias": rng.randn(3).astype(np.float32),
+         "bn": None}]))
+    return [
+        (conv3x3, conv3x3_plain, (x, k, s), {}),
+        (relu6_pool_bn, relu6_pool_bn_plain, (x, s, t), {"ksize": 4, "stride": 2}),
+        (residual_bn, residual_bn_plain, (x, res, s, t), {}),
+        (dense_head, dense_head_plain, (flat, packed.to(device), widths), {}),
+    ]
+
+
+def outputs(y):
+    """A kernel's result as a tuple of tensors."""
+    return (y,) if isinstance(y, torch.Tensor) else tuple(y)
