@@ -18,7 +18,11 @@ kernels, in phases; any failure raises and the script exits non-zero:
   3. Each kernel's time at batch 256, f32 and bf16, summed over its launches
      in one forward, beside its plain version, a PyTorch library call where
      one computes the same function (F.conv2d; F.avg_pool2d + the BN affine),
-     and its bound: max(bytes / 3.35 TB/s, FLOPs / peak), peak 67 TFLOP/s for
+     and its bound. Kernel, plain and library are timed in turns (kernel,
+     plain, library, kernel, plain, library, kernel), each window at least
+     WINDOW_MS of device time and 5 calls; each time is the median of its
+     windows. The conv's variant (tile, shared memory) is printed per site.
+     The bound is max(bytes / 3.35 TB/s, FLOPs / peak), peak 67 TFLOP/s for
      f32 arithmetic and 989 TFLOP/s for bf16 convolutions (H100 SXM). Bytes
      count each input element the function reads once (for the pool and the
      residual, only the rows and columns its windows or weights reach) and
@@ -31,13 +35,16 @@ kernels, in phases; any failure raises and the script exits non-zero:
      of batch 1, 3 and 8 (latency), bf16 and f32, with the launch counters
      zeroed before and read after each dtype's run.
 
-Then one JSON line of per-kernel results and, last, the device line.
+Then the serving JSON line, the script's wall time, one JSON line of
+per-kernel results and, last, the device line.
 f32 parity needs TF32 off; the script turns it off for everything it runs.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -49,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12
+WINDOW_MS = 20.0  # device time of one timed window
 PEAK_F32 = 67e12
 PEAK_BF16_TENSOR = 989e12
 GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
@@ -67,9 +75,8 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    fn()
-    torch.cuda.synchronize()
+def window_ms(fn, reps: int) -> float:
+    """Device ms per call over one window of `reps` back-to-back calls."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -79,11 +86,41 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def reps_for(fn) -> int:
+    """Calls per timed window: enough for WINDOW_MS of device time, at least 5."""
+    fn()
+    torch.cuda.synchronize()
+    once = window_ms(fn, 1)
+    return max(5, math.ceil(WINDOW_MS / max(once, 1e-3)))
+
+
+def cuda_ms(fn) -> float:
+    """Device ms per call, one calibrated window after a warm-up."""
+    return window_ms(fn, reps_for(fn))
+
+
+def in_turns(fns: dict) -> dict:
+    """Device ms per call of each function, timed in turns on one card: the
+    first (the kernel) in three windows around two of each other, as in
+    kernel, plain, library, kernel, plain, library, kernel. Each time is the
+    median of its windows."""
+    reps = {name: reps_for(fn) for name, fn in fns.items()}
+    first, others = list(fns)[0], list(fns)[1:]
+    got = {name: [] for name in fns}
+    for turn in range(3):
+        got[first].append(window_ms(fns[first], reps[first]))
+        if turn < 2:
+            for name in others:
+                got[name].append(window_ms(fns[name], reps[name]))
+    return {name: statistics.median(v) for name, v in got.items()}
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def main() -> None:
+    wall0 = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; the port's smoke run needs a GPU")
     torch.backends.cudnn.allow_tf32 = False
@@ -122,8 +159,20 @@ def main() -> None:
         logf = _build.BUILD_DIR / f"{name}.log"
         if logf.exists():
             for line in logf.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if "entry function" in line or "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
+
+    variant_fn = _build.entry("conv3x3", "rn_conv3x3_variant", [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+    def conv_variant(dt: str, args) -> str:
+        """The conv kernel's variant for one launch (csrc/conv3x3.cu:rn_conv3x3_variant)."""
+        x, k = args[0], args[1]
+        out = (ctypes.c_int * 5)()
+        rc = variant_fn(x.shape[1], x.shape[2], x.shape[3], k.shape[3], int(dt == "bf16"), out)
+        _build.check("conv3x3", "rn_conv3x3_variant", rc)
+        names = ("Cout_p", "rows/warp") if dt == "bf16" else ("NT", "warp cols")
+        return (f"{names[0]} {out[0]}, {names[1]} {out[1]}, tile {out[2]}x{out[3]}, "
+                f"smem {out[4]} B")
 
     cfgs = {"f32": M.DEFAULT_CONFIG, "bf16": M.FAST_CONFIG}
     variables = load_npz(pathlib.Path(__file__).resolve().parent / "artifacts" / "roomnet_params.npz",
@@ -242,10 +291,12 @@ def main() -> None:
             nb, flops, peak = work(name, dt, args, kwargs, out)
             bound = max(nb / HBM_BYTES_PER_S, flops / peak) * 1e3
             by = "bytes" if nb / HBM_BYTES_PER_S >= flops / peak else "operations"
-            k_ms = cuda_ms(lambda: kern(*args, **kwargs))
-            p_ms = cuda_ms(lambda: plain(*args, **kwargs))
+            fns = {"kernel": lambda: kern(*args, **kwargs), "plain": lambda: plain(*args, **kwargs)}
             lib = library_call(name, args, kwargs)
-            l_ms = cuda_ms(lib) if lib is not None else None
+            if lib is not None:
+                fns["library"] = lib
+            ms = in_turns(fns)
+            k_ms, p_ms, l_ms = ms["kernel"], ms["plain"], ms.get("library")
             acc = timing.setdefault((name, dt), {"ms": 0.0, "plain_ms": 0.0, "library_ms": None,
                                                  "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0})
             acc["ms"] += k_ms
@@ -256,9 +307,10 @@ def main() -> None:
             acc["bytes_ms"] += nb / HBM_BYTES_PER_S * 1e3
             acc["ops_ms"] += flops / peak * 1e3
             lib_s = f"{l_ms:.4f}" if l_ms is not None else "n/a"
+            variant = f", variant {conv_variant(dt, args)}" if name == "conv3x3" else ""
             log(f"time {name}[{dt}] site {i} in {tuple(args[0].shape)} -> {tuple(out0(out).shape)}: "
                 f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib_s} ms, "
-                f"bound {bound:.4f} ms ({by})")
+                f"bound {bound:.4f} ms ({by}){variant}")
             del out
         del sites
         torch.cuda.empty_cache()
@@ -298,7 +350,7 @@ def main() -> None:
     for dt, cfg in cfgs.items():
         clf = RoomNetClassifier(variables, cfg, batch_size=256, device=dev)
         xb = torch.from_numpy(x256_u8).to(dev)
-        fwd_ms = cuda_ms(lambda: clf._predict(xb), reps=10)
+        fwd_ms = cuda_ms(lambda: clf._predict(xb))
         zero_counts()
         forwards = 0
         for _ in range(2):
@@ -338,6 +390,7 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     log(json.dumps({"card": smi, "serving": serving}))
+    log(f"wall: {time.perf_counter() - wall0:.1f} s from start to the result lines")
     rows = []
     for dt in cfgs:
         for name, (_, _, replaces) in kernels.items():

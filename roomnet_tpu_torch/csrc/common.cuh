@@ -58,6 +58,23 @@ class DeviceGuard {
   cudaError_t err_;
 };
 
+// 16-byte asynchronous copy from global to shared memory (cp.async, L2
+// only). With `valid` false nothing is read and the 16 bytes are zeroed;
+// `gmem` must still be a mapped address.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 inline unsigned grid_for(long long n, int threads) {
   long long blocks = (n + threads - 1) / threads;
   const long long cap = 132LL * 32;  // grid-stride beyond 32 blocks per SM

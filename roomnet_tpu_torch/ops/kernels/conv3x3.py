@@ -1,10 +1,23 @@
 """3x3 VALID conv, NHWC x HWIO -> NHWC, f32 accumulation: csrc/conv3x3.cu.
 
-Replaces roomnet_tpu/ops/pallas/conv_b2.py:conv3x3_pallas. On an H100 it is
-bound by operations (~4.5 GFLOP per image over the forward's ten convs); the
-kernel is a direct convolution on CUDA cores with shared-memory tiles (see
-the source's header). The optional f32 bias carries the uint8 preprocess
-folded into conv 0 (models/roomnet.py:_fold_preprocess_into_first_conv).
+Replaces roomnet_tpu/ops/pallas/conv_b2.py:conv3x3_pallas. The kernel is an
+implicit GEMM over a shared-memory halo tile (see the source's header): in
+bf16 on tensor cores (mma.sync), in f32 on CUDA cores in full f32. The
+optional f32 bias carries the uint8 preprocess folded into conv 0
+(models/roomnet.py:_fold_preprocess_into_first_conv).
+
+The kernel reads its weights in a packed layout, made here from the HWIO
+kernel by `pack_bf16` / `pack_f32` once per kernel tensor and cached beside
+it:
+
+  * bf16: [slice][Cout_p][8], slice j = tap * c8 + c the channels 8c..8c+7
+    of tap (dy, dx) = divmod(tap, 3), c8 = ceil(Cin / 8), the slice count
+    padded to even, Cout padded to Cout_p in COUT_STEPS. It is the
+    shared-memory image the kernel copies as it is.
+  * f32: [Cout tile][chunk][tap][4][NT], chunk c the channels 4c..4c+3, NT =
+    min(64, Cout_p) output channels per block.
+
+Every padded entry is zero.
 
 On a CPU tensor `conv3x3` runs `conv3x3_plain`; on a CUDA tensor it
 launches the kernel or raises.
@@ -15,6 +28,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import blocks
 from . import _build
@@ -22,6 +36,10 @@ from . import _build
 P = ctypes.c_void_p
 I = ctypes.c_int
 _ARGS = [P, P, P, P, I, I, I, I, I, I, I, P]
+COUT_STEPS = (8, 16, 32, 64, 128)
+F32_NT = 64  # output channels of one f32 block
+
+_packed = WeakIdKeyDictionary()  # kernel tensor -> (version, dtype, packed)
 
 
 def conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
@@ -33,6 +51,55 @@ def conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | No
     return y.to(x.dtype)
 
 
+def cout_padded(cout: int) -> int:
+    """The kernel's Cout_p: the smallest of COUT_STEPS that holds `cout`."""
+    for step in COUT_STEPS:
+        if cout <= step:
+            return step
+    raise ValueError(f"conv3x3: Cout {cout} > {COUT_STEPS[-1]} is not supported by the kernel")
+
+
+def _zero_padded(kernel: torch.Tensor, cin_p: int, cout_p: int) -> torch.Tensor:
+    """(9, cin_p, cout_p): the HWIO kernel with taps flattened and zeros past
+    Cin and Cout."""
+    _, _, cin, cout = kernel.shape
+    k = kernel.new_zeros((9, cin_p, cout_p))
+    k[:, :cin, :cout] = kernel.reshape(9, cin, cout)
+    return k
+
+
+def pack_bf16(kernel: torch.Tensor) -> torch.Tensor:
+    """HWIO (3,3,Cin,Cout) -> [slice][Cout_p][8] in kernel.dtype."""
+    _, _, cin, cout = kernel.shape
+    c8, cout_p = -(-cin // 8), cout_padded(cout)
+    k = _zero_padded(kernel, 8 * c8, cout_p)
+    k = k.reshape(9, c8, 8, cout_p).permute(0, 1, 3, 2).reshape(9 * c8, cout_p, 8)
+    if k.shape[0] % 2:
+        k = torch.cat([k, k.new_zeros((1, cout_p, 8))])
+    return k.contiguous()
+
+
+def pack_f32(kernel: torch.Tensor) -> torch.Tensor:
+    """HWIO (3,3,Cin,Cout) -> [Cout tile][chunk][tap][4][NT] in kernel.dtype."""
+    _, _, cin, cout = kernel.shape
+    chunks, nt = -(-cin // 4), min(F32_NT, cout_padded(cout))
+    tiles = -(-cout // nt)
+    k = _zero_padded(kernel, 4 * chunks, tiles * nt)
+    return k.reshape(9, chunks, 4, tiles, nt).permute(3, 1, 0, 2, 4).contiguous()
+
+
+def packed_kernel(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The packed weights of `kernel` in `dtype`, made once per kernel tensor
+    (and again after an in-place change to it)."""
+    hit = _packed.get(kernel)
+    if hit is not None and hit[0] == kernel._version and hit[1] == dtype:
+        return hit[2]
+    k = kernel.to(dtype)
+    packed = pack_bf16(k) if dtype == torch.bfloat16 else pack_f32(k)
+    _packed[kernel] = (kernel._version, dtype, packed)
+    return packed
+
+
 def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
     """VALID 3x3 conv, stride 1: x (B,H,W,Cin), kernel (3,3,Cin,Cout) ->
     (B,H-2,W-2,Cout) in x.dtype; bias (Cout,) f32 or None."""
@@ -42,16 +109,18 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = N
     if tuple(kernel.shape[:3]) != (3, 3, Cin) or H < 3 or W < 3:
         raise ValueError(f"conv3x3: x {tuple(x.shape)} and kernel {tuple(kernel.shape)} do not fit")
     Cout = kernel.shape[3]
-    kernel = kernel.to(x.dtype).contiguous()
     if bias is not None:
         bias = bias.float().contiguous()
         if bias.shape != (Cout,):
             raise ValueError(f"conv3x3: bias {tuple(bias.shape)} is not ({Cout},)")
-    operands = (kernel,) if bias is None else (kernel, bias)
+    packed = packed_kernel(kernel, x.dtype)
+    operands = (packed,) if bias is None else (packed, bias)
     dtype, device, stream = _build.launch_args("conv3x3", x, *operands)
+    if x.data_ptr() % 16:
+        raise ValueError("conv3x3: x must start on a 16-byte boundary")
     y = torch.empty((B, H - 2, W - 2, Cout), dtype=x.dtype, device=x.device)
     fn = _build.entry("conv3x3", "rn_conv3x3", _ARGS)
-    rc = fn(x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
+    rc = fn(x.data_ptr(), packed.data_ptr(), None if bias is None else bias.data_ptr(),
             y.data_ptr(), B, H, W, Cin, Cout, dtype, device, stream)
     conv3x3.launches += 1
     _build.check("conv3x3", "rn_conv3x3", rc)

@@ -3,8 +3,10 @@
 Replaces roomnet_tpu/ops/pallas/pool.py:fused_relu6_pool_bn, which took
 stride 1 only. This one takes any (k, s): k3/s1 (B1), k4/s1 (B2), k4/s2 (B3,
 B5) and k=1, s=1 for B4, which has no pool. On an H100 it is bound by bytes:
-one read of x and one write of y. (w, b) is the BN folded by
-`ops.blocks.bn_fold` with the config's eps.
+one read of x and one write of y. The kernel is a strip stencil that reads
+each input once and sums the window along W, then along H (see the
+source's header). (w, b) is the BN folded by `ops.blocks.bn_fold` with the
+config's eps.
 
 On a CPU tensor `relu6_pool_bn` runs `relu6_pool_bn_plain`; on a CUDA
 tensor it launches the kernel or raises.
@@ -22,6 +24,7 @@ from . import _build
 P = ctypes.c_void_p
 I = ctypes.c_int
 _ARGS = [P, P, P, P, I, I, I, I, I, I, I, I, P]
+KMAX = 4  # the widest window csrc/relu6_pool_bn.cu takes
 
 
 def relu6_pool_bn_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, ksize: int,
@@ -40,6 +43,8 @@ def relu6_pool_bn(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, ksize: i
     B, H, W, C = x.shape
     if ksize < 1 or stride < 1 or H < ksize or W < ksize:
         raise ValueError(f"relu6_pool_bn: window {ksize}/{stride} does not fit {tuple(x.shape)}")
+    if ksize > KMAX:
+        raise ValueError(f"relu6_pool_bn: the kernel takes windows up to {KMAX}, not {ksize}")
     w = w.float().contiguous()
     b = b.float().contiguous()
     if w.shape != (C,) or b.shape != (C,):

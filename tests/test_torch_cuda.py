@@ -21,9 +21,9 @@ import torch
 
 from roomnet_tpu_torch.models import registry
 from roomnet_tpu_torch.models import roomnet as M
-from roomnet_tpu_torch.ops.kernels.conv3x3 import conv3x3
+from roomnet_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_plain
 from roomnet_tpu_torch.ops.kernels.dense_head import dense_head
-from roomnet_tpu_torch.ops.kernels.pool import relu6_pool_bn
+from roomnet_tpu_torch.ops.kernels.pool import relu6_pool_bn, relu6_pool_bn_plain
 from roomnet_tpu_torch.ops.kernels.residual import residual_bn
 from roomnet_tpu_torch.params.schema import load_npz
 # Imported by its own name (pytest puts tests/ on sys.path): on a machine with
@@ -82,3 +82,42 @@ def test_cuda_forward_golden_through_the_kernels(cuda_device, cfg_name):
     np.testing.assert_array_equal(logits.argmax(-1), g["argmax"])
     limit = 1e-4 if cfg_name == "roomnet-224" else 0.15
     assert np.abs(logits - g["logits"]).max() <= limit
+
+
+# The new designs' edges: tiles cut by H and W, batch 1 and 3, bias on and off.
+# (Cin, Cout) of the 224 forward's convs, each Cin with its Cout.
+CONV_SHAPES = [(3, 8), (8, 32), (16, 16), (32, 32), (32, 64), (64, 64), (64, 128), (128, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", CONV_SHAPES)
+@pytest.mark.parametrize("batch,h,w", [(1, 19, 37), (3, 13, 11)])
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_conv3x3_at_tile_edges(cuda_device, cin, cout, batch, h, w, with_bias, dtype):
+    rng = np.random.RandomState(cin * 1000 + cout + h)
+    x = torch.from_numpy(rng.randn(batch, h, w, cin).astype(np.float32)).to(cuda_device, dtype)
+    k = torch.from_numpy((rng.randn(3, 3, cin, cout) / np.sqrt(9 * cin)).astype(np.float32))
+    k = k.to(cuda_device, dtype)
+    bias = torch.from_numpy(rng.randn(cout).astype(np.float32)).to(cuda_device) if with_bias else None
+    got, want = conv3x3(x, k, bias), conv3x3_plain(x, k, bias)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, h - 2, w - 2, cout)
+    rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else (BF16_ULP, BF16_ULP * 8)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ksize,stride", [(1, 1), (3, 1), (4, 1), (4, 2)])
+@pytest.mark.parametrize("c", [3, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_relu6_pool_bn_at_strip_edges(cuda_device, ksize, stride, c, dtype):
+    rng = np.random.RandomState(c + 10 * ksize + stride)
+    x = torch.from_numpy((rng.randn(3, 23, 37, c) * 4).astype(np.float32)).to(cuda_device, dtype)
+    w = torch.from_numpy((rng.rand(c) + 0.5).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda_device)
+    got = relu6_pool_bn(x, w, b, ksize=ksize, stride=stride)
+    want = relu6_pool_bn_plain(x, w, b, ksize=ksize, stride=stride)
+    torch.cuda.synchronize()
+    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (BF16_ULP, BF16_ULP * 8)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)

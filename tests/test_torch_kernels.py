@@ -24,6 +24,8 @@ from roomnet_tpu.ops.pallas.residual import residual_bn_pallas
 from roomnet_tpu.params import schema as jschema
 from roomnet_tpu_torch.ops import blocks as TB
 from roomnet_tpu_torch.ops.kernels import _build
+from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
+from roomnet_tpu_torch.ops.kernels import pool as KP
 from roomnet_tpu_torch.ops.kernels.conv3x3 import conv3x3_plain
 from roomnet_tpu_torch.ops.kernels.dense_head import dense_head_plain, pack_head
 from roomnet_tpu_torch.ops.kernels.pool import relu6_pool_bn_plain
@@ -83,6 +85,112 @@ def test_conv3x3_plain_bf16_rounds_once():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+# (Cin, Cout) of the ten convs of the 224 forward, in order.
+MAIN_PATH_CONVS = [(3, 8), (8, 32), (32, 32), (32, 32), (32, 64), (64, 64), (64, 128),
+                   (128, 16), (16, 16), (16, 16)]
+
+
+def _conv_operands(cin, cout, dtype, seed):
+    """x (2,11,13,Cin) and an HWIO kernel scaled so outputs are O(1)."""
+    rng = np.random.RandomState(seed)
+    x = T(rng.randn(2, 11, 13, cin).astype(np.float32)).to(dtype)
+    k = T((rng.randn(3, 3, cin, cout) / np.sqrt(9 * cin)).astype(np.float32)).to(dtype)
+    return x, k
+
+
+def _unpack_bf16(packed, cin, cout):
+    """HWIO back from pack_bf16's [slice][Cout_p][8]."""
+    c8, cout_p = -(-cin // 8), packed.shape[1]
+    k = packed[: 9 * c8].reshape(9, c8, cout_p, 8).permute(0, 1, 3, 2).reshape(9, 8 * c8, cout_p)
+    return k[:, :cin, :cout].reshape(3, 3, cin, cout)
+
+
+def _unpack_f32(packed, cin, cout):
+    """HWIO back from pack_f32's [Cout tile][chunk][tap][4][NT]."""
+    tiles, chunks, _, _, nt = packed.shape
+    k = packed.permute(2, 1, 3, 0, 4).reshape(9, 4 * chunks, tiles * nt)
+    return k[:, :cin, :cout].reshape(3, 3, cin, cout)
+
+
+def _gemm_bf16(x, packed, cout):
+    """The bf16 kernel's implicit GEMM in PyTorch: per K slice (8 channels of
+    one tap), the shifted view of the zero-padded input times the slice's
+    [Cout_p][8] weights, summed in f32 and rounded once."""
+    b, h, w, cin = x.shape
+    c8 = -(-cin // 8)
+    xp = torch.nn.functional.pad(x.float(), (0, 8 * c8 - cin))
+    y = torch.zeros((b, h - 2, w - 2, packed.shape[1]))
+    for j in range(packed.shape[0]):
+        tap, c = divmod(min(j, 9 * c8 - 1), c8)  # the padding slice is all zeros
+        dy, dx = divmod(tap, 3)
+        y += xp[:, dy:dy + h - 2, dx:dx + w - 2, 8 * c:8 * c + 8] @ packed[j].float().T
+    return y[..., :cout].to(x.dtype)
+
+
+def _gemm_f32(x, packed, cout):
+    """The f32 kernel's implicit GEMM in PyTorch: per Cout tile, chunk of 4
+    input channels and tap, the shifted view times the [4][NT] weights."""
+    b, h, w, cin = x.shape
+    tiles, chunks, _, _, nt = packed.shape
+    xp = torch.nn.functional.pad(x, (0, 4 * chunks - cin))
+    y = torch.zeros((b, h - 2, w - 2, tiles * nt))
+    for t in range(tiles):
+        for c in range(chunks):
+            for tap in range(9):
+                dy, dx = divmod(tap, 3)
+                view = xp[:, dy:dy + h - 2, dx:dx + w - 2, 4 * c:4 * c + 4]
+                y[..., t * nt:(t + 1) * nt] += view @ packed[t, c, tap]
+    return y[..., :cout]
+
+
+@pytest.mark.parametrize("site", range(len(MAIN_PATH_CONVS)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_conv3x3_packed_implicit_gemm_matches_plain(site, dtype):
+    cin, cout = MAIN_PATH_CONVS[site]
+    x, k = _conv_operands(cin, cout, dtype, seed=10 + site)
+    want = conv3x3_plain(x, k)
+    if dtype == torch.bfloat16:
+        got = _gemm_bf16(x, KC.pack_bf16(k), cout)
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_ULP, atol=1e-5)
+    else:
+        got = _gemm_f32(x, KC.pack_f32(k), cout)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("site", range(len(MAIN_PATH_CONVS)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_conv3x3_pack_unpacks_to_hwio(site, dtype):
+    cin, cout = MAIN_PATH_CONVS[site]
+    _, k = _conv_operands(cin, cout, dtype, seed=30 + site)
+    if dtype == torch.bfloat16:
+        packed = KC.pack_bf16(k)
+        assert packed.shape[0] % 2 == 0 and packed.shape[1:] == (KC.cout_padded(cout), 8)
+        back = _unpack_bf16(packed, cin, cout)
+    else:
+        packed = KC.pack_f32(k)
+        assert packed.shape[4] == min(KC.F32_NT, KC.cout_padded(cout))
+        back = _unpack_f32(packed, cin, cout)
+    assert packed.dtype == dtype
+    assert torch.equal(back, k)
+    assert packed.count_nonzero() == k.count_nonzero()  # the padding is zeros
+
+
+def test_conv3x3_packed_kernel_is_cached_per_tensor_and_version():
+    _, k = _conv_operands(8, 16, torch.float32, seed=5)
+    first = KC.packed_kernel(k, torch.float32)
+    assert KC.packed_kernel(k, torch.float32) is first
+    assert KC.packed_kernel(k, torch.bfloat16).dtype == torch.bfloat16
+    k.mul_(2.0)  # an in-place change repacks
+    again = KC.packed_kernel(k, torch.float32)
+    assert again is not first
+    assert torch.equal(_unpack_f32(again, 8, 16), k)
+
+
+def test_conv3x3_refuses_cout_past_128():
+    with pytest.raises(ValueError, match="not supported"):
+        KC.cout_padded(129)
+
+
 # -- relu6_pool_bn -----------------------------------------------------------
 
 @pytest.mark.parametrize("shape", [(12, 12, 8, 3), (13, 15, 32, 4), (107, 53, 8, 3)])
@@ -118,6 +226,14 @@ def test_pool_plain_divides_by_window_area():
     got = relu6_pool_bn_plain(x, torch.ones(1), torch.zeros(1), ksize=3, stride=1).item()
     assert got == np.float32(17) / np.float32(9)
     assert got != np.float32(17) * (np.float32(1) / np.float32(9))
+
+
+def test_pool_wrapper_refuses_windows_past_kmax():
+    """The kernel's register ring holds KMAX row sums; a wider window is refused
+    before any launch (here on the meta device, which never launches)."""
+    x, w = torch.zeros((1, 9, 9, 8), device="meta"), torch.ones(8, device="meta")
+    with pytest.raises(ValueError, match="windows up to 4"):
+        KP.relu6_pool_bn(x, w, w, ksize=KP.KMAX + 1, stride=1)
 
 
 # -- residual_bn ---------------------------------------------------------------
