@@ -15,13 +15,20 @@ kernels, in phases; any failure raises and the script exits non-zero:
      outputs within one bf16 ulp (rtol 2^-7) after identical f32 math in
      another order; the residual also within one ulp of its bf16-rounded
      intermediate (atol 2^-7 * max|s| * max|res|).
-  3. Each kernel's time at batch 256, f32 and bf16, summed over its launches
-     in one forward, beside its plain version, a PyTorch library call where
-     one computes the same function (F.conv2d; F.avg_pool2d + the BN affine),
-     and its bound. Kernel, plain and library are timed in turns (kernel,
-     plain, library, kernel, plain, library, kernel), each window at least
+  3. Each kernel at batch 256, f32 and bf16, on the operands of every launch
+     of one forward: held against its plain version at phase 2's
+     tolerances (the largest grids: the bf16 conv's persistent blocks walk
+     several tiles each only here), then its time summed over its launches,
+     beside its plain version, a PyTorch library call where one computes
+     the same function (F.conv2d; F.avg_pool2d + the BN affine), and its
+     bound. Kernel, plain and library are timed in turns (kernel, plain,
+     library, kernel, plain, library, kernel), each window at least
      WINDOW_MS of device time and 5 calls; each time is the median of its
-     windows. The conv's variant (tile, shared memory) is printed per site.
+     windows. Kernel and library windows replay a CUDA graph of their calls,
+     so they time the card and not the host's launch rate; the plain
+     version runs eagerly (the residual's copies host arrays, which a graph
+     cannot hold). The conv's variant (tile, shared memory) is printed per
+     site.
      The bound is max(bytes / 3.35 TB/s, FLOPs / peak), peak 67 TFLOP/s for
      f32 arithmetic and 989 TFLOP/s for bf16 convolutions (H100 SXM). Bytes
      count each input element the function reads once (for the pool and the
@@ -75,15 +82,21 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def window_ms(fn, reps: int) -> float:
-    """Device ms per call over one window of `reps` back-to-back calls."""
+def window_ms(run, calls: int) -> float:
+    """Device ms per call over one window in which run() makes `calls` calls."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    run()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / calls
+
+
+def repeat(fn, n: int):
+    def run():
+        for _ in range(n):
+            fn()
+    return run
 
 
 def reps_for(fn) -> int:
@@ -94,24 +107,46 @@ def reps_for(fn) -> int:
     return max(5, math.ceil(WINDOW_MS / max(once, 1e-3)))
 
 
+def eager_window(fn) -> tuple:
+    """(run, calls) of one window of back-to-back eager calls."""
+    reps = reps_for(fn)
+    return repeat(fn, reps), reps
+
+
+def graph_window(fn) -> tuple:
+    """(run, calls) of one window that replays a CUDA graph of fn's calls:
+    the device work of an eager window, replayed as often as WINDOW_MS of
+    device time takes, with no host work between the launches."""
+    reps = reps_for(fn)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    replays = max(1, math.ceil(WINDOW_MS / max(window_ms(g.replay, 1), 1e-3)))
+    return repeat(g.replay, replays), reps * replays
+
+
 def cuda_ms(fn) -> float:
-    """Device ms per call, one calibrated window after a warm-up."""
-    return window_ms(fn, reps_for(fn))
+    """Device ms per call, one calibrated eager window after a warm-up."""
+    return window_ms(*eager_window(fn))
 
 
-def in_turns(fns: dict) -> dict:
+def in_turns(fns: dict, eager: tuple = ()) -> dict:
     """Device ms per call of each function, timed in turns on one card: the
     first (the kernel) in three windows around two of each other, as in
     kernel, plain, library, kernel, plain, library, kernel. Each time is the
-    median of its windows."""
-    reps = {name: reps_for(fn) for name, fn in fns.items()}
+    median of its windows. Windows replay a CUDA graph, except for the
+    functions named in `eager`."""
+    windows = {name: (eager_window if name in eager else graph_window)(fn) for name, fn in fns.items()}
     first, others = list(fns)[0], list(fns)[1:]
     got = {name: [] for name in fns}
     for turn in range(3):
-        got[first].append(window_ms(fns[first], reps[first]))
+        got[first].append(window_ms(*windows[first]))
         if turn < 2:
             for name in others:
-                got[name].append(window_ms(fns[name], reps[name]))
+                got[name].append(window_ms(*windows[name]))
     return {name: statistics.median(v) for name, v in got.items()}
 
 
@@ -162,13 +197,15 @@ def main() -> None:
                 if "entry function" in line or "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
 
-    variant_fn = _build.entry("conv3x3", "rn_conv3x3_variant", [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    variant_fn = _build.entry("conv3x3", "rn_conv3x3_variant", [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
     def conv_variant(dt: str, args) -> str:
         """The conv kernel's variant for one launch (csrc/conv3x3.cu:rn_conv3x3_variant)."""
         x, k = args[0], args[1]
+        packed = KC.packed_kernel(k, x.dtype)
+        cp = packed.shape[1] if dt == "bf16" else packed.shape[-1]
         out = (ctypes.c_int * 5)()
-        rc = variant_fn(x.shape[1], x.shape[2], x.shape[3], k.shape[3], int(dt == "bf16"), out)
+        rc = variant_fn(x.shape[1], x.shape[2], x.shape[3], k.shape[3], cp, int(dt == "bf16"), out)
         _build.check("conv3x3", "rn_conv3x3_variant", rc)
         names = ("Cout_p", "rows/warp") if dt == "bf16" else ("NT", "warp cols")
         return (f"{names[0]} {out[0]}, {names[1]} {out[1]}, tile {out[2]}x{out[3]}, "
@@ -208,32 +245,40 @@ def main() -> None:
     def out0(y):
         return y if isinstance(y, torch.Tensor) else y[0]
 
+    def compare(name, dt, args, got, want, where: str) -> float:
+        """Max |d| of one launch's output against its plain version's; raises
+        where they disagree beyond the tolerances of the docstring's phase 2."""
+        pairs = list(zip(got, want)) if name == "dense_head" else [(got, want)]
+        err = 0.0
+        for a, b in pairs:
+            a, b = a.float(), b.float()
+            if dt == "f32" or name == "dense_head":
+                tol = 1e-4 if name == "conv3x3" else 1e-5
+                rtol, atol = tol, tol
+            else:
+                rtol, atol = 2.0 ** -7, 1e-3
+                if name == "residual_bn":
+                    atol = 2.0 ** -7 * args[2].abs().max().item() * args[1].float().abs().max().item()
+            d = (a - b).abs()
+            bad = d > atol + rtol * b.abs()
+            if bad.any() or not torch.isfinite(a).all():
+                raise AssertionError(
+                    f"{name}[{dt}] {where}: kernel disagrees with plain at {int(bad.sum())} "
+                    f"of {b.numel()} values, max |d| {d.max().item():.3g}")
+            err = max(err, d.max().item())
+            del a, b, d, bad
+        return err
+
     # -- phase 2: each kernel against its plain version, batch 8 -------------
     x8 = normalized(np.concatenate([g["x_uint8_bgr"], gw["x_uint8_bgr"][:1]]))
-    max_err = {}
+    max_err = {}  # (name, dt, batch) -> max |d| over the launches
     for dt in cfgs:
         for i, (name, args, kwargs) in enumerate(record(dt, x8)):
             kern, plain, _ = kernels[name]
             got, want = kern(*args, **kwargs), plain(*args, **kwargs)
-            torch.cuda.synchronize()
-            pairs = list(zip(got, want)) if name == "dense_head" else [(got, want)]
-            err = 0.0
-            for a, b in pairs:
-                a, b = a.float(), b.float()
-                if dt == "f32" or name == "dense_head":
-                    tol = 1e-4 if name == "conv3x3" else 1e-5
-                    rtol, atol = tol, tol
-                else:
-                    rtol, atol = 2.0 ** -7, 1e-3
-                    if name == "residual_bn":
-                        atol = 2.0 ** -7 * args[2].abs().max().item() * args[1].float().abs().max().item()
-                bad = (a - b).abs() > atol + rtol * b.abs()
-                if bad.any() or not torch.isfinite(a).all():
-                    raise AssertionError(
-                        f"{name}[{dt}] site {i}: kernel disagrees with plain at {int(bad.sum())} "
-                        f"of {b.numel()} values, max |d| {(a - b).abs().max().item():.3g}")
-                err = max(err, (a - b).abs().max().item())
-            max_err[(name, dt)] = max(max_err.get((name, dt), 0.0), err)
+            err = compare(name, dt, args, got, want, f"site {i}")
+            key = (name, dt, 8)
+            max_err[key] = max(max_err.get(key, 0.0), err)
             log(f"check {name}[{dt}] site {i} {tuple(out0(want).shape)}: max |d| {err:.3g}")
 
     # -- phase 3: kernel / plain / library / bound at batch 256 --------------
@@ -288,6 +333,9 @@ def main() -> None:
         for i, (name, args, kwargs) in enumerate(sites):
             kern, plain, _ = kernels[name]
             out = kern(*args, **kwargs)
+            err = compare(name, dt, args, out, plain(*args, **kwargs), f"site {i} at batch 256")
+            key = (name, dt, 256)
+            max_err[key] = max(max_err.get(key, 0.0), err)
             nb, flops, peak = work(name, dt, args, kwargs, out)
             bound = max(nb / HBM_BYTES_PER_S, flops / peak) * 1e3
             by = "bytes" if nb / HBM_BYTES_PER_S >= flops / peak else "operations"
@@ -295,7 +343,7 @@ def main() -> None:
             lib = library_call(name, args, kwargs)
             if lib is not None:
                 fns["library"] = lib
-            ms = in_turns(fns)
+            ms = in_turns(fns, eager=("plain",))
             k_ms, p_ms, l_ms = ms["kernel"], ms["plain"], ms.get("library")
             acc = timing.setdefault((name, dt), {"ms": 0.0, "plain_ms": 0.0, "library_ms": None,
                                                  "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0})
@@ -310,7 +358,7 @@ def main() -> None:
             variant = f", variant {conv_variant(dt, args)}" if name == "conv3x3" else ""
             log(f"time {name}[{dt}] site {i} in {tuple(args[0].shape)} -> {tuple(out0(out).shape)}: "
                 f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib_s} ms, "
-                f"bound {bound:.4f} ms ({by}){variant}")
+                f"bound {bound:.4f} ms ({by}), max |d| {err:.3g}{variant}")
             del out
         del sites
         torch.cuda.empty_cache()
@@ -389,6 +437,10 @@ def main() -> None:
         del clf, xb
         torch.cuda.empty_cache()
 
+    for dt in cfgs:
+        log(f"max |d| against plain [{dt}]: " + ", ".join(
+            f"{n} {max_err[(n, dt, 8)]:.3g} (batch 8) {max_err[(n, dt, 256)]:.3g} (batch 256)"
+            for n in kernels))
     log(json.dumps({"card": smi, "serving": serving}))
     log(f"wall: {time.perf_counter() - wall0:.1f} s from start to the result lines")
     rows = []
@@ -398,7 +450,8 @@ def main() -> None:
             rows.append({
                 "name": f"{name}[{dt}]", "route": "cuda",
                 "source": f"roomnet_tpu_torch/csrc/{name}.cu", "replaces": replaces,
-                "launches": launches[dt][name], "max_abs_err": max_err[(name, dt)],
+                "launches": launches[dt][name],
+                "max_abs_err": max(max_err[(name, dt, 8)], max_err[(name, dt, 256)]),
                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
                 "library_ms": t["library_ms"],

@@ -28,13 +28,20 @@
 // cp.async, two buffers so chunk c+1 loads while chunk c computes). Each
 // thread keeps 8 rows x 8 output channels of sums in registers; per tap it
 // reads 8 float4 of inputs (its 8 rows, 4 channels) and 8 float4 of
-// weights (a warp-wide broadcast) for 256 FMAs. Cout above 64 is split over blockIdx.y (NT = 64 channels).
-// Weights are packed by ops/kernels/conv3x3.py:pack_f32 as
-// [Cout tile][chunk][tap][4][NT].
+// weights (a warp-wide broadcast) for 256 FMAs. Cout is split over
+// blockIdx.y in tiles of NT channels. Weights are packed by
+// ops/kernels/conv3x3.py:pack_f32 as [Cout tile][chunk][tap][4][NT].
+//
+// The packed layout is decided in Python alone: the caller passes its Cout_p
+// (bf16) or NT (f32), read off the packed tensor's shape, and this file only
+// picks the tile (rows per warp, warp width) that goes with it.
 //
 // Epilogue (both): sum + bias in f32, then one rounding to the io dtype, as
 // ops/kernels/conv3x3.py:conv3x3_plain rounds.
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "common.cuh"
 
@@ -46,6 +53,41 @@ constexpr int MAX_SMEM = 232448;  // a block's dynamic shared memory on sm_90
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// How a kernel fits on a device: the SM count and the blocks of THREADS
+// threads with a given dynamic shared memory that one SM holds.
+struct Fit {
+  int sms = 0, per_sm = 0;
+};
+
+// Worked out on a variant's first launch on a device with `smem` bytes and
+// kept, so a launch makes no attribute or occupancy query: the first one also
+// raises the kernel's dynamic shared-memory limit to `smem_max`, the most any
+// of its launches asks for.
+cudaError_t fit(const void* k, int device, int smem_max, size_t smem, Fit& out) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, size_t>, Fit> seen;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(k, device, smem);
+  const auto it = seen.find(key);
+  if (it != seen.end()) {
+    out = it->second;
+    return cudaSuccess;
+  }
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&out.sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out.per_sm, k, THREADS, smem);
+  if (e == cudaSuccess) seen.emplace(key, out);
+  return e;
+}
+
+// What one launch runs, for reports: report[5] = {Cout_p (bf16) or NT (f32),
+// rows per warp (bf16) or warp width (f32), tile rows, tile columns, dynamic
+// shared memory bytes}. A launch given a report fills it and launches nothing.
+void fill(int* report, int cp, int sub, int rows, int cols, size_t smem) {
+  report[0] = cp, report[1] = sub, report[2] = rows, report[3] = cols, report[4] = (int)smem;
 }
 
 // ---- bf16: implicit GEMM on tensor cores ------------------------------------
@@ -249,59 +291,59 @@ Args make_args(const void* x, const void* w, const void* bias, void* y, int H, i
   return a;
 }
 
-// Cout_p (0 past 128) and rows per warp: the most the accumulators allow
-// for Cout_p whose shared memory still lets two blocks share an SM, else
-// the most that fits at all (0 if none does).
-void plan(const Args& a, int& cout_p, int& mi) {
-  cout_p = 0, mi = 0;
-  for (int c = 8; c <= 128 && cout_p == 0; c *= 2)
-    if (a.Cout <= c) cout_p = c;
-  if (cout_p == 0) return;
+// Rows per warp for the packed Cout_p: the most the accumulators allow
+// whose shared memory still lets two blocks share an SM, else the most that
+// fits at all (0 if none does).
+int rows_per_warp(const Args& a, int cout_p) {
   const int mi_max = cout_p >= 128 ? 1 : (cout_p >= 64 ? 2 : 4);
-  for (int m = mi_max; m >= 1 && mi == 0; m /= 2)
-    if (smem_bytes(a, cout_p, m) <= MAX_SMEM / 2 - 1024) mi = m;
-  for (int m = mi_max; m >= 1 && mi == 0; m /= 2)
-    if (smem_bytes(a, cout_p, m) <= MAX_SMEM) mi = m;
+  for (int m = mi_max; m >= 1; m /= 2)
+    if (smem_bytes(a, cout_p, m) <= MAX_SMEM / 2 - 1024) return m;
+  for (int m = mi_max; m >= 1; m /= 2)
+    if (smem_bytes(a, cout_p, m) <= MAX_SMEM) return m;
+  return 0;
 }
 
 template <int COUT_P, int MI>
-int launch(Args a, int B, cudaStream_t s, int sms) {
+int launch(Args a, int B, cudaStream_t s, int device, int* report) {
   a.tiles_w = (a.Wo + TW - 1) / TW;
   a.tiles_h = (a.Ho + WARPS * MI - 1) / (WARPS * MI);
   a.tiles = a.tiles_w * a.tiles_h * B;
   const size_t smem = smem_bytes(a, COUT_P, MI);
+  if (report != nullptr) {
+    fill(report, COUT_P, MI, WARPS * MI, TW, smem);
+    return cudaSuccess;
+  }
   auto* k = conv_tc<COUT_P, MI>;
-  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  Fit f;
+  const cudaError_t e = fit(reinterpret_cast<const void*>(k), device, MAX_SMEM, smem, f);
   if (e != cudaSuccess) return e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, THREADS, smem);
-  if (e != cudaSuccess) return e;
-  const int grid = a.tiles < per_sm * sms ? a.tiles : (per_sm > 0 ? per_sm : 1) * sms;
-  k<<<grid, THREADS, smem, s>>>(a);
+  const int resident = (f.per_sm > 0 ? f.per_sm : 1) * f.sms;
+  k<<<a.tiles < resident ? a.tiles : resident, THREADS, smem, s>>>(a);
   return cudaGetLastError();
 }
 
 template <int COUT_P>
-int launch_mi(const Args& a, int mi, int B, cudaStream_t s, int sms) {
+int launch_mi(const Args& a, int mi, int B, cudaStream_t s, int device, int* report) {
   if constexpr (COUT_P <= 32) {
-    if (mi == 4) return launch<COUT_P, 4>(a, B, s, sms);
+    if (mi == 4) return launch<COUT_P, 4>(a, B, s, device, report);
   }
   if constexpr (COUT_P <= 64) {
-    if (mi == 2) return launch<COUT_P, 2>(a, B, s, sms);
+    if (mi == 2) return launch<COUT_P, 2>(a, B, s, device, report);
   }
-  return launch<COUT_P, 1>(a, B, s, sms);
+  return launch<COUT_P, 1>(a, B, s, device, report);
 }
 
-int run(const Args& a, int B, cudaStream_t s, int sms) {
-  int cout_p, mi;
-  plan(a, cout_p, mi);
+int run(const Args& a, int cout_p, int B, cudaStream_t s, int device, int* report) {
+  if (a.Cout > cout_p) return cudaErrorInvalidValue;
+  const int mi = rows_per_warp(a, cout_p);
   if (mi == 0) return cudaErrorInvalidConfiguration;
   switch (cout_p) {
-    case 8: return launch_mi<8>(a, mi, B, s, sms);
-    case 16: return launch_mi<16>(a, mi, B, s, sms);
-    case 32: return launch_mi<32>(a, mi, B, s, sms);
-    case 64: return launch_mi<64>(a, mi, B, s, sms);
-    default: return launch_mi<128>(a, mi, B, s, sms);
+    case 8: return launch_mi<8>(a, mi, B, s, device, report);
+    case 16: return launch_mi<16>(a, mi, B, s, device, report);
+    case 32: return launch_mi<32>(a, mi, B, s, device, report);
+    case 64: return launch_mi<64>(a, mi, B, s, device, report);
+    case 128: return launch_mi<128>(a, mi, B, s, device, report);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -443,26 +485,22 @@ Args make_args(const void* x, const void* w, const void* bias, void* y, int H, i
   return a;
 }
 
-int tile_rows(int nt, int wc) { return (WARPS / (nt / 8)) * (32 / wc) * 8; }
-
 // Output pixels computed (the padded tile area) at warp width wc.
 long long padded(const Args& a, int nt, int wc) {
-  const int th = tile_rows(nt, wc);
+  const int th = (WARPS / (nt / 8)) * (32 / wc) * 8;
   return (long long)((a.Ho + th - 1) / th * th) * ((a.Wo + wc - 1) / wc * wc);
 }
 
-// NT (output channels per block, ops/kernels/conv3x3.py:F32_NT at most) and
-// the warp width that computes the fewer padded pixels.
-void plan(const Args& a, int& nt, int& wc) {
-  nt = a.Cout <= 8 ? 8 : (a.Cout <= 16 ? 16 : (a.Cout <= 32 ? 32 : 64));
-  wc = nt >= 16 && padded(a, nt, 16) < padded(a, nt, 32) ? 16 : 32;
-}
-
 template <int NT, int WC>
-int launch(Args a, int B, cudaStream_t s) {
+int launch(Args a, int B, cudaStream_t s, int device, int* report) {
   using L = Tile<NT, WC>;
+  if (report != nullptr) {
+    fill(report, NT, WC, L::TH, L::TW, L::SMEM);
+    return cudaSuccess;
+  }
   auto* k = conv_f32<NT, WC>;
-  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
+  Fit f;
+  const cudaError_t e = fit(reinterpret_cast<const void*>(k), device, (int)L::SMEM, L::SMEM, f);
   if (e != cudaSuccess) return e;
   a.tiles_w = (a.Wo + L::TW - 1) / L::TW;
   const int tiles_h = (a.Ho + L::TH - 1) / L::TH;
@@ -471,65 +509,53 @@ int launch(Args a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// The warp width for the packed NT: the one that computes the fewer padded
+// pixels.
 template <int NT>
-int launch_wc(const Args& a, int wc, int B, cudaStream_t s) {
+int launch_wc(const Args& a, int B, cudaStream_t s, int device, int* report) {
   if constexpr (NT >= 16) {
-    if (wc == 16) return launch<NT, 16>(a, B, s);
+    if (padded(a, NT, 16) < padded(a, NT, 32)) return launch<NT, 16>(a, B, s, device, report);
   }
-  return launch<NT, 32>(a, B, s);
+  return launch<NT, 32>(a, B, s, device, report);
 }
 
-int run(const Args& a, int B, cudaStream_t s) {
-  int nt, wc;
-  plan(a, nt, wc);
+int run(const Args& a, int nt, int B, cudaStream_t s, int device, int* report) {
   switch (nt) {
-    case 8: return launch_wc<8>(a, wc, B, s);
-    case 16: return launch_wc<16>(a, wc, B, s);
-    case 32: return launch_wc<32>(a, wc, B, s);
-    default: return launch_wc<64>(a, wc, B, s);
+    case 8: return launch_wc<8>(a, B, s, device, report);
+    case 16: return launch_wc<16>(a, B, s, device, report);
+    case 32: return launch_wc<32>(a, B, s, device, report);
+    case 64: return launch_wc<64>(a, B, s, device, report);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace cc
 
+int dispatch(const void* x, const void* w, const void* bias, void* y, int B, int H, int W,
+             int Cin, int Cout, int cp, int dtype, int device, cudaStream_t s, int* report) {
+  if (dtype == rn::kBF16)
+    return tc::run(tc::make_args(x, w, bias, y, H, W, Cin, Cout), cp, B, s, device, report);
+  return cc::run(cc::make_args(x, w, bias, y, H, W, Cin, Cout), cp, B, s, device, report);
+}
+
 }  // namespace
 
 // x (B,H,W,Cin) in the io dtype; w the packed weights of
-// ops/kernels/conv3x3.py (pack_bf16 or pack_f32, by dtype); bias (Cout,) f32
-// or null; y (B,H-2,W-2,Cout) in the io dtype. All contiguous, 16-byte aligned.
+// ops/kernels/conv3x3.py (pack_bf16 or pack_f32, by dtype) and cp their
+// Cout_p (bf16, w's dim 1) or NT (f32, w's last dim); bias (Cout,) f32 or
+// null; y (B,H-2,W-2,Cout) in the io dtype. All contiguous, 16-byte aligned.
 extern "C" int rn_conv3x3(const void* x, const void* w, const void* bias, void* y, int B, int H,
-                          int W, int Cin, int Cout, int dtype, int device, void* stream) {
+                          int W, int Cin, int Cout, int cp, int dtype, int device, void* stream) {
   rn::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == rn::kBF16) {
-    int sms = 0;
-    const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (e != cudaSuccess) return e;
-    return tc::run(tc::make_args(x, w, bias, y, H, W, Cin, Cout), B, s, sms);
-  }
-  return cc::run(cc::make_args(x, w, bias, y, H, W, Cin, Cout), B, s);
+  return dispatch(x, w, bias, y, B, H, W, Cin, Cout, cp, dtype, device,
+                  static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// The variant rn_conv3x3 launches for one shape, for reports: out = {Cout_p
-// (bf16) or NT (f32), rows per warp (bf16) or warp width (f32), tile rows,
-// tile columns, dynamic shared memory bytes}; every variant runs 256 threads. Returns 0, or an error code
-// when no variant fits.
-extern "C" int rn_conv3x3_variant(int H, int W, int Cin, int Cout, int dtype, int* out) {
-  if (dtype == rn::kBF16) {
-    const tc::Args a = tc::make_args(nullptr, nullptr, nullptr, nullptr, H, W, Cin, Cout);
-    int cout_p, mi;
-    tc::plan(a, cout_p, mi);
-    if (mi == 0) return cudaErrorInvalidConfiguration;
-    out[0] = cout_p, out[1] = mi, out[2] = WARPS * mi, out[3] = tc::TW;
-    out[4] = (int)tc::smem_bytes(a, cout_p, mi);
-    return 0;
-  }
-  const cc::Args a = cc::make_args(nullptr, nullptr, nullptr, nullptr, H, W, Cin, Cout);
-  int nt, wc;
-  cc::plan(a, nt, wc);
-  const int th = cc::tile_rows(nt, wc);
-  out[0] = nt, out[1] = wc, out[2] = th, out[3] = wc;
-  out[4] = 2 * 16 * ((th + 2) * (wc + 2) + 9 * nt);
-  return 0;
+// The variant rn_conv3x3 launches for one shape (the same dispatch, stopped
+// before the launch), for reports: out[5] as `fill` lays it out; every
+// variant runs 256 threads. Returns 0, or the error rn_conv3x3 would return.
+extern "C" int rn_conv3x3_variant(int H, int W, int Cin, int Cout, int cp, int dtype, int* out) {
+  return dispatch(nullptr, nullptr, nullptr, nullptr, 1, H, W, Cin, Cout, cp, dtype, -1, nullptr,
+                  out);
 }

@@ -17,7 +17,9 @@ it:
   * f32: [Cout tile][chunk][tap][4][NT], chunk c the channels 4c..4c+3, NT =
     min(64, Cout_p) output channels per block.
 
-Every padded entry is zero.
+Every padded entry is zero. This module alone decides the layout: the
+wrapper passes its Cout_p (bf16) or NT (f32), read off the packed tensor, to
+the C entry, which only picks the tile that goes with it.
 
 On a CPU tensor `conv3x3` runs `conv3x3_plain`; on a CUDA tensor it
 launches the kernel or raises.
@@ -35,7 +37,7 @@ from . import _build
 
 P = ctypes.c_void_p
 I = ctypes.c_int
-_ARGS = [P, P, P, P, I, I, I, I, I, I, I, P]
+_ARGS = [P, P, P, P, I, I, I, I, I, I, I, I, P]
 COUT_STEPS = (8, 16, 32, 64, 128)
 F32_NT = 64  # output channels of one f32 block
 
@@ -119,9 +121,10 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = N
     if x.data_ptr() % 16:
         raise ValueError("conv3x3: x must start on a 16-byte boundary")
     y = torch.empty((B, H - 2, W - 2, Cout), dtype=x.dtype, device=x.device)
+    cp = packed.shape[1] if x.dtype == torch.bfloat16 else packed.shape[-1]
     fn = _build.entry("conv3x3", "rn_conv3x3", _ARGS)
     rc = fn(x.data_ptr(), packed.data_ptr(), None if bias is None else bias.data_ptr(),
-            y.data_ptr(), B, H, W, Cin, Cout, dtype, device, stream)
+            y.data_ptr(), B, H, W, Cin, Cout, cp, dtype, device, stream)
     conv3x3.launches += 1
     _build.check("conv3x3", "rn_conv3x3", rc)
     return y

@@ -108,6 +108,42 @@ def test_cuda_conv3x3_at_tile_edges(cuda_device, cin, cout, batch, h, w, with_bi
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", CONV_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_conv3x3_blocks_walk_many_tiles(cuda_device, cin, cout, dtype):
+    """More output tiles than an H100 holds blocks (132 SMs x at most 8
+    blocks of 256 threads): each persistent bf16 block walks several tiles,
+    through its prefetch of the next halo into the other buffer."""
+    batch = 640  # 17x17 outputs: 2 tiles of 16 columns per image at least
+    rng = np.random.RandomState(cin + cout)
+    x = torch.from_numpy(rng.randn(batch, 19, 19, cin).astype(np.float32)).to(cuda_device, dtype)
+    k = torch.from_numpy((rng.randn(3, 3, cin, cout) / np.sqrt(9 * cin)).astype(np.float32))
+    k = k.to(cuda_device, dtype)
+    got, want = conv3x3(x, k), conv3x3_plain(x, k)
+    torch.cuda.synchronize()
+    rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else (BF16_ULP, BF16_ULP * 8)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,cp", [(torch.bfloat16, 8), (torch.bfloat16, 24), (torch.float32, 24)],
+                         ids=["bf16-narrow", "bf16-odd", "f32-odd"])
+def test_cuda_conv3x3_entry_refuses_a_layout_it_does_not_know(cuda_device, dtype, cp):
+    """The C entry takes the packed layout's Cout_p (bf16) or NT (f32) from
+    the wrapper and refuses one narrower than Cout or not one of its tiles."""
+    from roomnet_tpu_torch.ops.kernels import _build
+    from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
+
+    x = torch.zeros((1, 5, 5, 8), dtype=dtype, device=cuda_device)
+    packed = KC.packed_kernel(torch.zeros((3, 3, 8, 16), dtype=dtype, device=cuda_device), dtype)
+    y = torch.empty((1, 3, 3, 16), dtype=dtype, device=cuda_device)
+    fn = _build.entry("conv3x3", "rn_conv3x3", KC._ARGS)
+    rc = fn(x.data_ptr(), packed.data_ptr(), None, y.data_ptr(), 1, 5, 5, 8, 16, cp,
+            int(dtype == torch.bfloat16), x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    assert rc != 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ksize,stride", [(1, 1), (3, 1), (4, 1), (4, 2)])
 @pytest.mark.parametrize("c", [3, 8, 16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
