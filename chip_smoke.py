@@ -27,8 +27,10 @@ kernels, in phases; any failure raises and the script exits non-zero:
      windows. Kernel and library windows replay a CUDA graph of their calls,
      so they time the card and not the host's launch rate; the plain
      version runs eagerly (the residual's copies host arrays, which a graph
-     cannot hold). The conv's variant (tile, shared memory) is printed per
-     site.
+     cannot hold). Each site prints its launch plan: the conv's variant
+     (tile, shared memory), the residual's strip, span, shared memory and
+     blocks, the head's variant (resident or streamed, rows per block)
+     beside an empty kernel's graph-replayed time.
      The bound is max(bytes / 3.35 TB/s, FLOPs / peak), peak 67 TFLOP/s for
      f32 arithmetic and 989 TFLOP/s for bf16 convolutions (H100 SXM). Bytes
      count each input element the function reads once (for the pool and the
@@ -211,6 +213,29 @@ def main() -> None:
         return (f"{names[0]} {out[0]}, {names[1]} {out[1]}, tile {out[2]}x{out[3]}, "
                 f"smem {out[4]} B")
 
+    def residual_plan(dt: str, args) -> str:
+        """The residual's plan for one launch (ops/kernels/residual.py:plan)."""
+        x, res = args[0], args[1]
+        p = KR.plan_for(x, res)
+        return (f"plan: strip {p.strip} rows, span {p.span} columns, vec {p.vec}, "
+                f"res tile {p.rows_in}x{p.cols_in}, smem {p.smem} B, {p.threads} threads, "
+                f"blocks {p.grid(x.shape[0])}")
+
+    empty_fn = _build.entry("dense_head", "rn_empty_launch", [ctypes.c_int, ctypes.c_void_p])
+
+    def empty_launch():
+        _build.check("dense_head", "rn_empty_launch",
+                     empty_fn(torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream))
+
+    def head_plan(dt: str, args) -> str:
+        """The head's variant for one launch (ops/kernels/dense_head.py:plan),
+        beside an empty kernel's time replayed from a CUDA graph."""
+        x, packed, widths = args
+        p = KD.plan(widths, packed.numel())
+        empty = in_turns({"empty": empty_launch})["empty"]
+        return (f"variant {p.variant}, {p.rows} rows per block, smem {p.smem} B; "
+                f"empty kernel {empty:.4f} ms")
+
     cfgs = {"f32": M.DEFAULT_CONFIG, "bf16": M.FAST_CONFIG}
     variables = load_npz(pathlib.Path(__file__).resolve().parent / "artifacts" / "roomnet_params.npz",
                          device=dev)
@@ -355,7 +380,9 @@ def main() -> None:
             acc["bytes_ms"] += nb / HBM_BYTES_PER_S * 1e3
             acc["ops_ms"] += flops / peak * 1e3
             lib_s = f"{l_ms:.4f}" if l_ms is not None else "n/a"
-            variant = f", variant {conv_variant(dt, args)}" if name == "conv3x3" else ""
+            variant = {"conv3x3": conv_variant, "residual_bn": residual_plan,
+                       "dense_head": head_plan}.get(name)
+            variant = f", {variant(dt, args)}" if variant else ""
             log(f"time {name}[{dt}] site {i} in {tuple(args[0].shape)} -> {tuple(out0(out).shape)}: "
                 f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib_s} ms, "
                 f"bound {bound:.4f} ms ({by}), max |d| {err:.3g}{variant}")

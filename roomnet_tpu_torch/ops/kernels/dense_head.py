@@ -8,7 +8,10 @@ one takes any flat_len, widths and number of layers (roomnet-tiny's head is
 256 -> 16 -> 8 -> 6), and writes the logits as well as the probs.
 
 The weights travel as one packed f32 buffer (`pack_head`). On an H100 the
-head is launch-bound: ~6 kFLOP per image at 224.
+head is launch-bound: ~6 kFLOP per image at 224. `plan` picks the kernel's
+variant from the packed size: "resident" (all weights in shared memory, a
+warp per batch row, no block barrier between layers) where they fit, else
+"streamed" (weights staged through shared memory in chunks).
 
 On a CPU tensor `dense_head` runs `dense_head_plain`; on a CUDA tensor it
 launches the kernel or raises.
@@ -17,6 +20,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -25,10 +29,12 @@ from . import _build
 
 P = ctypes.c_void_p
 I = ctypes.c_int
-_ARGS = [P, P, P, P, I, P, I, I, I, I, I, P]
+_ARGS = [P, P, P, P, I, P, I, I, I, I, I, I, I, P]
 MAX_LAYERS = 8
-_KCHUNK = 4096  # f32 weights staged in shared memory at a time
-_ACT_FLOATS = 2048  # f32 activations per block, for both ping-pong buffers
+_KCHUNK = 4096  # streamed: f32 weights staged in shared memory at a time
+_ACT_FLOATS = 2048  # streamed: f32 activations per block, for both ping-pong buffers
+WARPS = 4  # resident: warps per block, one batch row each
+RESIDENT_SMEM = 48 << 10  # resident: the most shared memory a block takes
 
 
 def pack_head(dense_layers: list[dict],
@@ -72,6 +78,25 @@ def dense_head_plain(x: torch.Tensor, packed: torch.Tensor, widths: tuple[int, .
     return h, torch.softmax(h, dim=-1)
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    variant: str  # "resident" or "streamed"
+    rows: int     # batch rows per block
+    smem: int     # bytes of shared memory per block
+
+
+def plan(widths: tuple[int, ...], n_params: int) -> Plan:
+    """The kernel's variant for a head of these widths and packed size:
+    resident when the weights (rounded up to a 16-byte multiple) and each
+    warp's two activation buffers fit RESIDENT_SMEM, else streamed."""
+    maxw = max(widths)
+    resident = (-(-n_params // 4) * 4 + WARPS * 2 * maxw) * 4
+    if resident <= RESIDENT_SMEM:
+        return Plan("resident", WARPS, resident)
+    rows = max(1, min(16, _ACT_FLOATS // (2 * maxw)))
+    return Plan("streamed", rows, (2 * rows * maxw + _KCHUNK) * 4)
+
+
 def dense_head(x: torch.Tensor, packed: torch.Tensor, widths: tuple[int, ...]):
     """x (B, flat_len) in the io dtype -> (logits, probs), both (B, classes) f32."""
     if x.device.type == "cpu":
@@ -85,14 +110,14 @@ def dense_head(x: torch.Tensor, packed: torch.Tensor, widths: tuple[int, ...]):
     if packed.dtype != torch.float32:
         raise TypeError("dense_head: packed params must be float32")
     dtype, device, stream = _build.launch_args("dense_head", x, packed)
-    maxw = max(widths)
-    rows = max(1, min(16, _ACT_FLOATS // (2 * maxw)))
+    p = plan(widths, packed.numel())
     logits = torch.empty((B, widths[-1]), dtype=torch.float32, device=x.device)
     probs = torch.empty_like(logits)
     dims = (ctypes.c_int * (n + 1))(*widths)
     fn = _build.entry("dense_head", "rn_dense_head", _ARGS)
     rc = fn(x.data_ptr(), packed.data_ptr(), logits.data_ptr(), probs.data_ptr(), B,
-            ctypes.cast(dims, P), n, rows, _KCHUNK, dtype, device, stream)
+            ctypes.cast(dims, P), n, packed.numel(), int(p.variant == "resident"), p.rows, _KCHUNK,
+            dtype, device, stream)
     dense_head.launches += 1
     _build.check("dense_head", "rn_dense_head", rc)
     return logits, probs

@@ -8,6 +8,11 @@ interpolation matrices (ops/resize.py), rounded to bf16 in bf16 mode as the
 JAX einsum path rounds them; the H-interpolated intermediate is rounded to
 the io dtype before the W pass, as in residual.py:55-57.
 
+The kernel is a strip stencil: a block stages the res rows and columns its
+strip of output rows and span of output columns reach, once, and each
+thread walks one output column down the strip. `plan` sizes the strip and
+the span from the (source, weight) pairs and the shared-memory budget.
+
 On a CPU tensor `residual_bn` runs `residual_bn_plain`; on a CUDA tensor it
 launches the kernel or raises.
 """
@@ -15,6 +20,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -25,7 +31,13 @@ from . import _build
 
 P = ctypes.c_void_p
 I = ctypes.c_int
-_ARGS = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+_ARGS = [P] * 11 + [I] * 13 + [P]
+# The kernel's limits (csrc/residual_bn.cu): threads per block, output rows
+# per block (held in registers) and a block's shared memory, which four
+# blocks of an SM share.
+MAX_THREADS = 256
+MAX_STRIP = 8
+SMEM_LIMIT = 48 << 10
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,6 +63,93 @@ def _device_pairs(in_size: int, out_size: int, dtype: torch.dtype, device: torch
     return tuple(torch.from_numpy(a).to(device) for a in source_pairs(in_size, out_size, dtype))
 
 
+def _reach(idx: np.ndarray, step: int) -> np.ndarray:
+    """(first source, count) of the sources that each group of `step`
+    consecutive outputs reaches, from `source_pairs`' indices: int32
+    (ceil(out / step), 2)."""
+    groups = [idx[i: i + step] for i in range(0, idx.shape[0], step)]
+    return np.array([(g.min(), g.max() - g.min() + 1) for g in groups], np.int32)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)  # hashed by identity: `plan` caches each
+class Plan:
+    """One launch's blocks: `strip` output rows by `span` output columns of
+    one image, `vec` channels per thread, and the res rows (`strips`) and
+    columns (`spans`) each block stages; `rows_in` and `cols_in` are the most
+    of either that one block holds."""
+
+    vec: int
+    strip: int
+    span: int
+    strips: np.ndarray  # int32 (ceil(Ho / strip), 2): first res row, count
+    spans: np.ndarray   # int32 (ceil(Wo / span), 2): first res column, count
+    channels: int
+    itemsize: int
+
+    @property
+    def rows_in(self) -> int:
+        return int(self.strips[:, 1].max())
+
+    @property
+    def cols_in(self) -> int:
+        return int(self.spans[:, 1].max())
+
+    @property
+    def threads(self) -> int:
+        return self.channels // self.vec * self.span
+
+    @property
+    def smem(self) -> int:
+        return self.rows_in * self.cols_in * self.channels * self.itemsize
+
+    def grid(self, batch: int) -> tuple[int, int, int]:
+        return len(self.spans), len(self.strips), batch
+
+
+@functools.lru_cache(maxsize=None)
+def plan(hi: int, wi: int, ho: int, wo: int, c: int, dtype: torch.dtype, wide: bool = True) -> Plan:
+    """The launch plan for res (Hi, Wi) -> x (Ho, Wo) at C channels. A
+    thread takes 16 bytes of channels where C is a multiple of them and
+    `wide` (every tensor 16-byte aligned), else one. The span is as many
+    output columns as MAX_THREADS threads cover, evened out over the width;
+    the strip MAX_STRIP rows, halved until the block's res tile fits
+    SMEM_LIMIT, then the span halved."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    full = 16 // itemsize
+    vec = full if wide and c % full == 0 else 1
+    if c // vec > MAX_THREADS:
+        raise ValueError(f"residual_bn: {c} channels need more than {MAX_THREADS} threads per column")
+    hidx = source_pairs(hi, ho, dtype)[0]
+    widx = source_pairs(wi, wo, dtype)[0]
+
+    def even(n: int, most: int) -> int:
+        return -(-n // -(-n // most))
+
+    strip, span = even(ho, MAX_STRIP), even(wo, MAX_THREADS // (c // vec))
+    while True:
+        p = Plan(vec, strip, span, _reach(hidx, strip), _reach(widx, span), c, itemsize)
+        # One output's 2x2 sources of MAX_THREADS vectors take 16 KB: always fits.
+        if p.smem <= SMEM_LIMIT or strip == span == 1:
+            return p
+        if strip > 1:
+            strip = even(ho, strip // 2)
+        else:
+            span = even(wo, span // 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan(p: Plan, device: torch.device):
+    return tuple(torch.from_numpy(a).to(device) for a in (p.strips, p.spans))
+
+
+def plan_for(x: torch.Tensor, res: torch.Tensor) -> Plan:
+    """The plan `residual_bn` launches for these operands."""
+    _, ho, wo, c = x.shape
+    _, hi, wi, _ = res.shape
+    wide = all(t.data_ptr() % 16 == 0 for t in (x, res))  # y is a fresh, aligned allocation
+    return plan(hi, wi, ho, wo, c, x.dtype, wide)
+
+
 def residual_bn_plain(x: torch.Tensor, res: torch.Tensor, s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch: the H pass in f32 rounded to the
     io dtype, the W pass in f32, then ``s * (x + .) + t``, rounded once."""
@@ -72,13 +171,16 @@ def residual_bn(x: torch.Tensor, res: torch.Tensor, s: torch.Tensor, t: torch.Te
     t = t.float().contiguous()
     if s.shape != (C,) or t.shape != (C,):
         raise ValueError(f"residual_bn: s, t must be ({C},)")
+    dtype, device, stream = _build.launch_args("residual_bn", x, res, s, t)
     hidx, hwt = _device_pairs(Hi, Ho, x.dtype, x.device)
     widx, wwt = _device_pairs(Wi, Wo, x.dtype, x.device)
-    dtype, device, stream = _build.launch_args("residual_bn", x, res, s, t)
+    p = plan_for(x, res)
+    strips, spans = _device_plan(p, x.device)
     y = torch.empty_like(x)
     fn = _build.entry("residual_bn", "rn_residual_bn", _ARGS)
     rc = fn(x.data_ptr(), res.data_ptr(), hidx.data_ptr(), hwt.data_ptr(), widx.data_ptr(),
-            wwt.data_ptr(), s.data_ptr(), t.data_ptr(), y.data_ptr(), B, Hi, Wi, Ho, Wo, C,
+            wwt.data_ptr(), strips.data_ptr(), spans.data_ptr(), s.data_ptr(), t.data_ptr(),
+            y.data_ptr(), B, Hi, Wi, Ho, Wo, C, p.vec, p.strip, p.span, p.rows_in, p.cols_in,
             dtype, device, stream)
     residual_bn.launches += 1
     _build.check("residual_bn", "rn_residual_bn", rc)

@@ -22,13 +22,16 @@ import torch
 from roomnet_tpu_torch.models import registry
 from roomnet_tpu_torch.models import roomnet as M
 from roomnet_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_plain
-from roomnet_tpu_torch.ops.kernels.dense_head import dense_head
+from roomnet_tpu_torch.ops.blocks import bn_fold
+from roomnet_tpu_torch.ops.kernels import dense_head as KD
+from roomnet_tpu_torch.ops.kernels import residual as KR
+from roomnet_tpu_torch.ops.kernels.dense_head import dense_head, dense_head_plain, pack_head
 from roomnet_tpu_torch.ops.kernels.pool import relu6_pool_bn, relu6_pool_bn_plain
-from roomnet_tpu_torch.ops.kernels.residual import residual_bn
+from roomnet_tpu_torch.ops.kernels.residual import residual_bn, residual_bn_plain
 from roomnet_tpu_torch.params.schema import load_npz
 # Imported by its own name (pytest puts tests/ on sys.path): on a machine with
 # another `tests` package installed, `tests.torch_port_util` would not resolve.
-from torch_port_util import cuda_device, outputs, wrapper_cases  # noqa: F401
+from torch_port_util import cuda_device, outputs, random_bn, torch_tree, wrapper_cases  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 BF16_ULP = 2.0 ** -7
@@ -157,3 +160,104 @@ def test_cuda_relu6_pool_bn_at_strip_edges(cuda_device, ksize, stride, c, dtype)
     torch.cuda.synchronize()
     rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (BF16_ULP, BF16_ULP * 8)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def _residual_operands(device, dtype, batch, src, dst, c, seed):
+    """x (B, *dst, C) and res (B, *src, C) in `dtype`, and the folded BN (s, t)."""
+    rng = np.random.RandomState(seed)
+    s, t = (v.to(device) for v in bn_fold(torch_tree(random_bn(rng, c))))
+
+    def act(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device, dtype)
+
+    return act(batch, *dst, c), act(batch, *src, c), s, t
+
+
+def _check_residual(x, res, s, t):
+    got, want = residual_bn(x, res, s, t), residual_bn_plain(x, res, s, t)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == x.dtype
+    if x.dtype == torch.float32:
+        rtol = atol = 1e-5
+    else:  # one ulp of the output, and one of the rounded intermediate scaled by s
+        rtol = BF16_ULP
+        atol = BF16_ULP * s.abs().max().item() * res.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+# The residual's strip stencil at its edges: (res H, W) -> (x H, W), C.
+RESIDUAL_MAIN = [((215, 215), (205, 205), 32), ((100, 100), (48, 48), 64), ((21, 21), (2, 2), 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst,c", RESIDUAL_MAIN, ids=["215-205", "100-48", "21-2"])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_residual_bn_main_path_shapes(cuda_device, src, dst, c, batch, dtype):
+    _check_residual(*_residual_operands(cuda_device, dtype, batch, src, dst, c, seed=src[0] + batch))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", [((7, 7), (13, 13)), ((9, 9), (9, 9))], ids=["up-7-13", "id-9-9"])
+@pytest.mark.parametrize("c", [8, 16, 32, 64, 128, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_residual_bn_upsampling_identity_and_channels(cuda_device, src, dst, c, dtype):
+    _check_residual(*_residual_operands(cuda_device, dtype, 2, src, dst, c, seed=c + src[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_residual_bn_partial_last_strip_and_span(cuda_device, c, dtype):
+    """A height and a width that the plan's strip and span do not divide."""
+    src, dst = (37, 331), (29, 301)
+    p = KR.plan(*src, *dst, c, dtype)
+    assert dst[0] % p.strip and dst[1] % p.span
+    _check_residual(*_residual_operands(cuda_device, dtype, 3, src, dst, c, seed=c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_residual_bn_unaligned_tensors_take_one_channel_per_thread(cuda_device, dtype):
+    """x one element past a 16-byte boundary: the plan takes one channel per
+    thread, which the kernel launches like the vector."""
+    x, res, s, t = _residual_operands(cuda_device, dtype, 2, (21, 19), (13, 17), 16, seed=7)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)
+    xu = buf[1:].view(x.shape)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 and KR.plan_for(xu, res).vec == 1
+    _check_residual(xu, res, s, t)
+
+
+def _head(widths, seed):
+    rng = np.random.RandomState(seed)
+    layers = []
+    for i in range(len(widths) - 1):
+        last = i == len(widths) - 2
+        k = (rng.randn(widths[i], widths[i + 1]) / np.sqrt(widths[i])).astype(np.float32)
+        layers.append({"kernel": k, "bias": rng.randn(widths[-1]).astype(np.float32) if last else None,
+                       "bn": None if last else random_bn(rng, widths[i + 1])})
+    packed, got = pack_head(torch_tree(layers))
+    assert got == tuple(widths)
+    return packed
+
+
+# 224, roomnet-tiny and roomnet-600 (whose weights do not fit: streamed).
+HEAD_WIDTHS = {"224": (64, 32, 16, 8, 6), "tiny": (256, 16, 8, 6), "600": (3136, 32, 16, 8, 6)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(HEAD_WIDTHS))
+@pytest.mark.parametrize("batch", [1, 3, 255, 256, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_dense_head_variants(cuda_device, name, batch, dtype):
+    widths = HEAD_WIDTHS[name]
+    packed = _head(widths, seed=batch).to(cuda_device)
+    assert KD.plan(widths, packed.numel()).variant == ("streamed" if name == "600" else "resident")
+    rng = np.random.RandomState(batch + 1)
+    x = torch.from_numpy(rng.randn(batch, widths[0]).astype(np.float32)).to(cuda_device, dtype)
+    got, want = dense_head(x, packed, widths), dense_head_plain(x, packed, widths)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == (batch, widths[-1])
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -25,7 +25,9 @@ from roomnet_tpu.params import schema as jschema
 from roomnet_tpu_torch.ops import blocks as TB
 from roomnet_tpu_torch.ops.kernels import _build
 from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
+from roomnet_tpu_torch.ops.kernels import dense_head as KD
 from roomnet_tpu_torch.ops.kernels import pool as KP
+from roomnet_tpu_torch.ops.kernels import residual as KR
 from roomnet_tpu_torch.ops.kernels.conv3x3 import conv3x3_plain
 from roomnet_tpu_torch.ops.kernels.dense_head import dense_head_plain, pack_head
 from roomnet_tpu_torch.ops.kernels.pool import relu6_pool_bn_plain
@@ -276,7 +278,123 @@ def test_residual_source_pairs_rebuild_the_interp_matrix(src, dst, dtype):
     np.testing.assert_array_equal(rebuilt, m)
 
 
+# The residual's launch plan: (src, dst, C) of the three main-path sites, an
+# upsampling and an identity pair, and a height and width the strip and span
+# do not divide.
+PLAN_CASES = [(215, 205, 32), (100, 48, 64), (21, 2, 16), (7, 13, 8), (9, 9, 12), (131, 101, 128)]
+
+
+@pytest.mark.parametrize("src,dst,c", PLAN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_residual_plan_covers_every_nonzero_within_the_budget(src, dst, c, dtype):
+    """Each strip's res rows and each span's res columns hold every nonzero
+    of interp_matrix_tf1 (bf16-rounded in bf16) in its outputs' columns; the
+    strips and spans tile the output; a block stays within the kernel's
+    threads, strip and shared-memory limits."""
+    p = KR.plan(src, src, dst, dst, c, dtype)
+    m = torch.from_numpy(interp_matrix_tf1(src, dst)).to(dtype).float().numpy()
+    for groups, step in ((p.strips, p.strip), (p.spans, p.span)):
+        assert len(groups) == -(-dst // step)
+        for g, (first, count) in enumerate(groups):
+            nz = np.flatnonzero(m[:, g * step:(g + 1) * step].any(axis=1))
+            assert first <= nz.min() and nz.max() < first + count <= src
+    assert p.strip <= KR.MAX_STRIP and p.threads <= KR.MAX_THREADS
+    assert p.smem == p.rows_in * p.cols_in * c * p.itemsize <= KR.SMEM_LIMIT
+    assert p.grid(3) == (len(p.spans), len(p.strips), 3)
+
+
+@pytest.mark.parametrize("c,dtype,wide,vec", [
+    (32, torch.bfloat16, True, 8), (32, torch.float32, True, 4), (12, torch.bfloat16, True, 1),
+    (12, torch.float32, True, 4), (32, torch.bfloat16, False, 1), (6, torch.float32, True, 1)])
+def test_residual_plan_vector_width(c, dtype, wide, vec):
+    """16 bytes of channels per thread where C is a multiple of them and the
+    tensors are 16-byte aligned, else one channel."""
+    assert KR.plan(21, 19, 13, 17, c, dtype, wide).vec == vec
+
+
+@pytest.mark.parametrize("c,dtype", [(1028, torch.float32), (4104, torch.bfloat16)])
+def test_residual_plan_refuses_more_channels_than_a_column_of_threads(c, dtype):
+    with pytest.raises(ValueError, match="threads"):
+        KR.plan(9, 9, 9, 9, c, dtype)
+
+
+def test_residual_plan_halves_strip_then_span_to_fit_the_budget():
+    """100->48 at 64 bf16 channels: 8 rows reach 17 res rows, too many for
+    48 KB; the strip halves to 2. 1000->50 reaches 20 res columns per output
+    column: at one row the span halves from 50 to 25."""
+    p = KR.plan(100, 100, 48, 48, 64, torch.bfloat16)
+    assert (p.strip, p.span, p.rows_in) == (2, 24, 4) and p.smem <= KR.SMEM_LIMIT
+    p = KR.plan(1000, 1000, 50, 50, 32, torch.bfloat16)
+    assert (p.strip, p.span) == (1, 25) and p.smem <= KR.SMEM_LIMIT
+
+
+def _residual_by_blocks(x, res, s, t):
+    """csrc/residual_bn.cu's arithmetic block by block in PyTorch: each block
+    stages its strip's res rows and span's res columns, indexes them relative
+    to that tile, and rounds as the kernel does (each product and sum
+    separately, the H pass to the io dtype)."""
+    b, ho, wo, c = x.shape
+    _, hi, wi, _ = res.shape
+    p = KR.plan(hi, wi, ho, wo, c, x.dtype)
+    hidx, hwt = source_pairs(hi, ho, x.dtype)
+    widx, wwt = source_pairs(wi, wo, x.dtype)
+    y = torch.empty_like(x)
+    for by, (r0, nr) in enumerate(p.strips):
+        for bx, (c0, nc) in enumerate(p.spans):
+            tile = res[:, r0:r0 + nr, c0:c0 + nc].float()
+            oh = slice(by * p.strip, min((by + 1) * p.strip, ho))
+            ow = slice(bx * p.span, min((bx + 1) * p.span, wo))
+            h, w = hidx[oh] - r0, widx[ow] - c0
+            assert h.min() >= 0 and h.max() < nr and w.min() >= 0 and w.max() < nc
+            a, bw = T(hwt[oh])[None, :, None, None], T(wwt[ow])[None, None, :, None]
+
+            def hpass(col):
+                return (a[..., 0] * tile[:, h[:, 0]][:, :, col]
+                        + a[..., 1] * tile[:, h[:, 1]][:, :, col]).to(x.dtype).float()
+
+            up = bw[..., 0] * hpass(w[:, 0]) + bw[..., 1] * hpass(w[:, 1])
+            y[:, oh, ow] = (s * (x[:, oh, ow].float() + up) + t).to(x.dtype)
+    return y
+
+
+@pytest.mark.parametrize("src,dst,c", PLAN_CASES[:5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_residual_blocks_of_the_plan_match_plain(src, dst, c, dtype):
+    rng = np.random.RandomState(src + c)
+    s, t = _affine(random_bn(rng, c))
+    x = T(rng.randn(2, dst, dst, c).astype(np.float32)).to(dtype)
+    res = T(rng.randn(2, src, src, c).astype(np.float32)).to(dtype)
+    got, want = _residual_by_blocks(x, res, s, t), residual_bn_plain(x, res, s, t)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        atol = BF16_ULP * s.abs().max().item() * res.float().abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_ULP, atol=atol)
+
+
 # -- dense_head ----------------------------------------------------------------
+
+@pytest.mark.parametrize("widths,variant", [
+    ((64, 32, 16, 8, 6), "resident"), ((256, 16, 8, 6), "resident"),
+    ((256, 32, 16, 8, 6), "resident"), ((3136, 32, 16, 8, 6), "streamed")],
+    ids=["224", "tiny", "300", "600"])
+def test_dense_head_plan_picks_the_variant_from_the_packed_size(widths, variant):
+    """Resident where the weights and four warps' activations fit 48 KB of
+    shared memory (roomnet-300's 36 KB of weights do), streamed beyond:
+    roomnet-600's 3136x32 first layer is 401 KB."""
+    rng, n = np.random.RandomState(0), len(widths) - 1
+    layers = [{"kernel": np.zeros(widths[i:i + 2], np.float32),
+               "bias": np.zeros(widths[-1], np.float32) if i == n - 1 else None,
+               "bn": None if i == n - 1 else random_bn(rng, widths[i + 1])} for i in range(n)]
+    packed, got = pack_head(torch_tree(layers))
+    p = KD.plan(got, packed.numel())
+    assert (p.variant, p.rows) == (variant, KD.WARPS if variant == "resident" else 1)
+    if variant == "resident":
+        weights = -(-packed.numel() // 4) * 4
+        assert p.smem == (weights + KD.WARPS * 2 * max(widths)) * 4 <= KD.RESIDENT_SMEM
+    else:
+        assert packed.numel() * 4 > KD.RESIDENT_SMEM
+
 
 @pytest.mark.parametrize("bsz", [1, 16, 300])
 def test_dense_head_plain_matches_pallas(dense_layers_np, bsz):
