@@ -40,9 +40,27 @@ kernels, in phases; any failure raises and the script exits non-zero:
      images, and forward_golden_wide.npz, 64): f32 logits within 1e-4 and
      argmax exact (float and uint8-fold input); bf16 argmax exact and
      |dlogit| within BF16_DLOGIT; launch counts 10/10/3/1 per forward.
-  5. The main path: RoomNetClassifier at batch 256 (throughput) and requests
-     of batch 1, 3 and 8 (latency), bf16 and f32, with the launch counters
-     zeroed before and read after each dtype's run.
+  5. The serving path: RoomNetClassifier.predict at batch 256 (throughput)
+     and requests of batch 1, 3 and 8 (latency), bf16 and f32, with the
+     launch counters zeroed before and read after each dtype's run.
+  6. The directory path, the main path of a user: a directory of PNG files
+     written here (standard library zlib only) from the 64 wide-golden
+     images, each centred in a 224x300 or 300x224 canvas with random
+     margins, 8 noisy 2x images in 448x600 canvases, a name with spaces, an
+     extensionless copy and a corrupt file. classify_im_dir and
+     groundtruth_validation at batch 16, f32 and bf16, counters zeroed just
+     before and read just after: argmax equal to the TF graph's, f32 probs
+     within 1e-5 of phase 4's softmax, the corrupt file skipped, the .xls
+     and .csv one row per readable file, 10/10/3/1 launches per forward;
+     decoded crops equal to the golden pixels and 2x images within one gray
+     level of resize_bilinear_half_pixel on the same crop. Then stage times,
+     nothing claimed: predict_paths on 1,024 files at batch 256 in bf16
+     (decode on the host clock, H2D and forward by CUDA events), and
+     predict from numpy at batch 256 through the pinned ring beside the
+     pageable one-stream copy it replaced, and batch-1 requests both ways,
+     timed in turns. A host without any image decoder prints "decode
+     backend: none on this host" and feeds the same arrays through
+     predict_stream's decode seam instead.
 
 Then the serving JSON line, the script's wall time, one JSON line of
 per-kernel results and, last, the device line.
@@ -51,14 +69,20 @@ f32 parity needs TF32 off; the script turns it off for everything it runs.
 
 from __future__ import annotations
 
+import csv
 import ctypes
 import json
 import math
+import os
 import pathlib
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -154,6 +178,83 @@ def in_turns(fns: dict, eager: tuple = ()) -> dict:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def png_bytes(bgr: np.ndarray) -> bytes:
+    """A PNG file (8-bit RGB, filter 0 on every row) of an (H, W, 3) uint8
+    BGR image, written with the standard library's zlib alone."""
+    h, w, _ = bgr.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), bgr[..., ::-1].reshape(h, w * 3)], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def canvas(rng: np.random.RandomState, im: np.ndarray, tall: bool) -> np.ndarray:
+    """`im` (S, S, 3) in the middle of a canvas of random pixels, S x 1.34 S
+    (wide) or 1.34 S x S (tall), so that the centre crop gives `im` back."""
+    s = im.shape[0]
+    long = s * 75 // 56  # 224 -> 300, 448 -> 600
+    out = rng.randint(0, 256, size=(long, s, 3) if tall else (s, long, 3), dtype=np.uint8)
+    off = (long - s) // 2
+    if tall:
+        out[off: off + s] = im
+    else:
+        out[:, off: off + s] = im
+    return out
+
+
+def write_image_dir(d: str, images: np.ndarray, seed: int) -> dict:
+    """Phase 6's directory, from (N, S, S, 3) uint8 BGR images:
+    crop_<i>.png (image i in a canvas), double_<j>.png (a 2x noisy copy of
+    image j in a 2x canvas, j < 8), "photo with spaces.png" (crop_00's
+    bytes), noext_photo (crop_01's) and corrupt.png. Returns {"golden":
+    {name: i}, "crops": {name: the centre crop each readable file holds},
+    "bytes": {name: file bytes}, "corrupt": name}."""
+    os.makedirs(d)
+    rng = np.random.RandomState(seed)
+    golden, crops, files = {}, {}, {}
+    for i, im in enumerate(images):
+        name = f"crop_{i:02d}.png"
+        files[name], golden[name], crops[name] = png_bytes(canvas(rng, im, i % 2 == 1)), i, im
+    for j in range(8):
+        big = np.repeat(np.repeat(images[j].astype(np.int16), 2, 0), 2, 1)
+        big = np.clip(big + rng.randint(-12, 13, size=big.shape), 0, 255).astype(np.uint8)
+        name = f"double_{j}.png"
+        files[name], crops[name] = png_bytes(canvas(rng, big, j % 2 == 0)), big
+    for name, src in (("photo with spaces.png", "crop_00.png"), ("noext_photo", "crop_01.png")):
+        files[name], golden[name], crops[name] = files[src], golden[src], crops[src]
+    files["corrupt.png"] = b"not an image"
+    for name, data in files.items():
+        pathlib.Path(d, name).write_bytes(data)
+    return {"golden": golden, "crops": crops, "bytes": files, "corrupt": "corrupt.png"}
+
+
+def decode_backend() -> str | None:
+    """The decoder predict_paths uses on this host: "native", "cv2" or None."""
+    from roomnet_tpu_torch.data import native
+
+    if native.available():
+        return "native"
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return None
+    return "cv2"
+
+
+def timed_fill(fill, spent: list):
+    """`fill` that appends the host seconds of each call to `spent`."""
+    def run(start, stop, out):
+        t0 = time.perf_counter()
+        kept = fill(start, stop, out)
+        spent.append(time.perf_counter() - t0)
+        return kept
+    return run
 
 
 def main() -> None:
@@ -403,6 +504,8 @@ def main() -> None:
         for dt, cfg in cfgs.items():
             zero_counts()
             logits = M.forward(variables, M.normalize_bgr_uint8(xu8), cfg).cpu().numpy()
+            if (label, dt) == ("forward_golden_wide", "f32"):
+                wide_logits = logits
             if counts() != per_forward:
                 raise AssertionError(f"{label}[{dt}]: launches {counts()} != {per_forward}")
             d = np.abs(logits - gd["logits"]).max()
@@ -464,11 +567,16 @@ def main() -> None:
         del clf, xb
         torch.cuda.empty_cache()
 
+    # -- phase 6: the directory path ------------------------------------------
+    directory = phase6(variables, cfgs, gw, wide_logits, x256_u8, serving, counts, zero_counts,
+                       per_forward, dev)
+    launches = directory.pop("launches")
+
     for dt in cfgs:
         log(f"max |d| against plain [{dt}]: " + ", ".join(
             f"{n} {max_err[(n, dt, 8)]:.3g} (batch 8) {max_err[(n, dt, 256)]:.3g} (batch 256)"
             for n in kernels))
-    log(json.dumps({"card": smi, "serving": serving}))
+    log(json.dumps({"card": smi, "serving": serving, "directory": directory}))
     log(f"wall: {time.perf_counter() - wall0:.1f} s from start to the result lines")
     rows = []
     for dt in cfgs:
@@ -486,6 +594,238 @@ def main() -> None:
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
+
+
+def phase6(variables, cfgs, gw, wide_logits, x256_u8, serving, counts, zero_counts, per_forward, dev) -> dict:
+    """The directory path (docstring phase 6). Returns its numbers, and under
+    "launches" each dtype's counts from its classify_im_dir run."""
+    from roomnet_tpu_torch import CLASS_LABELS
+    from roomnet_tpu_torch.infer.classify import (RoomNetClassifier, classify_im_dir,
+                                                  groundtruth_validation, load_fill)
+    from roomnet_tpu_torch.ops.resize import resize_bilinear_half_pixel
+    from roomnet_tpu_torch.utils.xls import read_labels_biff2
+
+    backend = decode_backend()
+    log(f"decode backend: {backend or 'none on this host'}")
+    want_probs = torch.softmax(torch.from_numpy(wide_logits), -1).numpy()
+    result = {"decode_backend": backend or "none", "launches": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        d = os.path.join(root, "imgs")
+        layout = write_image_dir(d, gw["x_uint8_bgr"], seed=6)
+        golden, crops = layout["golden"], layout["crops"]
+        names = sorted(layout["bytes"])
+        paths = [os.path.join(d, n) for n in names]
+        readable = [n != layout["corrupt"] for n in names]
+
+        def forwards_of(bs: int) -> int:  # batches of `names` that hold a readable file
+            return sum(any(readable[b: b + bs]) for b in range(0, len(names), bs))
+
+        def check_counts(where: str, n_forwards: int) -> dict:
+            got, want = counts(), {k: c * n_forwards for k, c in per_forward.items()}
+            if got != want:
+                raise AssertionError(f"{where}: launches {got} != {want} for {n_forwards} forwards")
+            return got
+
+        def check_preds(where: str, ids, confs, ok, exact_probs: bool) -> float:
+            """ids/confs/ok over `names`: the corrupt file skipped, argmax of
+            the golden files equal to the TF graph's; returns max |dprob|."""
+            if list(ok) != readable or (ids[~ok] != -1).any():
+                raise AssertionError(f"{where}: ok mask {list(ok)} != readable {readable}")
+            err = 0.0
+            for k, n in enumerate(names):
+                if n in golden:
+                    if ids[k] != gw["argmax"][golden[n]]:
+                        raise AssertionError(f"{where}: {n} argmax {ids[k]} != TF {gw['argmax'][golden[n]]}")
+                    err = max(err, float(np.abs(confs[k] - want_probs[golden[n]]).max()))
+            if exact_probs and not err <= 1e-5:
+                raise AssertionError(f"{where}: f32 probs {err:.3g} from phase 4's softmax (> 1e-5)")
+            return err
+
+        if backend is None:
+            clf = RoomNetClassifier(variables, cfgs["f32"], device=dev)
+            try:
+                clf._load(paths[0])
+            except RuntimeError as e:
+                if "native" not in str(e) or "cv2" not in str(e):
+                    raise
+            else:
+                raise AssertionError("a host with no decoder must raise on decode")
+        else:
+            # The decode: crops exact (PNG is lossless), 2x within one level.
+            clf = RoomNetClassifier(variables, cfgs["f32"], device=dev)
+            worst = 0
+            for n in names:
+                got = clf._load(os.path.join(d, n))
+                if n == layout["corrupt"]:
+                    if got is not None:
+                        raise AssertionError("the corrupt file decoded")
+                    continue
+                want = crops[n]
+                if want.shape[0] != 224:
+                    want = resize_bilinear_half_pixel(torch.from_numpy(want[None]).float(), (224, 224))
+                    want = want.round().clamp(0, 255).to(torch.uint8)[0].numpy()
+                dev_ = int(np.abs(got.astype(np.int16) - want).max())
+                if dev_ > (0 if n in golden else 1):
+                    raise AssertionError(f"decode {n}: max |d| {dev_} gray levels")
+                worst = max(worst, dev_) if n not in golden else worst
+            log(f"decode [{backend}]: {len(golden)} crop-only files equal the golden pixels, "
+                f"2x files within {worst} gray level of resize_bilinear_half_pixel")
+            result["decode_2x_max_levels"] = worst
+
+        for dt, cfg in cfgs.items():
+            clf = RoomNetClassifier(variables, cfg, batch_size=16, device=dev)
+            n_fwd = forwards_of(16)
+            if backend is None:
+                arrays = [None if n == layout["corrupt"] else crops[n] if n in golden else
+                          resize_bilinear_half_pixel(torch.from_numpy(crops[n][None]).float(), (224, 224))
+                          .round().clamp(0, 255).to(torch.uint8)[0].numpy() for n in names]
+                zero_counts()
+                with ThreadPoolExecutor(clf.decode_workers) as pool:
+                    ids, confs, ok = clf.predict_stream(len(names), load_fill(arrays, lambda a: a, pool))
+                result["launches"][dt] = check_counts(f"predict_stream[{dt}]", n_fwd)
+                err = check_preds(f"predict_stream[{dt}]", ids, confs, ok, dt == "f32")
+                log(f"directory[{dt}] through the decode seam: {int(ok.sum())} of {len(names)} items "
+                    f"classified, argmax equal to the TF graph, max |dprob| {err:.3g}")
+                continue
+            out_dir = os.path.join(root, f"out_{dt}")
+            zero_counts()
+            xl = classify_im_dir(clf, d, overlay=False, out_dir=out_dir, progress=False)
+            result["launches"][dt] = check_counts(f"classify_im_dir[{dt}]", n_fwd)
+            cells = read_labels_biff2(xl)
+            rows = {cells[(r, 0)]: (cells[(r, 1)], float(cells[(r, 2)])) for (r, c) in cells if r > 0 and c == 0}
+            with open(out_dir + "_results.csv", newline="") as f:
+                csv_rows = {r[0]: (r[1], float(r[2])) for r in list(csv.reader(f))[1:]}
+            want_names = {n for n, r in zip(names, readable) if r}
+            if set(rows) != want_names or rows != csv_rows:
+                raise AssertionError(f"classify_im_dir[{dt}]: .xls/.csv rows differ from the readable files")
+            for n in want_names:
+                if not os.path.exists(os.path.join(out_dir, rows[n][0], n)):
+                    raise AssertionError(f"classify_im_dir[{dt}]: {n} not in its class folder")
+            zero_counts()
+            ids, confs, ok = clf.predict_paths(paths)
+            check_counts(f"predict_paths[{dt}]", n_fwd)
+            err = check_preds(f"predict_paths[{dt}]", ids, confs, ok, dt == "f32")
+            for k, n in enumerate(names):
+                if ok[k] and (rows[n][0] != CLASS_LABELS[ids[k]] or abs(rows[n][1] - confs[k, ids[k]]) > 1e-6):
+                    raise AssertionError(f"classify_im_dir[{dt}]: row {n} {rows[n]} != predict_paths")
+            lst = os.path.join(root, f"list_{dt}.txt")
+            with open(lst, "w") as f:
+                for n in names:
+                    if n in golden or n == layout["corrupt"]:
+                        f.write(f"{os.path.join(d, n)} {int(gw['argmax'][golden.get(n, 0)])}\n")
+            zero_counts()
+            stats = groundtruth_validation(clf, lst)
+            check_counts(f"groundtruth_validation[{dt}]", -(-(len(golden) + 1) // 16))
+            if stats["accuracy"] != 1.0:
+                raise AssertionError(f"groundtruth_validation[{dt}]: {stats}")
+            log(f"directory[{dt}]: classify_im_dir {len(rows)} rows of {len(names)} files (.xls = "
+                f".csv, class folders), argmax equal to the TF graph, max |dprob| {err:.3g}, "
+                f"groundtruth_validation accuracy {stats['accuracy']}, launches "
+                f"{result['launches'][dt]} over {n_fwd} forwards")
+
+        # -- stage times, bf16 at batch 256, nothing claimed --
+        bulk = os.path.join(root, "bulk")
+        os.makedirs(bulk)
+        # Without a decoder the seam gets the crop-only images' arrays.
+        src = [n for n in names if n.startswith(("crop_", "double_") if backend else "crop_")]
+        bulk_paths = []
+        for k in range(1024):
+            bulk_paths.append(os.path.join(bulk, f"im_{k:04d}.png"))
+            pathlib.Path(bulk_paths[-1]).write_bytes(layout["bytes"][src[k % len(src)]])
+        clf = RoomNetClassifier(variables, cfgs["bf16"], batch_size=256, device=dev)
+        decode_s = []
+        with ThreadPoolExecutor(clf.decode_workers) as pool:
+            if backend is None:
+                fill = load_fill([crops[src[k % len(src)]] for k in range(1024)], lambda a: a, pool)
+            else:
+                fill = clf.path_fill(bulk_paths, pool)
+            clf.predict_stream(256, fill)  # warm-up
+            zero_counts()
+            t0 = time.perf_counter()
+            ids, _, ok = clf.predict_stream(1024, timed_fill(fill, decode_s))
+            wall = time.perf_counter() - t0
+        check_counts("predict_paths[bf16] 1024 files", 4)
+        if not ok.all():
+            raise AssertionError("predict_paths on 1024 files: some file unread")
+        for k in range(1024):
+            n = src[k % len(src)]
+            if n in golden and ids[k] != gw["argmax"][golden[n]]:
+                raise AssertionError(f"predict_paths on 1024 files: {n} argmax differs from the TF graph")
+        pinned = torch.from_numpy(x256_u8).pin_memory()
+        xd = torch.empty(pinned.shape, dtype=torch.uint8, device=dev)
+        side = torch.cuda.Stream(dev)
+        with torch.cuda.stream(side):
+            h2d_ms = cuda_ms(lambda: xd.copy_(pinned, non_blocking=True))
+        h2d_pageable_ms = cuda_ms(lambda: xd.copy_(torch.from_numpy(x256_u8)))
+        fwd_ms = cuda_ms(lambda: clf._predict(xd))
+        staged = torch.empty(x256_u8.shape, dtype=torch.uint8, pin_memory=True).numpy()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            staged[:] = x256_u8  # the copy predict's decode stage makes
+        fill_ms = (time.perf_counter() - t0) * 100
+        dec_ms = 1e3 * sum(decode_s) / len(decode_s)
+        log(f"predict_paths[bf16] 1024 files at batch 256 [{backend or 'decode seam'}]: "
+            f"{1024 / wall:.1f} img/s (host clock); decode {dec_ms:.2f} ms per batch (host clock, "
+            f"{clf.decode_workers} workers), H2D {h2d_ms:.3f} ms pinned on a copy stream / "
+            f"{h2d_pageable_ms:.3f} ms pageable (CUDA events), forward {fwd_ms:.3f} ms (CUDA events)")
+        result["predict_paths_bf16_1024"] = {
+            "img_per_s": 1024 / wall, "decode_ms_per_batch": dec_ms, "h2d_pinned_ms": h2d_ms,
+            "h2d_pageable_ms": h2d_pageable_ms, "forward_ms": fwd_ms}
+
+        # predict from numpy, 10 batches of 256 per call, against the
+        # pageable one-stream loop it replaced, in turns.
+        x2560 = np.concatenate([x256_u8] * 10)
+
+        def ring():
+            return clf.predict(x2560)
+
+        def pageable(x=x2560):
+            out = []
+            for i in range(0, len(x), 256):
+                bid, bprobs = clf._predict(torch.from_numpy(x[i: i + 256]).to(dev, non_blocking=True))
+                out.append((bid.cpu().numpy(), bprobs.cpu().numpy()))
+            return np.concatenate([o[0] for o in out]), np.concatenate([o[1] for o in out])
+
+        a, b = ring(), pageable()
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+            raise AssertionError("predict through the pinned ring differs from the pageable loop")
+        thr = {"pinned_ring": [], "pageable": []}
+        for name in ("pageable", "pinned_ring", "pinned_ring", "pageable"):
+            fn = ring if name == "pinned_ring" else pageable
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                thr[name].append(len(x2560) / (time.perf_counter() - t0))
+        thr = {k: statistics.median(v) for k, v in thr.items()}
+        # Batch-1 requests, the same two ways, in turns: the host clock
+        # spreads by tenths of a millisecond between turns, so each turn's
+        # median is printed beside the overall one.
+        x1 = gw["x_uint8_bgr"][:1]
+        lat = {"pinned_ring": [], "pageable": []}
+        turns = {"pinned_ring": [], "pageable": []}
+        for name in ("pageable", "pinned_ring") * 4:
+            got = []
+            for _ in range(40):
+                t0 = time.perf_counter()
+                clf.predict(x1) if name == "pinned_ring" else pageable(x1)
+                got.append((time.perf_counter() - t0) * 1e3)
+            lat[name] += got
+            turns[name].append(statistics.median(got))
+        lat = {k: statistics.median(v) for k, v in lat.items()}
+        log(f"predict[bf16] from numpy, 2560 images at batch 256: pinned ring {thr['pinned_ring']:.1f} "
+            f"img/s, pageable one-stream loop {thr['pageable']:.1f} img/s (host clock, medians of 6 "
+            f"calls in turns); host copy into the ring {fill_ms:.3f} ms per batch, H2D {h2d_ms:.3f} "
+            f"ms, forward {fwd_ms:.3f} ms; phase 5 (one batch per call): "
+            f"{serving['bf16']['img_per_s_batch256']:.1f} img/s; batch-1 p50 {lat['pinned_ring']:.3f} "
+            f"ms through the ring, {lat['pageable']:.3f} ms pageable (160 requests each, 4 turns "
+            f"each; per turn " + " / ".join(f"{a:.3f} vs {b:.3f}" for a, b in
+                                            zip(turns["pinned_ring"], turns["pageable"])) + ")")
+        result["predict_bf16_2560"] = {"pinned_ring_img_per_s": thr["pinned_ring"],
+                                       "pageable_img_per_s": thr["pageable"], "host_copy_ms": fill_ms,
+                                       "p50_ms_batch1": lat["pinned_ring"],
+                                       "pageable_p50_ms_batch1": lat["pageable"],
+                                       "p50_ms_batch1_per_turn": turns}
+    return result
 
 
 if __name__ == "__main__":

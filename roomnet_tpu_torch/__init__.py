@@ -15,6 +15,8 @@ from __future__ import annotations
 
 __version__ = "0.1.0"
 
+CLASS_LABELS = ["Backyard", "Bathroom", "Bedroom", "Frontyard", "Kitchen", "LivingRoom"]
+
 
 def default_device(device=None):
     """The device an entry point runs on: the caller's, else `cuda`.

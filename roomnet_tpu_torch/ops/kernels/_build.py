@@ -13,6 +13,11 @@ shared memory, spills) goes to ``<name>.log`` beside the library.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; `check`
 raises on anything but 0. Pointers and the stream are ``c_void_p``.
+
+Host libraries (``csrc/<name>.cpp``, today the image decoder roomnet_io)
+build the same way with g++ (`build_host`), into the same directory:
+
+    g++ -O3 -fPIC -std=c++17 -shared [-mfma] -o lib<name>-<hash>.so <name>.cpp -ljpeg -lpng
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import platform
 import shutil
 import subprocess
 import threading
@@ -32,6 +38,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# -mfma on x86-64: the JAX package's csrc/libroomnet_io.so is built with
+# -march=native, and GCC then contracts crop_resize_flip's float lerps into
+# FMAs. The same contraction keeps the port's pixels byte-identical to it;
+# without it a few pixels round one gray level apart.
+GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared") + (
+    ("-mfma",) if platform.machine() in ("x86_64", "AMD64") else ())
+HOST_LIBS = {"roomnet_io": ("-ljpeg", "-lpng")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -51,11 +64,40 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> pathlib.Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+def _hashed(name: str, flags, sources) -> pathlib.Path:
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def library_path(name: str) -> pathlib.Path:
+    return _hashed(name, NVCC_FLAGS, [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+
+
+def host_library_path(name: str) -> pathlib.Path:
+    return _hashed(name, (*GXX_FLAGS, *HOST_LIBS[name]), [CSRC / f"{name}.cpp"])
+
+
+def build_host(name: str) -> pathlib.Path:
+    """The path of csrc/<name>.cpp's host library, compiled with g++ if it is
+    not built yet. Raises RuntimeError with the compiler's log on failure."""
+    out = host_library_path(name)
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found on PATH: csrc/{name}.cpp is compiled at first use")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [gxx, *GXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp"), *HOST_LIBS[name]]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    (BUILD_DIR / f"{name}.log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{name}.cpp build failed (g++ exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    return out
 
 
 def build(names=SOURCES) -> None:

@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version, and
-the forward through all four against the TF-graph goldens.
+the forward through all four against the TF-graph goldens; the classifier's
+pipeline (pinned ring, copy stream, results copied back behind each forward)
+against one batch at a time, fed arrays through its decode seam.
 
 Every test here is marked `cuda` and skips where no GPU is present. The file
 imports neither JAX nor roomnet_tpu, so it runs on a machine without them:
@@ -14,11 +16,13 @@ argmax exact (tests/test_forward_golden.py's gates).
 """
 
 import pathlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 import torch
 
+from roomnet_tpu_torch.infer.classify import RoomNetClassifier, load_fill
 from roomnet_tpu_torch.models import registry
 from roomnet_tpu_torch.models import roomnet as M
 from roomnet_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_plain
@@ -261,3 +265,123 @@ def test_cuda_dense_head_variants(cuda_device, name, batch, dtype):
     for a, b in zip(got, want):
         assert a.shape == (batch, widths[-1])
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def classifiers():
+    """roomnet-224 f32 and bf16 classifiers at batch 16 on the card (the
+    module's tests skip through cuda_device before using them)."""
+    made = {}
+
+    def get(cfg_name, device, batch_size=16):
+        key = (cfg_name, batch_size)
+        if key not in made:
+            variables = load_npz(REPO / "artifacts" / "roomnet_params.npz", device=device)
+            made[key] = RoomNetClassifier(variables, registry.get(cfg_name), batch_size=batch_size,
+                                          device=device)
+        return made[key]
+
+    return get
+
+
+def _one_batch_at_a_time(clf, x):
+    """(ids, probs) of `_predict` on each batch of pageable input in turn,
+    synchronously: the reference for the pipeline."""
+    ids, probs = [], []
+    for i in range(0, len(x), clf.batch_size):
+        bid, bprobs = clf._predict(torch.from_numpy(x[i: i + clf.batch_size]).to(clf.device))
+        ids.append(bid.cpu().numpy())
+        probs.append(bprobs.cpu().numpy())
+    return np.concatenate(ids), np.concatenate(probs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [640, 641], ids=["40x16", "40x16+1"])
+@pytest.mark.parametrize("cfg_name", ["roomnet-224", "roomnet-224-bf16"])
+def test_cuda_predict_ring_wraps(cuda_device, classifiers, n, cfg_name):
+    """40 batches of 16 wrap the ring of 3 pinned slots 13 times; 641 ends
+    on a batch of 1. Every batch's ids and probs equal one batch at a time."""
+    clf = classifiers(cfg_name, cuda_device)
+    x = np.random.RandomState(n).randint(0, 256, size=(n, 224, 224, 3), dtype=np.uint8)
+    ids, probs = clf.predict(x)
+    want_ids, want_probs = _one_batch_at_a_time(clf, x)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(probs, want_probs)
+
+
+@pytest.mark.cuda
+def test_cuda_predict_memory_does_not_grow_with_batches(cuda_device, classifiers):
+    """At most RING batches are on the device at once: the peak for 40
+    batches is the peak for 3, give or take one batch of input."""
+    clf = classifiers("roomnet-224-bf16", cuda_device)
+    x = np.random.RandomState(4).randint(0, 256, size=(640, 224, 224, 3), dtype=np.uint8)
+    peaks = []
+    for n in (48, 640):
+        clf.predict(x[:n])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(cuda_device)
+        clf.predict(x[:n])
+        peaks.append(torch.cuda.max_memory_allocated(cuda_device))
+    assert peaks[1] <= peaks[0] + x[:16].nbytes, peaks
+
+
+@pytest.mark.cuda
+def test_cuda_predict_pinned_input_matches_pageable(cuda_device, classifiers):
+    clf = classifiers("roomnet-224-bf16", cuda_device)
+    x = np.random.RandomState(5).randint(0, 256, size=(40, 224, 224, 3), dtype=np.uint8)
+    pinned = torch.from_numpy(x).pin_memory()
+    assert pinned.is_pinned()
+    got, want = clf.predict(pinned), clf.predict(x)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_cuda_slow_forward_reads_its_own_batch(cuda_device, classifiers, monkeypatch):
+    """Each forward sleeps on the compute stream before it reads its batch,
+    so the copy stream runs ahead of it. The batch's device buffer, freed by
+    the host after the forward is enqueued, must not be handed to a later
+    copy before that forward has read it (record_stream), nor its pinned
+    slot refilled early: every batch still classifies its own pixels."""
+    clf = classifiers("roomnet-224-bf16", cuda_device)
+    x = np.random.RandomState(6).randint(0, 256, size=(12 * 16, 224, 224, 3), dtype=np.uint8)
+    want_ids, want_probs = _one_batch_at_a_time(clf, x)
+    real = clf._predict
+
+    def slow(xb):
+        torch.cuda._sleep(50_000_000)  # tens of ms of device time, before xb is read
+        return real(xb)
+
+    monkeypatch.setattr(clf, "_predict", slow)
+    ids, probs = clf.predict(x)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(probs, want_probs)
+
+
+@pytest.mark.cuda
+def test_cuda_predict_stream_leaves_out_unread_items(cuda_device, classifiers):
+    """The decode seam: items fill could not read get id -1 and conf 0; the
+    rest match one batch at a time, compacted into ragged batches."""
+    clf = classifiers("roomnet-224", cuda_device)
+    x = np.random.RandomState(7).randint(0, 256, size=(37, 224, 224, 3), dtype=np.uint8)
+    missing = {0, 5, 16, 17, 36}
+    items = [None if i in missing else x[i] for i in range(len(x))]
+    with ThreadPoolExecutor(4) as pool:
+        ids, confs, ok = clf.predict_stream(len(items), load_fill(items, lambda a: a, pool))
+    keep = np.array([i not in missing for i in range(len(x))])
+    np.testing.assert_array_equal(ok, keep)
+    assert (ids[~keep] == -1).all() and (confs[~keep] == 0).all()
+    want_ids, want_probs = _one_batch_at_a_time(clf, x[keep])
+    np.testing.assert_array_equal(ids[keep], want_ids)
+    np.testing.assert_allclose(confs[keep], want_probs, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_predict_counts_launches_per_forward(cuda_device, classifiers):
+    clf = classifiers("roomnet-224-bf16", cuda_device)
+    x = np.random.RandomState(8).randint(0, 256, size=(33, 224, 224, 3), dtype=np.uint8)
+    kernels = (conv3x3, relu6_pool_bn, residual_bn, dense_head)
+    for k in kernels:
+        k.launches = 0
+    clf.predict(x)
+    assert [k.launches for k in kernels] == [30, 30, 9, 3]
