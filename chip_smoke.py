@@ -62,8 +62,26 @@ kernels, in phases; any failure raises and the script exits non-zero:
      backend: none on this host" and feeds the same arrays through
      predict_stream's decode seam instead.
 
-Then the serving JSON line, the script's wall time, one JSON line of
-per-kernel results and, last, the device line.
+  7. The training step (train/step.py), through the four kernels under
+     autograd: (a) at 224 in f32 on the 7-image grad_golden.npz batch, in
+     both BN modes, the CE and the full loss within 3e-4 of the TF oracle
+     and the CE gradient of every trainable tensor within the JAX package's
+     gates (GRAD_GATES_224); (b) traj_golden.npz's 6 TF1-Adam steps at the
+     tiny geometry, sequential and multi-step, both modes, losses within
+     5e-4 and params within 1e-4; (c) each autograd Function against
+     autograd through its plain version on the operands of every site of a
+     batch-8 training step, f32 and bf16: the forward at phase 2's
+     tolerances, every input's gradient within GRAD_RTOL; (d) the launches
+     of one step, counters zeroed just before and read just after:
+     10/10/3/1 with TrainHParams(), 10/10/3/0 with batch statistics; (e)
+     times, nothing claimed: TrainHParams() steps in bf16 at batch 45 and
+     128 and in f32 at batch 45, ms per step and img/s (median of 3 chains
+     of 20, CUDA events), each split into forward, backward and optimizer,
+     and peak memory after steps 5 and 20 of a fresh state (equal within
+     1%).
+
+Then the JSON line of serving, directory and training numbers, the script's
+wall time, one JSON line of per-kernel results and, last, the device line.
 f32 parity needs TF32 off; the script turns it off for everything it runs.
 """
 
@@ -178,6 +196,31 @@ def in_turns(fns: dict, eager: tuple = ()) -> dict:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def compare(name, dt, args, got, want, where: str) -> float:
+    """Max |d| of one launch's output against its plain version's; raises
+    where they disagree beyond the tolerances of the docstring's phase 2."""
+    pairs = list(zip(got, want)) if name == "dense_head" else [(got, want)]
+    err = 0.0
+    for a, b in pairs:
+        a, b = a.detach().float(), b.detach().float()
+        if dt == "f32" or name == "dense_head":
+            tol = 1e-4 if name == "conv3x3" else 1e-5
+            rtol, atol = tol, tol
+        else:
+            rtol, atol = 2.0 ** -7, 1e-3
+            if name == "residual_bn":
+                atol = 2.0 ** -7 * args[2].abs().max().item() * args[1].float().abs().max().item()
+        d = (a - b).abs()
+        bad = d > atol + rtol * b.abs()
+        if bad.any() or not torch.isfinite(a).all():
+            raise AssertionError(
+                f"{name}[{dt}] {where}: kernel disagrees with plain at {int(bad.sum())} "
+                f"of {b.numel()} values, max |d| {d.max().item():.3g}")
+        err = max(err, d.max().item())
+        del a, b, d, bad
+    return err
 
 
 def png_bytes(bgr: np.ndarray) -> bytes:
@@ -371,30 +414,6 @@ def main() -> None:
     def out0(y):
         return y if isinstance(y, torch.Tensor) else y[0]
 
-    def compare(name, dt, args, got, want, where: str) -> float:
-        """Max |d| of one launch's output against its plain version's; raises
-        where they disagree beyond the tolerances of the docstring's phase 2."""
-        pairs = list(zip(got, want)) if name == "dense_head" else [(got, want)]
-        err = 0.0
-        for a, b in pairs:
-            a, b = a.float(), b.float()
-            if dt == "f32" or name == "dense_head":
-                tol = 1e-4 if name == "conv3x3" else 1e-5
-                rtol, atol = tol, tol
-            else:
-                rtol, atol = 2.0 ** -7, 1e-3
-                if name == "residual_bn":
-                    atol = 2.0 ** -7 * args[2].abs().max().item() * args[1].float().abs().max().item()
-            d = (a - b).abs()
-            bad = d > atol + rtol * b.abs()
-            if bad.any() or not torch.isfinite(a).all():
-                raise AssertionError(
-                    f"{name}[{dt}] {where}: kernel disagrees with plain at {int(bad.sum())} "
-                    f"of {b.numel()} values, max |d| {d.max().item():.3g}")
-            err = max(err, d.max().item())
-            del a, b, d, bad
-        return err
-
     # -- phase 2: each kernel against its plain version, batch 8 -------------
     x8 = normalized(np.concatenate([g["x_uint8_bgr"], gw["x_uint8_bgr"][:1]]))
     max_err = {}  # (name, dt, batch) -> max |d| over the launches
@@ -572,11 +591,17 @@ def main() -> None:
                        per_forward, dev)
     launches = directory.pop("launches")
 
+    # -- phase 7: the training step -------------------------------------------
+    training = {"oracles": train_oracles(variables, dev)}
+    grad_checks = train_function_checks(variables, cfgs, kernels, dev)
+    step_launches = train_launches(variables, cfgs, counts, zero_counts, dev)
+    training["times"] = train_times(variables, cfgs, dev, smi)
+
     for dt in cfgs:
         log(f"max |d| against plain [{dt}]: " + ", ".join(
             f"{n} {max_err[(n, dt, 8)]:.3g} (batch 8) {max_err[(n, dt, 256)]:.3g} (batch 256)"
             for n in kernels))
-    log(json.dumps({"card": smi, "serving": serving, "directory": directory}))
+    log(json.dumps({"card": smi, "serving": serving, "directory": directory, "training": training}))
     log(f"wall: {time.perf_counter() - wall0:.1f} s from start to the result lines")
     rows = []
     for dt in cfgs:
@@ -590,6 +615,9 @@ def main() -> None:
                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
                 "library_ms": t["library_ms"],
+                "train_step_launches": {m: step_launches[(dt, m)][name] for m in ("infbn", "trainbn")},
+                "train_forward_max_abs_err": grad_checks[(name, dt)][0],
+                "train_grad_tolerance_share": grad_checks[(name, dt)][1],
             })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -826,6 +854,277 @@ def phase6(variables, cfgs, gw, wide_logits, x256_u8, serving, counts, zero_coun
                                        "pageable_p50_ms_batch1": lat["pageable"],
                                        "p50_ms_batch1_per_turn": turns}
     return result
+
+
+# -- phase 7: the training step ----------------------------------------------
+# The JAX package's own gates against the TF oracles (tests/test_grad_golden.py
+# and tests/test_traj_golden.py), pinned here since the card has no JAX:
+# (atol, rtol) on each CE gradient per BN mode at 224, 3e-4 on the losses.
+GRAD_GATES_224 = {"infbn": (3e-4, 1e-3), "trainbn": (5e-2, 2e-2)}
+LOSS_ATOL_224 = 3e-4
+TRAJ_LOSS_ATOL = 5e-4
+TRAJ_PARAM_ATOL = 1e-4
+# Each autograd Function against autograd through its plain version: every
+# gradient within GRAD_RTOL[dt] * (|ref| + max|ref|). Both sides compute in
+# f32 and round once to the io dtype, in another order (cuDNN's algorithms,
+# the reduction order of dw); bf16 allows two bf16 ulps of the largest
+# value, f32 1e-4 of it.
+GRAD_RTOL = {"f32": 1e-4, "bf16": 2.0 ** -6}
+TRAIN_TIMED = (("bf16", 45), ("bf16", 128), ("f32", 45))  # bench.py's train segments, and f32
+CHAINS, CHAIN_STEPS = 3, 20
+PROFILE_STEPS = 3
+
+
+def tiny_config():
+    """tests/tiny.py's geometry in the port's config: 32², filters (8, 16),
+    depths (1, 2), pools ((3, 1), (4, 2)), dense (16, 8), 4 classes."""
+    from roomnet_tpu_torch.models.roomnet import RoomNetConfig
+
+    return RoomNetConfig(num_classes=4, im_side=32, block_filters=(8, 16), block_depths=(1, 2),
+                         block_pools=((3, 1), (4, 2)), dense_units=(16, 8))
+
+
+def train_oracles(variables, dev) -> dict:
+    """(a) CE, full loss and CE gradients at 224 f32 against grad_golden.npz
+    in both BN modes; (b) traj_golden.npz's 6 steps at the tiny geometry,
+    sequential and multi-step, in both modes. Returns the worst distances."""
+    from roomnet_tpu_torch.models.roomnet import DEFAULT_CONFIG
+    from roomnet_tpu_torch.params import schema
+    from roomnet_tpu_torch.train.step import (TrainHParams, init_train_state, loss_fn,
+                                              make_multi_train_step, make_train_step)
+
+    out = {}
+    gg = dict(np.load(GOLDEN / "grad_golden.npz"))
+    x, y = torch.from_numpy(gg["x_norm"]).to(dev), torch.from_numpy(gg["labels"]).to(dev)
+    train_vars, frozen_vars = schema.partition_flat(schema.flatten_tensors(variables))
+    for mode in ("infbn", "trainbn"):
+        hp = TrainHParams(l2_coeff=0.0, compute_bn_mean_var=mode == "trainbn")
+        params = {k: v.detach().requires_grad_() for k, v in train_vars.items()}
+        ce, _ = loss_fn(params, frozen_vars, x, y, hp, DEFAULT_CONFIG)
+        grads = torch.autograd.grad(ce, list(params.values()))
+        loss, _ = loss_fn(train_vars, frozen_vars, x, y, TrainHParams(compute_bn_mean_var=mode == "trainbn"),
+                          DEFAULT_CONFIG)
+        d_ce, d_loss = abs(ce.item() - float(gg[f"ce_{mode}"])), abs(loss.item() - float(gg[f"loss_{mode}"]))
+        if not (d_ce <= LOSS_ATOL_224 and d_loss <= LOSS_ATOL_224):
+            raise AssertionError(f"train oracle 224[{mode}]: |dce| {d_ce:.3g}, |dloss| {d_loss:.3g} > {LOSS_ATOL_224}")
+        atol, rtol = GRAD_GATES_224[mode]
+        worst, share = 0.0, 0.0
+        for path, g in zip(params, grads):
+            ref = torch.from_numpy(gg[f"grad_{mode}/{path}"]).to(dev)
+            d = (g - ref).abs()
+            worst, share = max(worst, d.max().item()), max(share, (d / (atol + rtol * ref.abs())).max().item())
+        if share > 1.0:
+            raise AssertionError(f"train oracle 224[{mode}]: a CE gradient is {share:.3g}x its gate")
+        log(f"train oracle 224[{mode}] f32, 7 images: |dce| {d_ce:.3g}, |dloss| {d_loss:.3g} (gate "
+            f"{LOSS_ATOL_224}), CE gradients of {len(grads)} tensors max |d| {worst:.3g}, {share:.3f} of "
+            f"the gate (atol {atol}, rtol {rtol})")
+        out[f"grad_224_{mode}"] = {"d_ce": d_ce, "d_loss": d_loss, "max_abs_d_grad": worst, "gate_share": share}
+
+    tg = dict(np.load(GOLDEN / "traj_golden.npz"))
+    tiny = tiny_config()
+    flat = {k[len("traj_param/"):]: v for k, v in tg.items() if k.startswith("traj_param/")}
+    steps = int(tg["steps"])
+    xt, yt = torch.from_numpy(tg["x_uint8_bgr"]).to(dev), torch.from_numpy(tg["labels"]).to(dev)
+    for mode in ("infbn", "trainbn"):
+        hp = TrainHParams(learn_rate=float(tg["lr0"]), num_steps=int(tg["sched_steps"]),
+                          l2_coeff=float(tg["l2_coeff"]), compute_bn_mean_var=mode == "trainbn")
+        variables = schema.variables_from_numpy(flat, tiny, dev)
+        step_fn = make_train_step(hp, tiny)
+        state, losses = init_train_state(variables, hp), []
+        for _ in range(steps):
+            state, metrics = step_fn(state, xt, yt)
+            losses.append(metrics["loss"])
+        multi, m_metrics = make_multi_train_step(hp, tiny)(
+            init_train_state(variables, hp), xt.expand(steps, *xt.shape), yt.expand(steps, *yt.shape))
+        d_loss = max(float(np.abs(torch.stack(losses).cpu().numpy() - tg[f"losses_{mode}"]).max()),
+                     abs(m_metrics["loss"].item() - float(tg[f"losses_{mode}"][-1])))
+        d_param = max((st.train_vars[k].cpu() - torch.from_numpy(tg[f"final_{mode}/{k}"])).abs().max().item()
+                      for st in (state, multi) for k in st.train_vars)
+        if not (d_loss <= TRAJ_LOSS_ATOL and d_param <= TRAJ_PARAM_ATOL):
+            raise AssertionError(f"train trajectory[{mode}]: |dloss| {d_loss:.3g}, |dparam| {d_param:.3g}")
+        log(f"train trajectory[{mode}] tiny, {steps} steps, sequential and multi-step: max |dloss| "
+            f"{d_loss:.3g} (gate {TRAJ_LOSS_ATOL}), max |dparam| {d_param:.3g} (gate {TRAJ_PARAM_ATOL})")
+        out[f"traj_{mode}"] = {"max_abs_d_loss": d_loss, "max_abs_d_param": d_param}
+    return out
+
+
+def train_function_checks(variables, cfgs, kernels, dev) -> dict:
+    """(c) Each autograd Function against autograd through its plain version
+    on the operands of every site of a batch-8 training step (TrainHParams(),
+    golden images), f32 and bf16: the forward at phase 2's tolerances, every
+    input's gradient within GRAD_RTOL. Returns {(name, dt): (forward max
+    |d|, worst gradient share of its tolerance)}."""
+    from roomnet_tpu_torch.models import roomnet as M
+    from roomnet_tpu_torch.train.step import TrainHParams, init_train_state, make_train_step
+
+    g = dict(np.load(GOLDEN / "forward_golden.npz"))
+    gw = dict(np.load(GOLDEN / "forward_golden_wide.npz"))
+    x8 = torch.from_numpy(np.concatenate([g["x_uint8_bgr"], gw["x_uint8_bgr"][:1]])).to(dev)
+    y8 = torch.from_numpy(np.concatenate([g["argmax"], gw["argmax"][:1]]).astype(np.int64)).to(dev)
+    names = {f"{n}_autograd": n for n in kernels}
+    result = {}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for dt, cfg in cfgs.items():
+        sites, saved = [], {fn: getattr(M, fn) for fn in names}
+
+        def recorder(fn):
+            def call(*args, **kwargs):
+                sites.append((names[fn], args, kwargs))
+                return saved[fn](*args, **kwargs)
+            return call
+
+        try:
+            for fn in names:
+                setattr(M, fn, recorder(fn))
+            make_train_step(TrainHParams(), cfg)(init_train_state(variables), x8, y8)
+        finally:
+            for fn, f in saved.items():
+                setattr(M, fn, f)
+        for i, (name, args, kwargs) in enumerate(sites):
+            fn, plain = saved[f"{name}_autograd"], kernels[name][1]
+            leaves = [a.detach().clone().requires_grad_() if isinstance(a, torch.Tensor) and a.is_floating_point()
+                      else a for a in args]
+            grad_of = [a for a in leaves if isinstance(a, torch.Tensor) and a.requires_grad]
+            got, want = fn(*leaves, **kwargs), plain(*leaves, **kwargs)
+            fwd_err = compare(name, dt, args, got, want, f"train site {i}")
+            y_got, y_want = (got[0], want[0]) if name == "dense_head" else (got, want)
+            up = torch.randn(y_want.shape, generator=gen, device=dev).to(y_want.dtype)
+            g_got = torch.autograd.grad(y_got, grad_of, up)
+            g_want = torch.autograd.grad(y_want, grad_of, up)
+            share = 0.0
+            for a, b in zip(g_got, g_want):
+                a, b = a.float(), b.float()
+                d = (a - b).abs()
+                tol = GRAD_RTOL[dt] * (b.abs() + b.abs().max())
+                share = max(share, (d / tol.clamp(min=1e-30)).max().item())
+                if not torch.isfinite(a).all() or (d > tol).any():
+                    raise AssertionError(f"{name}[{dt}] train site {i}: gradient max |d| {d.max().item():.3g} "
+                                         f"beyond {GRAD_RTOL[dt]} * (|ref| + max|ref|)")
+            key = (name, dt)
+            prev = result.get(key, (0.0, 0.0))
+            result[key] = (max(prev[0], fwd_err), max(prev[1], share))
+            log(f"autograd {name}[{dt}] train site {i} in {tuple(args[0].shape)}: forward max |d| "
+                f"{fwd_err:.3g}, gradients of {len(grad_of)} inputs at {share:.3f} of the tolerance")
+    return result
+
+
+def train_launches(variables, cfgs, counts, zero_counts, dev) -> dict:
+    """(d) The kernel launches of one training step at batch 8, per BN mode
+    and dtype: 10/10/3/1 with TrainHParams(), 10/10/3/0 with batch stats."""
+    from roomnet_tpu_torch.train.step import TrainHParams, init_train_state, make_train_step
+
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.randint(0, 256, size=(8, 224, 224, 3), dtype=np.uint8)).to(dev)
+    y = torch.from_numpy(rng.randint(0, 6, size=(8,))).to(dev)
+    want = {"infbn": {"conv3x3": 10, "relu6_pool_bn": 10, "residual_bn": 3, "dense_head": 1},
+            "trainbn": {"conv3x3": 10, "relu6_pool_bn": 10, "residual_bn": 3, "dense_head": 0}}
+    out = {}
+    for dt, cfg in cfgs.items():
+        for mode in want:
+            hp = TrainHParams(compute_bn_mean_var=mode == "trainbn", update_bn_moving=mode == "trainbn")
+            step_fn = make_train_step(hp, cfg)
+            state = init_train_state(variables, hp)
+            zero_counts()
+            state, metrics = step_fn(state, x, y)
+            got = counts()
+            if got != want[mode]:
+                raise AssertionError(f"train step[{dt}, {mode}]: launches {got} != {want[mode]}")
+            if not (torch.isfinite(metrics["loss"]) and all(torch.isfinite(v).all() for v in state.train_vars.values())):
+                raise AssertionError(f"train step[{dt}, {mode}]: a loss or param is not finite")
+            out[(dt, mode)] = got
+            log(f"train step[{dt}, {mode}] batch 8: launches {got}, loss {metrics['loss'].item():.4f}")
+    return out
+
+
+def train_times(variables, cfgs, dev, kinds) -> list:
+    """(e) Steps of TrainHParams() at TRAIN_TIMED's (dtype, batch): ms per
+    step and img/s as the median of CHAINS chains of CHAIN_STEPS steps
+    (CUDA events around each chain), each split into forward, backward and
+    optimizer by the events the step's `mark` records; peak memory after
+    step 5 and step 20 of a fresh state, which must agree within 1%; the
+    packed-weight cache's size beside them."""
+    from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
+    from roomnet_tpu_torch.train.step import TrainHParams, init_train_state, make_train_step
+
+    rows = []
+    for dt, batch in TRAIN_TIMED:
+        cfg = cfgs[dt]
+        rng = np.random.RandomState(batch)
+        x = torch.from_numpy(rng.randint(0, 256, size=(batch, 224, 224, 3), dtype=np.uint8)).to(dev)
+        y = torch.from_numpy(rng.randint(0, 6, size=(batch,))).to(dev)
+        step_fn = make_train_step(TrainHParams(), cfg)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(variables)
+        peaks, cache = {}, {}
+        for i in range(1, 21):
+            state, _ = step_fn(state, x, y)
+            if i in (5, 20):
+                torch.cuda.synchronize()
+                peaks[i], cache[i] = torch.cuda.max_memory_allocated(), len(KC._packed)
+        if abs(peaks[20] - peaks[5]) > 0.01 * peaks[5] or cache[20] != cache[5]:
+            raise AssertionError(f"train[{dt}] batch {batch}: peak memory {peaks} bytes, packed cache {cache}")
+        chains = []
+        for _ in range(CHAINS):
+            evs = []
+            for _ in range(CHAIN_STEPS):
+                e = {k: torch.cuda.Event(enable_timing=True) for k in ("start", "forward", "backward", "end")}
+                e["start"].record()
+                state, metrics = step_fn(state, x, y, mark=lambda k, e=e: e[k].record())
+                e["end"].record()
+                evs.append(e)
+            evs[-1]["end"].synchronize()
+            split = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+            for e in evs:
+                split["forward"] += e["start"].elapsed_time(e["forward"])
+                split["backward"] += e["forward"].elapsed_time(e["backward"])
+                split["optimizer"] += e["backward"].elapsed_time(e["end"])
+            total = evs[0]["start"].elapsed_time(evs[-1]["end"])
+            chains.append({"ms": total / CHAIN_STEPS, **{k: v / CHAIN_STEPS for k, v in split.items()}})
+        if not torch.isfinite(metrics["loss"]):
+            raise AssertionError(f"train[{dt}] batch {batch}: loss not finite")
+        busy, top = profile_steps(lambda: step_fn(state, x, y), PROFILE_STEPS)
+        med = sorted(chains, key=lambda c: c["ms"])[CHAINS // 2]
+        row = {"dtype": dt, "batch": batch, "ms_per_step": med["ms"], "img_per_s": batch * 1e3 / med["ms"],
+               "forward_ms": med["forward"], "backward_ms": med["backward"], "optimizer_ms": med["optimizer"],
+               "chains_ms": [c["ms"] for c in chains], "peak_bytes_step5": peaks[5],
+               "peak_bytes_step20": peaks[20], "packed_cache_entries": cache[20], "card": kinds,
+               "profiled_device_busy_share": busy, "profiled_top_ms_per_step": top}
+        rows.append(row)
+        log(f"train[{dt}] batch {batch} TrainHParams() on {kinds}: {med['ms']:.3f} ms per step "
+            f"({row['img_per_s']:.1f} img/s; median of {CHAINS} chains of {CHAIN_STEPS}: "
+            + ", ".join(f"{c['ms']:.3f}" for c in chains) + f" ms), forward {med['forward']:.3f} ms, "
+            f"backward {med['backward']:.3f} ms, optimizer {med['optimizer']:.3f} ms; peak memory "
+            f"{peaks[5] / 2**20:.1f} MiB after step 5, {peaks[20] / 2**20:.1f} MiB after step 20; "
+            f"packed-weight cache {cache[20]} entries; device busy {busy:.3f} of {PROFILE_STEPS} profiled "
+            f"steps; device ms per step by kernel: " + "; ".join(f"{n} {ms:.3f}" for n, ms in top.items()))
+        del state, x, y
+    return rows
+
+
+def profile_steps(run, steps: int, top: int = 12) -> tuple[float, dict]:
+    """Run `steps` calls under torch.profiler: (the share of the steps'
+    wall time, by CUDA events around them, that kernels kept the device
+    busy, {kernel name (first 60 characters): device ms per step} of the
+    `top` kernels by self device time). Kernels of one name are summed; a
+    share above 1 would mean overlapping kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(steps):
+            run()
+        end.record()
+        end.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    if device_us == 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    per_step = {e.key[:60]: e.self_device_time_total / 1e3 / steps for e in kernels[:top]}
+    return device_us / 1e3 / start.elapsed_time(end), per_step
 
 
 if __name__ == "__main__":

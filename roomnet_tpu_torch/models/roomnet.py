@@ -1,6 +1,6 @@
-"""RoomNet inference forward in PyTorch, through the port's four kernels.
+"""RoomNet forward in PyTorch, through the port's four kernels.
 
-Port of roomnet_tpu/models/roomnet.py (inference). The architecture
+Port of roomnet_tpu/models/roomnet.py. The architecture
 (reference network.py:225-244):
 
     input (B,224,224,3) in [-1,1], RGB — or raw uint8 BGR (folded into conv 0)
@@ -18,6 +18,16 @@ and the head through `dense_head` — 10 / 10 / 3 / 1 launches per forward at
 224. On a CUDA tensor those are the CUDA kernels; on a CPU tensor their
 plain PyTorch versions.
 
+Two forwards share that walk. `forward_folded` serves: every operand folded
+once by `fold_variables`, no autograd. `forward` trains: it takes the
+variables themselves and calls each kernel through its autograd Function,
+folding the BN inside the graph, so gradients reach every kernel, BN scale
+and bias (never the moving mean and variance). With batch statistics
+(`use_batch_stats`) each pool and residual launches with the identity
+affine and `batch_norm_train` follows it; with batch statistics or dropout
+the head is torch ops, since either changes the function between its
+layers: 10 / 10 / 3 / 0 launches.
+
 Variables are the JAX package's pytree with torch tensors for leaves:
 
     {"blocks": [{"conv": [HWIO...], "bn": [BN...], "res_bn": BN|None} x5],
@@ -28,14 +38,15 @@ Variables are the JAX package's pytree with torch tensors for leaves:
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from ..ops import blocks as B
-from ..ops.kernels.conv3x3 import conv3x3
-from ..ops.kernels.dense_head import dense_head, pack_head
-from ..ops.kernels.pool import relu6_pool_bn
-from ..ops.kernels.residual import residual_bn
+from ..ops.kernels.conv3x3 import conv3x3, conv3x3_autograd
+from ..ops.kernels.dense_head import dense_head, dense_head_autograd, pack_head
+from ..ops.kernels.pool import relu6_pool_bn, relu6_pool_bn_autograd
+from ..ops.kernels.residual import residual_bn, residual_bn_autograd
 
 Variables = dict
 
@@ -138,14 +149,137 @@ def forward_folded(folded: dict, x: torch.Tensor, cfg: RoomNetConfig = DEFAULT_C
     return dense_head(x.reshape(x.shape[0], -1), *folded["head"])
 
 
-def forward(variables: Variables, x: torch.Tensor, cfg: RoomNetConfig = DEFAULT_CONFIG) -> torch.Tensor:
-    """Logits (B, num_classes) f32, ReLU6-clipped like the reference.
+def _bn_init(c: int, device) -> dict:
+    return {"scale": torch.ones(c, device=device), "bias": torch.zeros(c, device=device),
+            "mean": torch.zeros(c, device=device), "var": torch.ones(c, device=device)}
+
+
+def _glorot(shape: tuple[int, ...], generator: torch.Generator) -> torch.Tensor:
+    """Glorot-uniform f32 of an HWIO or (in, out) kernel, JAX's fans: the
+    receptive field times the second-to-last and the last axis."""
+    receptive = math.prod(shape[:-2])
+    limit = math.sqrt(6.0 / (receptive * (shape[-2] + shape[-1])))
+    out = torch.empty(shape, device=generator.device)
+    return out.uniform_(-limit, limit, generator=generator)
+
+
+def init_variables(generator: torch.Generator, cfg: RoomNetConfig = DEFAULT_CONFIG) -> Variables:
+    """Glorot-uniform kernels and identity BN (the tf.layers defaults,
+    network.py:184, 212), drawn from `generator` on its device."""
+    dev = generator.device
+    blocks, in_ch, k = [], 3, cfg.kernel_size
+    for filters, depth in zip(cfg.block_filters, cfg.block_depths):
+        convs = [_glorot((k, k, in_ch if d == 0 else filters, filters), generator) for d in range(depth)]
+        blocks.append({"conv": convs, "bn": [_bn_init(filters, dev) for _ in range(depth)],
+                       "res_bn": _bn_init(filters, dev) if depth > 1 else None})
+        in_ch = filters
+    dense, d_in = [], cfg.flat_len
+    for units in cfg.dense_units:
+        dense.append({"kernel": _glorot((d_in, units), generator), "bias": None, "bn": _bn_init(units, dev)})
+        d_in = units
+    dense.append({"kernel": _glorot((d_in, cfg.num_classes), generator),
+                  "bias": torch.zeros(cfg.num_classes, device=dev), "bn": None})
+    return {"blocks": blocks, "dense": dense}
+
+
+def forward(variables: Variables, x: torch.Tensor, cfg: RoomNetConfig = DEFAULT_CONFIG, *,
+            use_batch_stats: bool = False, collect_batch_stats: bool = False,
+            dropout_rate: float | None = None, generator: torch.Generator | None = None,
+            batch_row_mask: torch.Tensor | None = None):
+    """Logits (B, num_classes) f32, ReLU6-clipped like the reference, under
+    autograd.
 
     Input: normalized RGB float NHWC in [-1,1], or raw uint8 BGR, which
     takes the preprocess fold into conv 0.
+
+    use_batch_stats: BN normalizes with batch statistics
+      (`compute_bn_mean_var=True`, network.py:193).
+    collect_batch_stats: also return {path: BNStats} of every BN, for
+      `update_moving_stats`.
+    dropout_rate, generator: dropout after every block and every dense
+      layer, the logits' included (network.py:204-206, 219-221), its masks
+      drawn from `generator` site by site in that order; off when either is
+      None.
+    batch_row_mask: float (B,) of 1.0 (real) / 0.0 (padded row); with batch
+      statistics, the moments leave the padded rows out.
+
+    Returns logits, or (logits, stats) with `collect_batch_stats`.
     """
-    folded = fold_variables(variables, cfg, uint8_input=x.dtype == torch.uint8)
-    return forward_folded(folded, x, cfg)[0]
+    stats: dict[str, B.BNStats] = {}
+    drop = dropout_rate is not None and generator is not None
+
+    def maybe_dropout(h):
+        return B.dropout(h, dropout_rate, generator) if drop else h
+
+    def batch_bn(h, bn, path):
+        h, st = B.batch_norm_train(h, bn, cfg.bn_eps, row_weights=batch_row_mask)
+        if collect_batch_stats:
+            stats[path] = B.BNStats(*(t.detach() for t in st))
+        return h
+
+    def identity(c):
+        return torch.ones(c, device=x.device), torch.zeros(c, device=x.device)
+
+    uint8_input = x.dtype == torch.uint8
+    x = x.to(cfg.compute_dtype).contiguous()
+    for bi, blk in enumerate(variables["blocks"]):
+        k, s = cfg.block_pools[bi] or (1, 1)
+        res_in = None
+        for d, (kern, bn) in enumerate(zip(blk["conv"], blk["bn"])):
+            bias = None
+            if bi == 0 and d == 0 and uint8_input:
+                kern, bias = _fold_preprocess_into_first_conv(kern)
+            x = conv3x3_autograd(x, kern, bias)
+            if use_batch_stats:
+                x = batch_bn(relu6_pool_bn_autograd(x, *identity(x.shape[-1]), ksize=k, stride=s),
+                             bn, f"blocks/{bi}/bn/{d}")
+            else:
+                x = relu6_pool_bn_autograd(x, *B.bn_fold(bn, cfg.bn_eps), ksize=k, stride=s)
+            if d == 0:
+                res_in = x
+        if blk["res_bn"] is not None:  # make_residual (reference network.py:181-182, 198-203)
+            if use_batch_stats:
+                x = batch_bn(residual_bn_autograd(x, res_in, *identity(x.shape[-1])),
+                             blk["res_bn"], f"blocks/{bi}/res_bn")
+            else:
+                x = residual_bn_autograd(x, res_in, *B.bn_fold(blk["res_bn"], cfg.bn_eps))
+        x = maybe_dropout(x)
+
+    x = x.reshape(x.shape[0], -1)  # NHWC row-major flatten (network.py:234)
+    if not (use_batch_stats or drop):
+        logits = dense_head_autograd(x, *pack_head(variables["dense"], cfg.bn_eps))[0]
+    else:
+        for di, layer in enumerate(variables["dense"]):
+            x = B.relu6(B.dense(x, layer["kernel"], layer["bias"]))
+            if layer["bn"] is not None:
+                x = (batch_bn(x, layer["bn"], f"dense/{di}/bn") if use_batch_stats
+                     else B.batch_norm(x, layer["bn"], cfg.bn_eps))
+            x = maybe_dropout(x)
+        logits = x.float()
+    return (logits, stats) if collect_batch_stats else logits
+
+
+def update_moving_stats(variables: Variables, stats: dict[str, B.BNStats],
+                        momentum: float = B.BN_MOMENTUM) -> Variables:
+    """A new variables tree with each BN's moving mean and variance moved
+    toward its batch statistics (tf.layers semantics): new = momentum * old
+    + (1 - momentum) * batch, the variance Bessel-corrected. BNs without
+    stats, and every other leaf, are the same tensors as before."""
+
+    def upd(bn, key):
+        if bn is None or key not in stats:
+            return bn
+        st = stats[key]
+        return {"scale": bn["scale"], "bias": bn["bias"],
+                "mean": momentum * bn["mean"] + (1 - momentum) * st.mean,
+                "var": momentum * bn["var"] + (1 - momentum) * st.var_unbiased}
+
+    blocks = [{"conv": blk["conv"], "bn": [upd(bn, f"blocks/{bi}/bn/{d}") for d, bn in enumerate(blk["bn"])],
+               "res_bn": upd(blk["res_bn"], f"blocks/{bi}/res_bn")}
+              for bi, blk in enumerate(variables["blocks"])]
+    dense = [{**layer, "bn": upd(layer["bn"], f"dense/{di}/bn")}
+             for di, layer in enumerate(variables["dense"])]
+    return {"blocks": blocks, "dense": dense}
 
 
 def predict(variables: Variables, x: torch.Tensor, cfg: RoomNetConfig = DEFAULT_CONFIG):

@@ -22,7 +22,12 @@ wrapper passes its Cout_p (bf16) or NT (f32), read off the packed tensor, to
 the C entry, which only picks the tile that goes with it.
 
 On a CPU tensor `conv3x3` runs `conv3x3_plain`; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. `conv3x3_autograd` is the same call under
+autograd: its forward is `conv3x3`, its backward one
+`aten.convolution_backward` in the io dtype (cuDNN on the card) on
+channels-last views of the NHWC tensors. The kernel's gradient is
+computed for the io-dtype kernel and cast to the kernel's own dtype, as
+`kernel.astype(x.dtype)` differentiates in JAX.
 """
 
 from __future__ import annotations
@@ -131,3 +136,35 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = N
 
 
 conv3x3.launches = 0
+
+
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, kernel, bias):
+        ctx.save_for_backward(x, kernel)
+        ctx.with_bias = bias is not None
+        return conv3x3(x, kernel, bias)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, kernel = ctx.saved_tensors
+        need_x, need_k, need_b = ctx.needs_input_grad
+        gx = gk = gb = None
+        if need_x or need_k:
+            nchw = (0, 3, 1, 2)
+            w = kernel.to(x.dtype).permute(3, 2, 0, 1)  # HWIO -> OIHW
+            gx, gk, _ = torch.ops.aten.convolution_backward(
+                gy.contiguous().permute(nchw), x.permute(nchw), w, None, [1, 1], [0, 0], [1, 1],
+                False, [0, 0], 1, [need_x, need_k, False])
+            if need_x:
+                gx = gx.permute(0, 2, 3, 1).contiguous()
+            if need_k:
+                gk = gk.permute(2, 3, 1, 0).to(kernel.dtype).contiguous()
+        if need_b and ctx.with_bias:
+            gb = gy.float().sum((0, 1, 2))
+        return gx, gk, gb
+
+
+def conv3x3_autograd(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """`conv3x3` with gradients for x, kernel and bias."""
+    return _Conv3x3.apply(x, kernel, bias)

@@ -14,7 +14,11 @@ warp per batch row, no block barrier between layers) where they fit, else
 "streamed" (weights staged through shared memory in chunks).
 
 On a CPU tensor `dense_head` runs `dense_head_plain`; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. `dense_head_autograd` is the same call under
+autograd: its backward recomputes the four layers with `dense_head_plain`
+(in f32; relu6's derivative 0.5 at its ties, as in JAX) and takes their
+gradient of the logits for x and the packed params, through which it
+reaches the kernels, the folded BN and the bias. The probs get none.
 """
 
 from __future__ import annotations
@@ -124,3 +128,29 @@ def dense_head(x: torch.Tensor, packed: torch.Tensor, widths: tuple[int, ...]):
 
 
 dense_head.launches = 0
+
+
+class _DenseHead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, packed, widths):
+        ctx.save_for_backward(x, packed)
+        ctx.widths = widths
+        logits, probs = dense_head(x, packed, widths)
+        ctx.mark_non_differentiable(probs)
+        return logits, probs
+
+    @staticmethod
+    def backward(ctx, g_logits, _g_probs):
+        x, packed = ctx.saved_tensors
+        xr = x.detach().float().requires_grad_()
+        pr = packed.detach().requires_grad_()
+        with torch.enable_grad():
+            logits, _ = dense_head_plain(xr, pr, ctx.widths)
+        gx, gp = torch.autograd.grad(logits, (xr, pr), g_logits)
+        return gx.to(x.dtype), gp, None
+
+
+def dense_head_autograd(x: torch.Tensor, packed: torch.Tensor, widths: tuple[int, ...]):
+    """`dense_head` with the logits' gradient for x and packed; the probs
+    are not differentiable."""
+    return _DenseHead.apply(x, packed, widths)

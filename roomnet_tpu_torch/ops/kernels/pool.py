@@ -9,7 +9,14 @@ source's header). (w, b) is the BN folded by `ops.blocks.bn_fold` with the
 config's eps.
 
 On a CPU tensor `relu6_pool_bn` runs `relu6_pool_bn_plain`; on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises. `relu6_pool_bn_autograd` is the same
+call under autograd. Its backward, in f32 and rounded once to x.dtype: the
+pool's transpose (`aten.avg_pool2d_backward`, each window's gradient spread
+over it divided by k*k) of ``g``, times w and relu6's derivative on the
+saved conv output, which is 1 inside (0, 6), 0 outside [0, 6] and 0.5 at
+x == 0 and x == 6, as in JAX; dw is the sum of that transpose times
+relu6(x) (the adjoint of summing ``g * pool(relu6(x))``, with no second
+pass of the pool) and db the sum of ``g``.
 """
 
 from __future__ import annotations
@@ -61,3 +68,45 @@ def relu6_pool_bn(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, ksize: i
 
 
 relu6_pool_bn.launches = 0
+
+
+def relu6_grad(x: torch.Tensor) -> torch.Tensor:
+    """d relu6 / dx in f32: 1 inside (0, 6), 0.5 at the ties 0 and 6, else 0."""
+    inside = ((x > 0) & (x < 6)).float()
+    return torch.where((x == 0) | (x == 6), 0.5, inside)
+
+
+class _Relu6PoolBn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, ksize, stride):
+        ctx.save_for_backward(x, w)
+        ctx.window = ksize, stride
+        return relu6_pool_bn(x, w, b, ksize=ksize, stride=stride)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        k, s = ctx.window
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        g = gy.float()
+        gx = gw = gb = None
+        if need_x or need_w:
+            gp = g  # the pool's transpose; a 1x1 window's is the identity
+            if (k, s) != (1, 1):
+                B, H, W, C = x.shape
+                shape = torch.empty((B, C, H, W), device=x.device, memory_format=torch.channels_last)
+                gp = torch.ops.aten.avg_pool2d_backward(
+                    g.permute(0, 3, 1, 2), shape, [k, k], [s, s], [0, 0], False, True, None).permute(0, 2, 3, 1)
+            if need_x:
+                gx = (gp * w.float() * relu6_grad(x)).to(x.dtype).contiguous()
+            if need_w:  # sum(g * pool(relu6(x))) = sum(pool^T(g) * relu6(x))
+                gw = (gp * blocks.relu6(x)).sum((0, 1, 2))
+        if need_b:
+            gb = g.sum((0, 1, 2))
+        return gx, gw, gb, None, None
+
+
+def relu6_pool_bn_autograd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, ksize: int,
+                           stride: int) -> torch.Tensor:
+    """`relu6_pool_bn` with gradients for x, w and b."""
+    return _Relu6PoolBn.apply(x, w, b, ksize, stride)

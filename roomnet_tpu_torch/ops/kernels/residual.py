@@ -14,7 +14,10 @@ thread walks one output column down the strip. `plan` sizes the strip and
 the span from the (source, weight) pairs and the shared-memory budget.
 
 On a CPU tensor `residual_bn` runs `residual_bn_plain`; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. `residual_bn_autograd` is the same call under
+autograd. Its backward, in f32: ``g * s`` for x; for res the transpose of the
+resize, the same TF1 matrices (bf16-rounded in bf16) applied the other way
+round; ds and dt are the sums of ``g * (x + resize(res))`` and of ``g``.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import functools
 import numpy as np
 import torch
 
-from ..resize import interp_matrix_tf1, resize_bilinear_tf1
+from ..resize import device_matrix, interp_matrix_tf1, resize_bilinear_tf1
 from . import _build
 
 P = ctypes.c_void_p
@@ -188,3 +191,42 @@ def residual_bn(x: torch.Tensor, res: torch.Tensor, s: torch.Tensor, t: torch.Te
 
 
 residual_bn.launches = 0
+
+
+def resize_tf1_transpose(g: torch.Tensor, in_hw: tuple[int, int], dtype: torch.dtype) -> torch.Tensor:
+    """The transpose of `resize_bilinear_tf1` from `in_hw` to g's (H, W) at
+    io dtype `dtype`, in f32: (B, Ho, Wo, C) -> (B, Hi, Wi, C), the columns'
+    matrix first, then the rows'."""
+    mh, mw = (device_matrix("tf1", i, o, dtype, g.device) for i, o in zip(in_hw, g.shape[1:3]))
+    t = torch.einsum("bhwc,jw->bhjc", g, mw)
+    return torch.einsum("bhjc,ih->bijc", t, mh)
+
+
+class _ResidualBn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, res, s, t):
+        ctx.save_for_backward(x, res, s)
+        return residual_bn(x, res, s, t)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, res, s = ctx.saved_tensors
+        need_x, need_res, need_s, need_t = ctx.needs_input_grad
+        g = gy.float()
+        gx = gres = gs = gt = None
+        if need_x or need_res:
+            gz = g * s.float()
+            gx = gz.to(x.dtype) if need_x else None
+            if need_res:
+                gres = resize_tf1_transpose(gz, tuple(res.shape[1:3]), res.dtype).to(res.dtype).contiguous()
+        if need_s:
+            y = resize_bilinear_tf1(res, tuple(x.shape[1:3]), f32_out=True)
+            gs = (g * (x.float() + y)).sum((0, 1, 2))
+        if need_t:
+            gt = g.sum((0, 1, 2))
+        return gx, gres, gs, gt
+
+
+def residual_bn_autograd(x: torch.Tensor, res: torch.Tensor, s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """`residual_bn` with gradients for x, res, s and t."""
+    return _ResidualBn.apply(x, res, s, t)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 __all__ = [
+    "device_matrix",
     "resize_bilinear_tf1",
     "resize_bilinear_half_pixel",
     "interp_matrix_tf1",
@@ -59,14 +60,23 @@ def interp_matrix_half_pixel(in_size: int, out_size: int) -> np.ndarray:
     return _interp_from_src(np.clip(src, np.float32(0.0), np.float32(in_size - 1)), in_size)
 
 
-def _apply_separable(x: torch.Tensor, wh: np.ndarray, ww: np.ndarray, f32_out: bool) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def device_matrix(kind: str, in_size: int, out_size: int, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """The f32 interpolation matrix ("tf1" or "half_pixel") on `device`,
+    its weights rounded to bf16 first when `dtype` is bf16; copied to the
+    device once per (sizes, dtype, device)."""
+    m = {"tf1": interp_matrix_tf1, "half_pixel": interp_matrix_half_pixel}[kind](in_size, out_size)
+    return torch.from_numpy(m).to(dtype).float().to(device)
+
+
+def _apply_separable(x: torch.Tensor, kind: str, out_hw: tuple[int, int], f32_out: bool) -> torch.Tensor:
     """Rows then columns of NHWC ``x``, each pass in float32. bf16 rounds the
     weights and the row-pass intermediate to bf16, like the JAX bf16 einsum
     pair. The result is cast to x.dtype, or left in float32 with `f32_out`."""
-    wh_t = torch.from_numpy(wh).to(x.device)
-    ww_t = torch.from_numpy(ww).to(x.device)
-    if x.dtype == torch.bfloat16:
-        wh_t, ww_t = wh_t.bfloat16().float(), ww_t.bfloat16().float()
+    _, h, w, _ = x.shape
+    wh_t = device_matrix(kind, h, out_hw[0], x.dtype, x.device)
+    ww_t = device_matrix(kind, w, out_hw[1], x.dtype, x.device)
     y = torch.einsum("bhwc,hi->biwc", x.float(), wh_t).to(x.dtype).float()
     y = torch.einsum("biwc,wj->bijc", y, ww_t)
     return y if f32_out else y.to(x.dtype).contiguous()
@@ -77,15 +87,9 @@ def resize_bilinear_tf1(x: torch.Tensor, out_hw: tuple[int, int], *,
     """TF1-legacy bilinear resize of NHWC (`tf.image.resize_bilinear`).
     `f32_out` skips the final rounding to x.dtype (the residual group adds
     x and the BN affine before it rounds)."""
-    _, h, w, _ = x.shape
-    return _apply_separable(
-        x, interp_matrix_tf1(h, out_hw[0]), interp_matrix_tf1(w, out_hw[1]), f32_out
-    )
+    return _apply_separable(x, "tf1", out_hw, f32_out)
 
 
 def resize_bilinear_half_pixel(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Half-pixel-centers bilinear resize of NHWC (`cv2.resize` INTER_LINEAR)."""
-    _, h, w, _ = x.shape
-    return _apply_separable(
-        x, interp_matrix_half_pixel(h, out_hw[0]), interp_matrix_half_pixel(w, out_hw[1]), False
-    )
+    return _apply_separable(x, "half_pixel", out_hw, False)

@@ -25,34 +25,37 @@ from ..models.roomnet import DEFAULT_CONFIG, RoomNetConfig, Variables
 _BN_FIELDS = ("scale", "bias", "mean", "var")
 
 
-def flatten_variables(variables: Variables) -> dict[str, np.ndarray]:
-    """Variables -> ``{path: numpy array}`` on the host (the on-disk form)."""
-    out: dict[str, np.ndarray] = {}
-
-    def put(path, t):
-        out[path] = t.detach().cpu().numpy()
-
+def flatten_tensors(variables: Variables) -> dict[str, Any]:
+    """Variables -> ``{path: leaf}`` with the leaves as they are (tensors
+    stay tensors, autograd included): roomnet_tpu's `flatten_jax`."""
+    out: dict[str, Any] = {}
     for bi, blk in enumerate(variables["blocks"]):
         for d, k in enumerate(blk["conv"]):
-            put(f"blocks/{bi}/conv/{d}", k)
+            out[f"blocks/{bi}/conv/{d}"] = k
         for d, bn in enumerate(blk["bn"]):
             for f in _BN_FIELDS:
-                put(f"blocks/{bi}/bn/{d}/{f}", bn[f])
+                out[f"blocks/{bi}/bn/{d}/{f}"] = bn[f]
         if blk["res_bn"] is not None:
             for f in _BN_FIELDS:
-                put(f"blocks/{bi}/res_bn/{f}", blk["res_bn"][f])
+                out[f"blocks/{bi}/res_bn/{f}"] = blk["res_bn"][f]
     for di, layer in enumerate(variables["dense"]):
-        put(f"dense/{di}/kernel", layer["kernel"])
+        out[f"dense/{di}/kernel"] = layer["kernel"]
         if layer["bias"] is not None:
-            put(f"dense/{di}/bias", layer["bias"])
+            out[f"dense/{di}/bias"] = layer["bias"]
         if layer["bn"] is not None:
             for f in _BN_FIELDS:
-                put(f"dense/{di}/bn/{f}", layer["bn"][f])
+                out[f"dense/{di}/bn/{f}"] = layer["bn"][f]
     return out
 
 
+def flatten_variables(variables: Variables) -> dict[str, np.ndarray]:
+    """Variables -> ``{path: numpy array}`` on the host (the on-disk form)."""
+    return {k: t.detach().cpu().numpy() for k, t in flatten_tensors(variables).items()}
+
+
 def unflatten_variables(flat: dict[str, Any], cfg: RoomNetConfig = DEFAULT_CONFIG) -> Variables:
-    """The inverse of `flatten_variables`: rebuilds the tree, leaves as given."""
+    """The inverse of `flatten_tensors` and `flatten_variables`: rebuilds the
+    tree, leaves as given (roomnet_tpu's `unflatten_jax`)."""
 
     def bn_at(prefix):
         return {f: flat[f"{prefix}/{f}"] for f in _BN_FIELDS}
@@ -74,6 +77,20 @@ def unflatten_variables(flat: dict[str, Any], cfg: RoomNetConfig = DEFAULT_CONFI
         for di in range(len(cfg.dense_units) + 1)
     ]
     return {"blocks": blocks, "dense": dense}
+
+
+def is_trainable_path(path: str) -> bool:
+    """Trainable: kernels, biases, BN gamma and beta; frozen: the BN moving
+    mean and variance (`tf.trainable_variables()` in the reference, which
+    the L2 term of network.py:58 sums over)."""
+    return not (path.endswith("/mean") or path.endswith("/var"))
+
+
+def partition_flat(flat: dict[str, Any]) -> tuple[dict[str, Any], dict[str, Any]]:
+    """Split a flat {path: leaf} dict into (trainable, frozen) dicts."""
+    train = {k: v for k, v in flat.items() if is_trainable_path(k)}
+    frozen = {k: v for k, v in flat.items() if not is_trainable_path(k)}
+    return train, frozen
 
 
 def variables_from_numpy(flat: dict[str, np.ndarray], cfg: RoomNetConfig = DEFAULT_CONFIG,

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain version, and
 the forward through all four against the TF-graph goldens; the classifier's
 pipeline (pinned ring, copy stream, results copied back behind each forward)
-against one batch at a time, fed arrays through its decode seam.
+against one batch at a time, fed arrays through its decode seam; each
+kernel's autograd Function against autograd through its plain version, and
+the launches of one training step.
 
 Every test here is marked `cuda` and skips where no GPU is present. The file
 imports neither JAX nor roomnet_tpu, so it runs on a machine without them:
@@ -22,12 +24,15 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from roomnet_tpu_torch.infer.classify import RoomNetClassifier, load_fill
 from roomnet_tpu_torch.models import registry
 from roomnet_tpu_torch.models import roomnet as M
 from roomnet_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_plain
 from roomnet_tpu_torch.ops.blocks import bn_fold
+from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
 from roomnet_tpu_torch.ops.kernels import dense_head as KD
+from roomnet_tpu_torch.ops.kernels import pool as KP
 from roomnet_tpu_torch.ops.kernels import residual as KR
 from roomnet_tpu_torch.ops.kernels.dense_head import dense_head, dense_head_plain, pack_head
 from roomnet_tpu_torch.ops.kernels.pool import relu6_pool_bn, relu6_pool_bn_plain
@@ -385,3 +390,110 @@ def test_cuda_predict_counts_launches_per_forward(cuda_device, classifiers):
         k.launches = 0
     clf.predict(x)
     assert [k.launches for k in kernels] == [30, 30, 9, 3]
+
+
+# -- the autograd Functions of the training step ------------------------------
+# Each Function (the kernel forward, a PyTorch backward) against autograd
+# through the kernel's plain version on the same inputs: the forward at the
+# tolerances above, every input's gradient within chip_smoke.GRAD_RTOL *
+# (|ref| + max|ref|) (f32 1e-4, bf16 2^-6: both sides compute in f32 and
+# round once to the io dtype, in another order).
+
+def _check_autograd(fn, plain, args, kwargs, dtype, seed=0):
+    leaves = [a.detach().clone().requires_grad_() if isinstance(a, torch.Tensor) and a.is_floating_point()
+              else a for a in args]
+    grad_of = [a for a in leaves if isinstance(a, torch.Tensor) and a.requires_grad]
+    got, want = outputs(fn(*leaves, **kwargs))[0], outputs(plain(*leaves, **kwargs))[0]
+    f32 = dtype == torch.float32 or fn is KD.dense_head_autograd
+    rtol = (1e-4 if fn is KC.conv3x3_autograd else 1e-5) if f32 else BF16_ULP
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-5 if f32 else BF16_ULP * 8)
+    up = torch.randn(want.shape, generator=torch.Generator(want.device).manual_seed(seed), device=want.device)
+    up = up.to(want.dtype)
+    grtol = chip_smoke.GRAD_RTOL["f32" if dtype == torch.float32 else "bf16"]
+    for a, b in zip(torch.autograd.grad(got, grad_of, up), torch.autograd.grad(want, grad_of, up)):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.isfinite(a).all()
+        a, b = a.float(), b.float()
+        assert ((a - b).abs() <= grtol * (b.abs() + b.abs().max())).all(), (a - b).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", CONV_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_conv3x3_autograd_matches_plain(cuda_device, cin, cout, dtype):
+    rng = np.random.RandomState(cin + 7 * cout)
+    x = torch.from_numpy(rng.randn(3, 13, 11, cin).astype(np.float32)).to(cuda_device, dtype)
+    k = torch.from_numpy((rng.randn(3, 3, cin, cout) / np.sqrt(9 * cin)).astype(np.float32)).to(cuda_device)
+    _check_autograd(KC.conv3x3_autograd, conv3x3_plain, (x, k, None), {}, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ksize,stride", [(1, 1), (3, 1), (4, 1), (4, 2)])
+@pytest.mark.parametrize("c", [8, 12, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_relu6_pool_bn_autograd_matches_plain_with_ties(cuda_device, ksize, stride, c, dtype):
+    """An eighth of the inputs exactly 0 or 6, where relu6's derivative is
+    0.5 on both sides."""
+    rng = np.random.RandomState(ksize * 100 + stride * 10 + c)
+    x = (rng.randn(2, 17, 14, c) * 4 + 3).astype(np.float32)
+    tie = rng.rand(*x.shape)
+    x[tie < 1 / 16], x[tie > 15 / 16] = 0.0, 6.0
+    w, b = (v.to(cuda_device) for v in bn_fold(torch_tree(random_bn(rng, c))))
+    _check_autograd(KP.relu6_pool_bn_autograd, relu6_pool_bn_plain,
+                    (torch.from_numpy(x).to(cuda_device, dtype), w, b), {"ksize": ksize, "stride": stride}, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", [((215, 215), (205, 205)), ((12, 13), (4, 5)), ((7, 7), (13, 13))],
+                         ids=["215-205", "12x13-4x5", "up-7-13"])
+@pytest.mark.parametrize("c", [16, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_residual_bn_autograd_matches_plain(cuda_device, src, dst, c, dtype):
+    rng = np.random.RandomState(src[0] + dst[1] + c)
+    x = torch.from_numpy(rng.randn(2, *dst, c).astype(np.float32)).to(cuda_device, dtype)
+    res = torch.from_numpy(rng.randn(2, *src, c).astype(np.float32)).to(cuda_device, dtype)
+    s, t = (v.to(cuda_device) for v in bn_fold(torch_tree(random_bn(rng, c))))
+    _check_autograd(KR.residual_bn_autograd, residual_bn_plain, (x, res, s, t), {}, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(HEAD_WIDTHS))
+@pytest.mark.parametrize("batch", [1, 45, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_dense_head_autograd_matches_plain(cuda_device, name, batch, dtype):
+    rng = np.random.RandomState(batch)
+    widths = HEAD_WIDTHS[name]
+    layers = [{"kernel": (rng.randn(a, b) / np.sqrt(a)).astype(np.float32), "bias": None,
+               "bn": random_bn(rng, b)} for a, b in zip(widths[:-2], widths[1:-1])]
+    layers.append({"kernel": rng.randn(widths[-2], widths[-1]).astype(np.float32),
+                   "bias": rng.randn(widths[-1]).astype(np.float32), "bn": None})
+    packed, got_widths = pack_head(torch_tree(layers, cuda_device))
+    x = torch.from_numpy(rng.randn(batch, widths[0]).astype(np.float32)).to(cuda_device, dtype)
+    _check_autograd(KD.dense_head_autograd, dense_head_plain, (x, packed, got_widths), {}, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_name", ["roomnet-224", "roomnet-224-bf16"])
+def test_cuda_train_step_launches_and_updates(cuda_device, cfg_name):
+    """One step at 224 (batch 2, converted weights) per BN mode: 10/10/3/1
+    launches with TrainHParams(), 10/10/3/0 with batch statistics; finite
+    loss, every trainable moved, the caller's variables untouched."""
+    from roomnet_tpu_torch.params import schema
+    from roomnet_tpu_torch.train.step import TrainHParams, init_train_state, make_train_step
+
+    variables = load_npz(REPO / "artifacts" / "roomnet_params.npz", device=cuda_device)
+    before = {k: v.clone() for k, v in schema.flatten_tensors(variables).items()}
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy(rng.randint(0, 256, size=(2, 224, 224, 3), dtype=np.uint8)).to(cuda_device)
+    y = torch.tensor([1, 4], device=cuda_device)
+    kernels = (conv3x3, relu6_pool_bn, residual_bn, dense_head)
+    for batch_stats, head in ((False, 1), (True, 0)):
+        hp = TrainHParams(compute_bn_mean_var=batch_stats, update_bn_moving=batch_stats)
+        state = init_train_state(variables, hp)
+        for k in kernels:
+            k.launches = 0
+        new, metrics = make_train_step(hp, registry.get(cfg_name))(state, x, y)
+        assert [k.launches for k in kernels] == [10, 10, 3, head]
+        assert torch.isfinite(metrics["loss"]) and int(new.step) == 1
+        assert all(not torch.equal(v, state.train_vars[p]) for p, v in new.train_vars.items())
+    for k, v in schema.flatten_tensors(variables).items():
+        assert torch.equal(v, before[k]), k
