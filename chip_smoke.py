@@ -80,8 +80,36 @@ kernels, in phases; any failure raises and the script exits non-zero:
      and peak memory after steps 5 and 20 of a fresh state (equal within
      1%).
 
-Then the JSON line of serving, directory and training numbers, the script's
-wall time, one JSON line of per-kernel results and, last, the device line.
+  8. The serving daemon (infer/server.py), the main path of a request:
+     (a) for f32 and bf16, `ClassifierServer(RoomNetClassifier(variables,
+     cfg, batch_size=32), warmup=True, max_inflight=64)` over a model dir
+     whose step-1 checkpoint is the converted weights saved by the port's
+     CheckpointStore (/reload loads it): /healthz, /readyz, /labels; the
+     64 wide-golden crops as PNG bodies through /classify (class_id equal
+     to the TF argmax, f32 probs within 1e-5 of phase 4's softmax), all 64
+     through /classify_batch (two device calls) and ?stream=1 (64 NDJSON
+     lines), the same answers; launches, counters zeroed just before those
+     requests and read just after, 10/10/3/1 per serve/device_call of
+     /metrics; `_predict` at every bucket (1-32) against the rows of the
+     batch-256 forward; /reload of the rolled head (step 2: every class_id
+     moves to TF argmax + 1 mod 6) and of a NaN tree (step 3: 409 from the
+     probe, step 2 kept, answers unchanged); evaluate_checkpoints over steps
+     1 and 2 against a list of the 64 PNGs labelled with the TF argmax
+     (accuracy 1.0 and 0.0, best step 1); once, `python -m roomnet_tpu_torch
+     validate` on that list (accuracy 1.0). (b) Times, bf16, nothing
+     claimed, bench.py's serving setup (batch_size=8, max_inflight=64,
+     warmup, one 640x480 q88 JPEG of tools/make_synth_dataset.make_image):
+     sequential /classify p50 and p99 on one keep-alive connection and with a
+     connection per request, in turns; repeated 64-way bursts (req/s, device
+     calls, rows per device call over bucket rows, shipped MB); serve/
+     device_call and serve/fetch p50 from /metrics; decode ms per request;
+     the device's busy share over a burst (torch.profiler device time over
+     the window's wall time); batch-1 `predict` p50 with predict_stream's
+     e2e spans and with them off, in turns.
+
+Then the JSON line of serving, directory, training and server numbers, the
+script's wall time, one JSON line of per-kernel results and, last, the
+device line.
 f32 parity needs TF32 off; the script turns it off for everything it runs.
 """
 
@@ -547,7 +575,7 @@ def main() -> None:
     for dt, cfg in cfgs.items():
         clf = RoomNetClassifier(variables, cfg, batch_size=256, device=dev)
         xb = torch.from_numpy(x256_u8).to(dev)
-        fwd_ms = cuda_ms(lambda: clf._predict(xb))
+        fwd_ms = cuda_ms(lambda: clf._predict(clf.variables, xb))
         zero_counts()
         forwards = 0
         for _ in range(2):
@@ -597,11 +625,16 @@ def main() -> None:
     step_launches = train_launches(variables, cfgs, counts, zero_counts, dev)
     training["times"] = train_times(variables, cfgs, dev, smi)
 
+    # -- phase 8: the serving daemon ------------------------------------------
+    server = phase8(variables, cfgs, gw, wide_logits, x256_u8, counts, zero_counts, per_forward, dev, smi)
+    serve_launches = server.pop("launches")
+
     for dt in cfgs:
         log(f"max |d| against plain [{dt}]: " + ", ".join(
             f"{n} {max_err[(n, dt, 8)]:.3g} (batch 8) {max_err[(n, dt, 256)]:.3g} (batch 256)"
             for n in kernels))
-    log(json.dumps({"card": smi, "serving": serving, "directory": directory, "training": training}))
+    log(json.dumps({"card": smi, "serving": serving, "directory": directory, "training": training,
+                    "server": server}))
     log(f"wall: {time.perf_counter() - wall0:.1f} s from start to the result lines")
     rows = []
     for dt in cfgs:
@@ -618,6 +651,7 @@ def main() -> None:
                 "train_step_launches": {m: step_launches[(dt, m)][name] for m in ("infbn", "trainbn")},
                 "train_forward_max_abs_err": grad_checks[(name, dt)][0],
                 "train_grad_tolerance_share": grad_checks[(name, dt)][1],
+                "serve_launches": serve_launches[dt][name],
             })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -785,7 +819,7 @@ def phase6(variables, cfgs, gw, wide_logits, x256_u8, serving, counts, zero_coun
         with torch.cuda.stream(side):
             h2d_ms = cuda_ms(lambda: xd.copy_(pinned, non_blocking=True))
         h2d_pageable_ms = cuda_ms(lambda: xd.copy_(torch.from_numpy(x256_u8)))
-        fwd_ms = cuda_ms(lambda: clf._predict(xd))
+        fwd_ms = cuda_ms(lambda: clf._predict(clf.variables, xd))
         staged = torch.empty(x256_u8.shape, dtype=torch.uint8, pin_memory=True).numpy()
         t0 = time.perf_counter()
         for _ in range(10):
@@ -810,7 +844,7 @@ def phase6(variables, cfgs, gw, wide_logits, x256_u8, serving, counts, zero_coun
         def pageable(x=x2560):
             out = []
             for i in range(0, len(x), 256):
-                bid, bprobs = clf._predict(torch.from_numpy(x[i: i + 256]).to(dev, non_blocking=True))
+                bid, bprobs = clf._predict(clf.variables, torch.from_numpy(x[i: i + 256]).to(dev, non_blocking=True))
                 out.append((bid.cpu().numpy(), bprobs.cpu().numpy()))
             return np.concatenate([o[0] for o in out]), np.concatenate([o[1] for o in out])
 
@@ -1125,6 +1159,345 @@ def profile_steps(run, steps: int, top: int = 12) -> tuple[float, dict]:
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     per_step = {e.key[:60]: e.self_device_time_total / 1e3 / steps for e in kernels[:top]}
     return device_us / 1e3 / start.elapsed_time(end), per_step
+
+
+
+# -- phase 8: the serving daemon ----------------------------------------------
+SEQ_TURNS, SEQ_PER_TURN = 4, 50  # sequential requests: 200 on each kind of connection
+BURSTS, BURST = 5, 64
+
+
+def http_request(port: int, method: str, path: str, body: bytes | None = None, conn=None):
+    """(status, body bytes) of one request, on `conn` (keep-alive) or on a
+    connection of its own."""
+    import http.client
+
+    c = conn or http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        c.request(method, path, body=body)
+        r = c.getresponse()
+        return r.status, r.read()
+    finally:
+        if conn is None:
+            c.close()
+
+
+def http_json(port: int, method: str, path: str, body: bytes | None = None):
+    status, data = http_request(port, method, path, body)
+    return status, json.loads(data) if data else None
+
+
+def phase8(variables, cfgs, gw, wide_logits, x256_u8, counts, zero_counts, per_forward, dev, smi) -> dict:
+    """The serving daemon (docstring phase 8). Returns its numbers, and under
+    "launches" each dtype's counts from its classify requests."""
+    import base64
+
+    from roomnet_tpu_torch.params import schema
+    from roomnet_tpu_torch.params.checkpoint import CheckpointStore
+
+    t_phase = time.perf_counter()
+    want_probs = torch.softmax(torch.from_numpy(wide_logits), -1).numpy()
+    tf_ids = gw["argmax"].astype(int)
+    bodies = [png_bytes(im) for im in gw["x_uint8_bgr"]]
+    payload = json.dumps({"images": [base64.b64encode(b).decode() for b in bodies]}).encode()
+    flat = schema.flatten_variables(variables)
+    head = f"dense/{len(variables['dense']) - 1}"
+    rolled, nan = dict(flat), dict(flat)
+    rolled[f"{head}/kernel"] = np.roll(flat[f"{head}/kernel"], 1, axis=1)
+    rolled[f"{head}/bias"] = np.roll(flat[f"{head}/bias"], 1)
+    nan["dense/0/kernel"] = np.full_like(flat["dense/0/kernel"], np.nan)
+    result = {"card": smi, "launches": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as root:
+        edir, imgs = os.path.join(root, "eval_models"), os.path.join(root, "imgs")
+        estore = CheckpointStore(edir)
+        estore.save(variables, 1, suffix="1.0")
+        estore.save(schema.variables_from_numpy(rolled, device="cpu"), 2, suffix="0.0")
+        os.makedirs(imgs)
+        lst = os.path.join(root, "list.txt")
+        with open(lst, "w") as f:
+            for i, b in enumerate(bodies):
+                path = os.path.join(imgs, f"crop_{i:02d}.png")
+                pathlib.Path(path).write_bytes(b)
+                f.write(f"{path} {tf_ids[i]}\n")
+        for dt, cfg in cfgs.items():
+            # A model dir per dtype, its step 1 the converted weights.
+            mdir = os.path.join(root, f"models_{dt}")
+            store = CheckpointStore(mdir)
+            store.save(variables, 1, suffix="1.0")
+            trees = {"rolled": rolled, "nan": nan}
+            result[dt] = serve_checks(dt, cfg, variables, trees, (store, mdir, edir, lst), (bodies, payload),
+                                      (tf_ids, want_probs), x256_u8, counts, zero_counts, per_forward, dev,
+                                      result["launches"])
+        # The CLI once, as a user runs it: the bf16 default, from the repo root.
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "roomnet_tpu_torch", "validate", "--list-file", lst,
+                               "--batch-size", "32"], cwd=pathlib.Path(__file__).resolve().parent,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m roomnet_tpu_torch validate: exit {proc.returncode}\n"
+                                 f"{proc.stderr[-2000:]}")
+        stats = json.loads(proc.stdout)
+        if stats["accuracy"] != 1.0:
+            raise AssertionError(f"python -m roomnet_tpu_torch validate: {stats}")
+        result["cli_validate"] = {"accuracy": stats["accuracy"], "wall_s": time.perf_counter() - t0}
+        log(f"server: python -m roomnet_tpu_torch validate --list-file <{len(bodies)} PNGs> --batch-size 32: accuracy "
+            f"{stats['accuracy']} ({time.perf_counter() - t0:.1f} s with the interpreter's start)")
+    result["times"] = serve_times(variables, cfgs["bf16"], dev, smi)
+    result["wall_s"] = time.perf_counter() - t_phase
+    log(f"server: phase 8 took {result['wall_s']:.1f} s")
+    return result
+
+
+def serve_checks(dt, cfg, variables, trees, dirs, requests, golden, x256_u8, counts, zero_counts, per_forward,
+                 dev, launches) -> dict:
+    """Phase 8 (a) for one dtype: `trees` the rolled-head and NaN flat
+    dicts, `dirs` (store, its dir, the evaluation dir, the list file),
+    `requests` (the 64 PNG bodies, the /classify_batch payload of all 64),
+    `golden` (TF argmax, phase 4's softmax). Adds the classify requests'
+    launches to `launches[dt]`."""
+    from roomnet_tpu_torch import CLASS_LABELS
+    from roomnet_tpu_torch.infer.classify import RoomNetClassifier, evaluate_checkpoints
+    from roomnet_tpu_torch.infer.server import ClassifierServer
+    from roomnet_tpu_torch.params import schema
+
+    store, mdir, edir, lst = dirs
+    bodies, payload = requests
+    tf_ids, want_probs = golden
+
+    f32 = dt == "f32"
+    clf = RoomNetClassifier(variables, cfg, batch_size=32, device=dev)
+    t0 = time.perf_counter()
+    srv = ClassifierServer(clf, port=0, warmup=True, max_inflight=64, model_dir=mdir).start()
+    start_s = time.perf_counter() - t0
+    port = srv.port
+    out = {"start_s": start_s}
+    try:
+        for path in ("/healthz", "/readyz"):
+            status, _ = http_json(port, "GET", path)
+            if status != 200:
+                raise AssertionError(f"server[{dt}] {path}: {status}")
+        if http_json(port, "GET", "/labels") != (200, CLASS_LABELS):
+            raise AssertionError(f"server[{dt}] /labels is not CLASS_LABELS")
+        if http_json(port, "POST", "/reload") != (200, {"status": "reloaded", "step": 1}):
+            raise AssertionError(f"server[{dt}] /reload of the step-1 checkpoint failed")
+
+        def device_calls() -> int:
+            return http_json(port, "GET", "/metrics")[1].get("serve/device_call", {}).get("count", 0)
+
+        def classify_all() -> list:
+            got = []
+            for b in bodies:
+                status, r = http_json(port, "POST", "/classify", b)
+                if status != 200:
+                    raise AssertionError(f"server[{dt}] /classify: {status} {r}")
+                got.append(r)
+            return got
+
+        def check(where: str, results: list, shift: int = 0) -> float:
+            """class_id == (TF argmax + shift) mod 6 for each golden image;
+            with shift 0, the max |dprob| from phase 4's softmax (f32: <= 1e-5)."""
+            err = 0.0
+            for i, r in enumerate(results):
+                if r.get("class_id") != (tf_ids[i] + shift) % 6:
+                    raise AssertionError(f"server[{dt}] {where}: image {i} answered {r}, TF argmax {tf_ids[i]}")
+                if shift == 0:
+                    err = max(err, float(np.abs(np.asarray(r["probs"]) - want_probs[i]).max()))
+            if f32 and shift == 0 and not err <= 1e-5:
+                raise AssertionError(f"server[{dt}] {where}: f32 probs {err:.3g} from phase 4's softmax")
+            return err
+
+        zero_counts()
+        c0 = device_calls()
+        singles = classify_all()
+        c1 = device_calls()
+        status, batch = http_json(port, "POST", "/classify_batch", payload)
+        c2 = device_calls()
+        if status != 200 or c2 - c1 != -(-len(bodies) // 32):
+            raise AssertionError(f"server[{dt}] /classify_batch of {len(bodies)}: {status}, {c2 - c1} device calls")
+        status, data = http_request(port, "POST", "/classify_batch?stream=1", payload)
+        lines = [json.loads(line) for line in data.splitlines()]
+        if status != 200 or [line["index"] for line in lines] != list(range(len(bodies))):
+            raise AssertionError(f"server[{dt}] ?stream=1: {status}, indices {[l.get('index') for l in lines]}")
+        calls = device_calls() - c0
+        got = counts()
+        want = {n: c * calls for n, c in per_forward.items()}
+        if got != want:
+            raise AssertionError(f"server[{dt}]: launches {got} != {want} for {calls} device calls")
+        launches[dt] = got
+        errs = {"classify": check("/classify", singles), "classify_batch": check("/classify_batch", batch["results"]),
+                "stream": check("?stream=1", lines)}
+        across = max(float(np.abs(np.asarray(a["probs"]) - np.asarray(b["probs"])).max())
+                     for a, b in zip(singles, batch["results"]))
+        out.update(max_abs_dprob=errs, single_vs_batch_max_abs_dprob=across, device_calls=calls, launches=got)
+        log(f"server[{dt}] batch 32: /classify x{len(bodies)}, /classify_batch ({c2 - c1} device calls), "
+            f"?stream=1 ({len(lines)} lines): "
+            f"class_id = TF argmax, max |dprob| from phase 4's softmax " +
+            ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f", bucket 1 vs 32 {across:.3g}; launches "
+            f"{got} over {calls} device calls; started in {start_s:.2f} s (warmup of 6 buckets)")
+
+        # Each bucket's device call against the rows of the batch-256 forward.
+        xb = torch.from_numpy(x256_u8).to(dev)
+        ids256, p256 = (t.cpu().numpy() for t in clf._predict(clf.variables, xb))
+        bucket_err = {}
+        for b in srv._bucket_sizes:
+            ids_b, probs_b = (t.cpu().numpy() for t in clf._predict(clf.variables, xb[:b]))
+            d = float(np.abs(probs_b - p256[:b]).max())
+            if not np.array_equal(ids_b, ids256[:b]) or (f32 and d > 1e-5):
+                raise AssertionError(f"server[{dt}] bucket {b}: argmax or probs ({d:.3g}) differ from batch 256")
+            bucket_err[b] = d
+        out["bucket_max_abs_dprob"] = bucket_err
+        log(f"server[{dt}] buckets {srv._bucket_sizes} against the batch-256 forward: argmax equal, max |dprob| "
+            + ", ".join(f"{b}: {d:.3g}" for b, d in bucket_err.items()))
+        del xb
+
+        # Hot reload: the rolled head moves every answer by one class; a NaN
+        # tree fails the probe and changes nothing.
+        store.save(schema.variables_from_numpy(trees["rolled"], device="cpu"), 2, suffix="0.0")
+        if http_json(port, "POST", "/reload") != (200, {"status": "reloaded", "step": 2}):
+            raise AssertionError(f"server[{dt}] /reload of the rolled head failed")
+        if http_json(port, "GET", "/version")[1]["step"] != 2:
+            raise AssertionError(f"server[{dt}] /version after the reload")
+        moved = classify_all()
+        check("/classify after the rolled-head reload", moved, shift=1)
+        store.save(schema.variables_from_numpy(trees["nan"], device="cpu"), 3, suffix="nan")
+        status, rej = http_json(port, "POST", "/reload")
+        if status != 409 or "non-finite" not in rej["error"]:
+            raise AssertionError(f"server[{dt}] /reload of a NaN tree: {status} {rej}")
+        if http_json(port, "GET", "/version")[1]["step"] != 2:
+            raise AssertionError(f"server[{dt}] /version moved after a rejected reload")
+        kept = classify_all()
+        if [r["class_id"] for r in kept] != [r["class_id"] for r in moved] or max(
+                float(np.abs(np.asarray(a["probs"]) - np.asarray(b["probs"])).max()) for a, b in zip(kept, moved)) > 1e-6:
+            raise AssertionError(f"server[{dt}] answers changed after a rejected reload")
+        log(f"server[{dt}] /reload: rolled head (step 2) moved all {len(moved)} answers to TF argmax + 1 mod 6; NaN tree "
+            f"(step 3) answered 409 ({rej['error'][:80]}), step 2 and its answers kept")
+    finally:
+        srv.stop()
+        clf.close()
+
+    sweep = evaluate_checkpoints(edir, lst, cfg, batch_size=32, device=dev)
+    accs = [(e["step"], e["accuracy"]) for e in sweep["checkpoints"]]
+    if accs != [(1, 1.0), (2, 0.0)] or sweep["best"]["step"] != 1:
+        raise AssertionError(f"evaluate_checkpoints[{dt}]: {accs}, best {sweep['best']['step']}")
+    out["evaluate_checkpoints"] = accs
+    log(f"evaluate_checkpoints[{dt}] over steps 1 (converted) and 2 (rolled head): accuracy {accs}, best step 1")
+    return out
+
+
+def serve_times(variables, cfg, dev, smi) -> dict:
+    """Phase 8 (b): bench.py's serving setup, bf16, nothing claimed."""
+    import cv2
+
+    from roomnet_tpu_torch.infer.classify import RoomNetClassifier
+    from roomnet_tpu_torch.infer.server import ClassifierServer
+    from roomnet_tpu_torch.utils.profiling import SPANS
+    from tools.make_synth_dataset import make_image
+
+    ok, buf = cv2.imencode(".jpg", make_image(2, np.random.RandomState(1), 480, 640)[:, :, ::-1],
+                           [cv2.IMWRITE_JPEG_QUALITY, 88])
+    if not ok:
+        raise AssertionError("cv2 could not encode the request image")
+    body = buf.tobytes()
+    clf = RoomNetClassifier(variables, cfg, batch_size=8, device=dev)
+    srv = ClassifierServer(clf, port=0, max_inflight=64, warmup=True).start()
+    port = srv.port
+    side = clf.host_side
+    try:
+        def classify(conn=None):
+            status, data = http_request(port, "POST", "/classify", body, conn)
+            if status != 200:
+                raise AssertionError(f"serving times: /classify {status} {data[:200]}")
+
+        classify()
+        SPANS.reset()
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        lat = {"keepalive": [], "per_connection": []}
+        for turn in range(SEQ_TURNS):
+            for mode in (("keepalive", "per_connection") if turn % 2 == 0 else ("per_connection", "keepalive")):
+                for _ in range(SEQ_PER_TURN):
+                    t0 = time.perf_counter()
+                    classify(conn if mode == "keepalive" else None)
+                    lat[mode].append((time.perf_counter() - t0) * 1e3)
+        conn.close()
+        seq = {m: {"p50_ms": float(np.percentile(v, 50)), "p99_ms": float(np.percentile(v, 99)), "n": len(v)}
+               for m, v in lat.items()}
+
+        def metrics():
+            return http_json(port, "GET", "/metrics")[1]
+
+        pool = ThreadPoolExecutor(BURST)
+
+        def burst():
+            list(pool.map(lambda _: classify(), range(BURST)))
+
+        bursts = []
+        try:
+            for _ in range(BURSTS):
+                m0 = metrics()
+                t0 = time.perf_counter()
+                burst()
+                wall = time.perf_counter() - t0
+                m1 = metrics()
+                calls = m1["serve/device_call"]["count"] - m0["serve/device_call"]["count"]
+                shipped = m1["serve/device_call_bytes"]["total"] - m0["serve/device_call_bytes"]["total"]
+                bursts.append({"req_per_s": BURST / wall, "device_calls": calls,
+                               "rows_per_call": BURST / calls,
+                               "rows_over_bucket_rows": BURST / (shipped / (side * side * 3)),
+                               "shipped_MB": shipped / 1e6})
+            busy, top = profile_steps(burst, 1)
+        finally:
+            pool.shutdown()
+        m = metrics()
+        decode = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            x1 = srv._preprocess(body)
+            decode.append((time.perf_counter() - t0) * 1e3)
+        spans = span_cost(clf, x1[None])
+    finally:
+        srv.stop()
+        clf.close()
+    med = {k: statistics.median(b[k] for b in bursts) for k in bursts[0]}
+    out = {"card": smi, "sequential": seq, "bursts": bursts, "burst_median": med,
+           "device_call_p50_ms": m["serve/device_call"]["p50_ms"], "fetch_p50_ms": m["serve/fetch"]["p50_ms"],
+           "decode_ms_per_request": statistics.median(decode), "burst_device_busy_share": busy,
+           "burst_top_device_ms": top, "predict_batch1_p50_ms_spans_on_off": spans}
+    log(f"serving times [bf16, batch 8, {smi}]: sequential /classify p50 / p99 keep-alive "
+        f"{seq['keepalive']['p50_ms']:.3f} / {seq['keepalive']['p99_ms']:.3f} ms, a connection per request "
+        f"{seq['per_connection']['p50_ms']:.3f} / {seq['per_connection']['p99_ms']:.3f} ms ({SEQ_TURNS} turns of "
+        f"{SEQ_PER_TURN}); {BURSTS} bursts of {BURST}: " + ", ".join(f"{b['req_per_s']:.1f}" for b in bursts)
+        + f" req/s, median {med['device_calls']:.0f} device calls, {med['rows_per_call']:.2f} rows per call, "
+        f"rows / bucket rows {med['rows_over_bucket_rows']:.3f}, {med['shipped_MB']:.2f} MB shipped; "
+        f"serve/device_call p50 {out['device_call_p50_ms']:.3f} ms, serve/fetch p50 {out['fetch_p50_ms']:.3f} "
+        f"ms, decode {out['decode_ms_per_request']:.3f} ms per request (host clock); device busy {busy:.3f} of "
+        f"a profiled burst's wall time; device ms by kernel: " + "; ".join(f"{n} {v:.3f}" for n, v in top.items()))
+    log(f"predict[bf16] batch 1 p50 with the e2e spans {spans['on']:.3f} ms, with trace a no-op "
+        f"{spans['off']:.3f} ms (host clock, 4 turns of 50 each, {smi})")
+    return out
+
+
+def span_cost(clf, x1) -> dict:
+    """p50 ms of `clf.predict(x1)` with predict_stream's e2e spans and with
+    its `trace` replaced by a no-op, in turns."""
+    import contextlib
+
+    from roomnet_tpu_torch.infer import classify
+
+    real = classify.trace
+    lat = {"on": [], "off": []}
+    try:
+        for turn in range(4):
+            for mode in (("on", "off") if turn % 2 == 0 else ("off", "on")):
+                classify.trace = real if mode == "on" else (lambda name: contextlib.nullcontext())
+                for _ in range(50):
+                    t0 = time.perf_counter()
+                    clf.predict(x1)
+                    lat[mode].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        classify.trace = real
+    return {k: statistics.median(v) for k, v in lat.items()}
 
 
 if __name__ == "__main__":

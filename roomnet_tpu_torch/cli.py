@@ -1,0 +1,320 @@
+"""The port's CLI (port of roomnet_tpu/cli.py): the subcommands whose
+modules the port has.
+
+    python -m roomnet_tpu_torch infer      --images-dir ./test_images [--no-overlay]
+    python -m roomnet_tpu_torch validate   --list-file val_list.txt
+    python -m roomnet_tpu_torch eval-ckpts --model-dir all_trained_models/... --list-file val_list.txt
+    python -m roomnet_tpu_torch serve      [--model-dir ...] [--port 8000]
+    python -m roomnet_tpu_torch doctor
+
+Flags and defaults are the JAX package's, with two deliberate differences:
+  * --device (default: the CUDA card) picks the device; `--device cpu` runs
+    the kernels' plain PyTorch versions on the CPU. With no GPU and no
+    --device the commands raise.
+  * --profile-port, --data-parallel, eval-ckpts --plot and --ckpt-backend
+    orbax are left out until their modules are ported (ROADMAP.md), as are
+    the subcommands train, convert, convert-to-tf, plot, plot-checkpoints,
+    label, export and bench.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+DEVICE_HELP = ("device to run on (default: the CUDA card; 'cpu' runs the kernels' plain "
+               "PyTorch versions; with no GPU and no --device the command raises)")
+
+
+def _load_variables(params_path: str, model_dir: str | None = None, device=None, cfg=None):
+    """Variables of `cfg`'s architecture (default: roomnet-224's) from a
+    flat npz, or resume-latest from a checkpoint dir (reference `nn.load()`,
+    network.py:108-118), on `device`."""
+    from .models.roomnet import DEFAULT_CONFIG
+    from .params import schema
+
+    cfg = cfg or DEFAULT_CONFIG
+    if model_dir:
+        from .params.checkpoint import open_store
+
+        loaded = open_store(model_dir).load()
+        if loaded is None:
+            raise FileNotFoundError(f"no checkpoints in {model_dir}")
+        var_flat, step = loaded
+        print(f"loaded checkpoint at step {step} from {model_dir}")
+        return schema.variables_from_numpy(var_flat, cfg, device)
+    return schema.load_npz(params_path, cfg, device)
+
+
+def _model_cfg(img_side: int, *, bf16: bool):
+    """The config for the requested input geometry and precision, through
+    the model registry (a non-224 model with the 224 config would fail on
+    its dense head's shape)."""
+    from .models import registry
+
+    return registry.resolve(img_side, bf16=bf16)
+
+
+def _device(args):
+    from . import default_device
+
+    return default_device(args.device)
+
+
+def cmd_infer(args):
+    from .infer.classify import RoomNetClassifier, classify_im_dir
+
+    dev = _device(args)
+    cfg = _model_cfg(args.img_side, bf16=not args.exact)
+    clf = RoomNetClassifier(
+        _load_variables(args.params, args.model_dir, dev, cfg), cfg,
+        batch_size=args.batch_size, fast_decode=args.fast_decode,
+        device_resize_side=args.device_resize_side, device=dev,
+    )
+    xl = classify_im_dir(clf, args.images_dir, overlay=not args.no_overlay)
+    print("Results:", xl)
+
+
+def cmd_validate(args):
+    from .infer.classify import RoomNetClassifier, groundtruth_validation
+
+    dev = _device(args)
+    cfg = _model_cfg(args.img_side, bf16=not args.exact)
+    clf = RoomNetClassifier(_load_variables(args.params, args.model_dir, dev, cfg), cfg,
+                            batch_size=args.batch_size, device=dev)
+    stats = groundtruth_validation(clf, args.list_file)
+    print(json.dumps(stats, indent=2))
+
+
+def cmd_eval_ckpts(args):
+    from .infer.classify import evaluate_checkpoints
+
+    out = evaluate_checkpoints(
+        args.model_dir, args.list_file, _model_cfg(args.img_side, bf16=not args.exact),
+        batch_size=args.batch_size, backend=args.ckpt_backend, device=_device(args),
+    )
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=2)
+    for e in out["checkpoints"]:
+        name_acc = "-" if e["name_accuracy"] is None else f"{e['name_accuracy']:.4f}"
+        print(f"step {e['step']:>8}  name-acc {name_acc:>6}  "
+              f"measured {e['accuracy']:.4f}  {e['checkpoint']}")
+    b = out["best"]
+    print(f"best: step {b['step']}  accuracy {b['accuracy']:.4f}  ({b['checkpoint']})")
+
+
+def cmd_serve(args):
+    from .infer.classify import RoomNetClassifier
+    from .infer.server import ClassifierServer
+
+    dev = _device(args)
+    cfg = _model_cfg(args.img_side, bf16=not args.exact)
+    clf = RoomNetClassifier(_load_variables(args.params, args.model_dir, dev, cfg), cfg,
+                            batch_size=args.batch_size, device=dev)
+    print(f"serving on http://{args.host}:{args.port}  (POST /classify, /classify_batch)")
+    ClassifierServer(clf, host=args.host, port=args.port,
+                     warmup=not args.no_warmup,
+                     max_inflight=args.max_inflight,
+                     request_timeout_s=args.request_timeout,
+                     # The dir the weights came from: POST /reload swaps
+                     # to its newest checkpoint.
+                     model_dir=args.model_dir,
+                     auto_reload_s=args.auto_reload,
+                     access_log=args.access_log,
+                     drain_s=args.drain).serve_forever()
+
+
+def cmd_doctor(args):
+    """Environment diagnostics: one PASS/WARN/FAIL line per dependency the
+    port's surfaces need. Exit code 1 on any FAIL."""
+    checks = []  # (status, name, detail)
+
+    def check(name, fn, *, warn_only=False):
+        try:
+            checks.append(("PASS", name, fn() or ""))
+        except Exception as e:  # noqa: BLE001 — each check reports, never raises
+            checks.append(("WARN" if warn_only else "FAIL", name, f"{type(e).__name__}: {e}"))
+
+    def _torch():
+        import torch
+
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"torch {torch.__version__}: no CUDA device")
+        return (f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+                f"{torch.cuda.device_count()}x {torch.cuda.get_device_name(0)}")
+
+    check("torch + CUDA device", _torch)
+
+    def _nvcc():
+        from .ops.kernels import _build
+
+        return _build._nvcc()
+
+    check("nvcc (builds the kernels at first use)", _nvcc)
+
+    def _kernels():
+        from .ops.kernels import _build
+
+        _build.build()
+        for name in _build.SOURCES:
+            _build.load(name)
+        return f"{len(_build.SOURCES)} kernels built into {_build.BUILD_DIR}"
+
+    check("CUDA kernels (conv3x3, relu6_pool_bn, residual_bn, dense_head)", _kernels)
+
+    def _native():
+        from .data import native
+
+        if not native.available():
+            raise RuntimeError("csrc/roomnet_io.cpp not built (g++ with libjpeg/libpng headers); "
+                               "decode falls back to cv2")
+        return "native decoder loaded"
+
+    check("native decoder", _native, warn_only=True)
+
+    def _cv2():
+        import cv2
+
+        return f"opencv {cv2.__version__}"
+
+    check("cv2 (decode fallback, overlays, serving decode)", _cv2)
+
+    def _params():
+        import numpy as np
+
+        from .models.roomnet import param_count
+        from .params import schema
+
+        path = args.params
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"{path} missing — convert it with `python -m roomnet_tpu convert`")
+        with np.load(path) as data:
+            n = param_count(schema.variables_from_numpy(dict(data), device="cpu"))
+        if n != 178062:
+            raise ValueError(f"param count {n} != 178062")
+        return f"{path}: 178,062 params"
+
+    check("converted reference params", _params, warn_only=True)
+
+    def _golden():
+        base = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests", "golden")
+        need = ["forward_golden.npz", "forward_golden_wide.npz", "grad_golden.npz", "traj_golden.npz"]
+        missing = [f for f in need if not os.path.exists(os.path.join(base, f))]
+        if missing:
+            raise FileNotFoundError(", ".join(missing))
+        return f"{len(need)} fixtures present"
+
+    check("golden parity fixtures", _golden, warn_only=True)
+
+    width = max(len(n) for _, n, _ in checks)
+    failed = False
+    for status, name, detail in checks:
+        print(f"[{status}] {name:<{width}}  {detail}")
+        failed |= status == "FAIL"
+    sys.exit(1 if failed else 0)
+
+
+def _add_device(p):
+    p.add_argument("--device", default=None, help=DEVICE_HELP)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="roomnet_tpu_torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    i = sub.add_parser("infer", help="classify a directory (reference infer.py)")
+    i.add_argument("--images-dir", required=True)
+    i.add_argument("--params", default="artifacts/roomnet_params.npz")
+    i.add_argument("--model-dir", default=None,
+                   help="resume-latest from a training checkpoint dir instead of --params")
+    i.add_argument("--batch-size", type=int, default=64)
+    i.add_argument("--no-overlay", action="store_true")
+    i.add_argument("--exact", action="store_true", help="f32 parity mode instead of bf16 serving mode")
+    i.add_argument("--img-side", type=int, default=224,
+                   help="model input geometry; must match the loaded weights' dense head "
+                        "(README.md:32 variants)")
+    i.add_argument("--device-resize-side", type=int, default=None,
+                   help="ship center-cropped uint8 at this side and run the final resample on the "
+                        "device")
+    i.add_argument("--fast-decode", action="store_true",
+                   help="DCT-scaled JPEG decode in the native decoder (>=2x supersampling enforced)")
+    _add_device(i)
+    i.set_defaults(fn=cmd_infer)
+
+    v = sub.add_parser("validate", help="score a labeled list file")
+    v.add_argument("--list-file", required=True)
+    v.add_argument("--params", default="artifacts/roomnet_params.npz")
+    v.add_argument("--model-dir", default=None,
+                   help="resume-latest from a training checkpoint dir instead of --params")
+    v.add_argument("--batch-size", type=int, default=64)
+    v.add_argument("--exact", action="store_true")
+    v.add_argument("--img-side", type=int, default=224,
+                   help="model input geometry; must match the loaded weights' dense head "
+                        "(README.md:32 variants)")
+    _add_device(v)
+    v.set_defaults(fn=cmd_validate)
+
+    ev = sub.add_parser(
+        "eval-ckpts",
+        help="re-score every checkpoint in a dir against one list file (consistent model "
+             "selection vs the filename accuracies legacy_plotter.py trusts)")
+    ev.add_argument("--model-dir", required=True)
+    ev.add_argument("--list-file", required=True)
+    ev.add_argument("--batch-size", type=int, default=64)
+    ev.add_argument("--exact", action="store_true")
+    ev.add_argument("--img-side", type=int, default=224)
+    ev.add_argument("--out", default=None, help="also write the full per-checkpoint JSON here")
+    ev.add_argument("--ckpt-backend", choices=["auto", "npz"], default="auto",
+                    help="checkpoint store format in --model-dir (orbax is not ported yet)")
+    _add_device(ev)
+    ev.set_defaults(fn=cmd_eval_ckpts)
+
+    s = sub.add_parser("serve", help="HTTP classification daemon")
+    s.add_argument("--params", default="artifacts/roomnet_params.npz")
+    s.add_argument("--model-dir", default=None,
+                   help="resume-latest from a training checkpoint dir instead of --params")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8000)
+    s.add_argument("--batch-size", type=int, default=32)
+    s.add_argument("--exact", action="store_true")
+    s.add_argument("--img-side", type=int, default=224,
+                   help="model input geometry; must match the loaded weights' dense head "
+                        "(README.md:32 variants)")
+    s.add_argument("--no-warmup", action="store_true",
+                   help="skip the warmup before the socket binds, which runs every bucket once and "
+                        "builds the CUDA kernels (nvcc, ~15 s on a fresh checkout); without it the "
+                        "first request pays the build against its --request-timeout budget")
+    s.add_argument("--max-inflight", type=int, default=None,
+                   help="admission cap before 429 shedding (default 4x max_batch)")
+    s.add_argument("--access-log", default=None, metavar="PATH",
+                   help="append one JSON line per answered request (method, path, status, ms)")
+    s.add_argument("--auto-reload", type=float, default=None, metavar="S",
+                   help="poll --model-dir every S seconds and hot-swap when a newer checkpoint "
+                        "lands")
+    s.add_argument("--drain", type=float, default=0.0, metavar="S",
+                   help="graceful-drain window on SIGTERM/Ctrl-C: /readyz goes 503, new classify "
+                        "work is shed with 503, and admitted requests get up to S seconds to "
+                        "finish before shutdown (0: immediate, queued jobs fail fast)")
+    s.add_argument("--request-timeout", type=float, default=30.0,
+                   help="per-request budget cap (s), stamped at admission; clients may lower it "
+                        "per request with the X-Timeout-Seconds header")
+    _add_device(s)
+    s.set_defaults(fn=cmd_serve)
+
+    d = sub.add_parser("doctor", help="environment diagnostics (PASS/WARN/FAIL)")
+    d.add_argument("--params", default="artifacts/roomnet_params.npz")
+    d.set_defaults(fn=cmd_doctor)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

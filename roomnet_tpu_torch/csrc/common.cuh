@@ -25,7 +25,9 @@ template <typename T> __device__ __forceinline__ float round_io(float v) {
   return to_f32(from_f32<T>(v));
 }
 
-__device__ __forceinline__ float relu6(float v) { return fminf(fmaxf(v, 0.f), 6.f); }
+// NaN stays NaN, as in the plain versions (torch.maximum/minimum) and JAX's
+// jnp.clip; fminf/fmaxf alone would turn it into 0.
+__device__ __forceinline__ float relu6(float v) { return v != v ? v : fminf(fmaxf(v, 0.f), 6.f); }
 
 // x*w + b with no fused multiply-add, as the plain PyTorch version rounds it.
 __device__ __forceinline__ float affine(float x, float w, float b) {

@@ -42,7 +42,8 @@ __device__ __forceinline__ void load_relu6(const T* p, float (&f)[VEC]) {
     const __nv_bfloat162 zero = __float2bfloat162_rn(0.f), six = __float2bfloat162_rn(6.f);
 #pragma unroll
     for (int e = 0; e < VEC / 2; ++e) {  // relu6 in bf16 pairs is exact: a clamp rounds nothing
-      const float2 v = __bfloat1622float2(__hmin2(__hmax2(h[e], zero), six));
+      // The _nan forms keep NaN, as rn::relu6 does.
+      const float2 v = __bfloat1622float2(__hmin2_nan(__hmax2_nan(h[e], zero), six));
       f[2 * e] = v.x, f[2 * e + 1] = v.y;
     }
   } else if constexpr (VEC * sizeof(T) == 16) {

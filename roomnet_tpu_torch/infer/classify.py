@@ -42,6 +42,7 @@ from ..data import native
 from ..data.loader import center_crop, draw_crop_rect
 from ..models.roomnet import DEFAULT_CONFIG, fold_variables, forward_folded, normalize_bgr_uint8
 from ..ops.resize import resize_bilinear_half_pixel
+from ..utils.profiling import trace
 from ..utils.xls import Workbook
 
 RING = 3  # host batches in flight: decode(i+2) ∥ H2D(i+1) ∥ forward(i)
@@ -133,8 +134,7 @@ class RoomNetClassifier:
             logging.getLogger("roomnet_tpu_torch.classify").warning(
                 "fast_decode requested but the native decoder is unavailable — "
                 "falling back to full cv2 decode with no DCT-scaling speedup")
-        self.variables = _to_device(variables, self.device)
-        self._folded = fold_variables(self.variables, cfg, uint8_input=False)
+        self.variables = variables
         # One decode thread and one copy stream for the classifier's life: a
         # thread's first CUDA call costs milliseconds, which a thread per
         # call would add to every request.
@@ -145,14 +145,33 @@ class RoomNetClassifier:
         """Stop the decode thread; later predictions raise."""
         self._decoder.shutdown(wait=True)
 
-    def _predict(self, x_uint8_bgr: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """One device batch: (ids, probs) tensors on the device."""
+    @property
+    def variables(self):
+        """The serving weights. Assigning a tree moves it to the device and
+        folds it (`fold_variables`) before it is published: the tree and its
+        fold are one attribute, so a call that reads them never sees one
+        without the other."""
+        return self._weights[0]
+
+    @variables.setter
+    def variables(self, variables):
+        tree = _to_device(variables, self.device)
+        self._weights = (tree, fold_variables(tree, self.cfg, uint8_input=False))
+
+    def _predict(self, variables, x_uint8_bgr: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One device batch: (ids, probs) tensors on the device, from a uint8
+        BGR device tensor. `variables` is `self.variables` (its published
+        fold serves the call) or another tree, folded for this call alone
+        (the serving daemon's reload probe)."""
+        published, folded = self._weights
+        if variables is not published:
+            folded = fold_variables(_to_device(variables, self.device), self.cfg, uint8_input=False)
         if self.device_resize_side is not None:
             side = self.cfg.im_side
             xr = resize_bilinear_half_pixel(x_uint8_bgr.float(), (side, side))
             # Back to uint8, as cv2's resize would give (to one level).
             x_uint8_bgr = xr.round().clamp(0, 255).to(torch.uint8)
-        _, probs = forward_folded(self._folded, normalize_bgr_uint8(x_uint8_bgr), self.cfg)
+        _, probs = forward_folded(folded, normalize_bgr_uint8(x_uint8_bgr), self.cfg)
         return probs.argmax(dim=-1), probs
 
     # -- host preprocess ----------------------------------------------------
@@ -267,7 +286,16 @@ class RoomNetClassifier:
         copy too), which also bounds the device work in flight to RING
         batches. The device batch, allocated on the copy stream, is marked
         in use by the compute stream (`record_stream`), so the allocator
-        cannot hand it to a later copy before the forward has read it."""
+        cannot hand it to a later copy before the forward has read it.
+
+        Spans (utils/profiling.SPANS, the JAX package's e2e/* names): per
+        batch e2e/decode (fill), e2e/wait_decode (the main loop's wait for
+        the decode stage), e2e/dispatch (the forward and the result copies
+        enqueued); on a CUDA device also e2e/device_put (the copy enqueued)
+        and e2e/wait_put (the compute stream made to wait for it); per call
+        e2e/fetch (the one synchronize and the results' assembly). None of
+        them adds a synchronize: on a CUDA device the per-batch spans time
+        the host's enqueue, not the device's work."""
         bs = self.batch_size
         ids = np.full(n, -1, np.int64)
         confs = np.zeros((n, len(self.class_labels)), np.float32)
@@ -305,10 +333,11 @@ class RoomNetClassifier:
                 slot = b % len(ring)
                 if released[slot] is not None:
                     released[slot].synchronize()
-                kept = np.asarray(fill(b * bs, min(b * bs + bs, n), ring[slot].numpy()), np.int64)
+                with trace("e2e/decode"):
+                    kept = np.asarray(fill(b * bs, min(b * bs + bs, n), ring[slot].numpy()), np.int64)
                 if kept.size == 0 or not cuda:
                     return kept, ring[slot][: kept.size], None
-                with torch.cuda.stream(copy_stream):
+                with trace("e2e/device_put"), torch.cuda.stream(copy_stream):
                     x_dev = ring[slot][: kept.size].to(self.device, non_blocking=True)
                     copied = torch.cuda.Event()
                     copied.record(copy_stream)
@@ -324,17 +353,21 @@ class RoomNetClassifier:
         # request pays no hand-off to the decode thread.
         pending = deque(self._decoder.submit(stage_decode, b) for b in range(n_batches)
                         if n_batches > 1)
+        variables = self.variables  # one set of weights for the whole call
         try:
             for b in range(n_batches):
-                kept, x, event = pending.popleft().result() if pending else stage_decode(b)
+                with trace("e2e/wait_decode"):
+                    kept, x, event = pending.popleft().result() if pending else stage_decode(b)
                 if kept.size:
                     if event is not None:
-                        compute.wait_event(event)
-                        x.record_stream(compute)
-                    bid, bprobs = self._predict(x)
-                    rows = slice(b * bs, b * bs + kept.size)
-                    res_ids[rows].copy_(bid, non_blocking=True)
-                    res_probs[rows].copy_(bprobs, non_blocking=True)
+                        with trace("e2e/wait_put"):
+                            compute.wait_event(event)
+                            x.record_stream(compute)
+                    with trace("e2e/dispatch"):
+                        bid, bprobs = self._predict(variables, x)
+                        rows = slice(b * bs, b * bs + kept.size)
+                        res_ids[rows].copy_(bid, non_blocking=True)
+                        res_probs[rows].copy_(bprobs, non_blocking=True)
                     done.append((b * bs + kept, rows))
                     if cuda:
                         released[b % len(ring)] = torch.cuda.Event()
@@ -344,11 +377,12 @@ class RoomNetClassifier:
             abort.set()
             wait(pending)  # the stage running now finishes; the rest return at once
             raise
-        if cuda:
-            compute.synchronize()
-        for idx, rows in done:
-            ids[idx] = res_ids[rows].numpy()
-            confs[idx] = res_probs[rows].numpy()
+        with trace("e2e/fetch"):
+            if cuda:
+                compute.synchronize()
+            for idx, rows in done:
+                ids[idx] = res_ids[rows].numpy()
+                confs[idx] = res_probs[rows].numpy()
         return ids, confs, ids >= 0
 
 
@@ -479,3 +513,62 @@ def groundtruth_validation(classifier: RoomNetClassifier, list_fpath: str) -> di
     entry = make_stats_entry(0, y_t, y_p)
     del entry["step"]
     return entry
+
+
+def evaluate_checkpoints(
+    model_dir: str,
+    list_fpath: str,
+    cfg=DEFAULT_CONFIG,
+    *,
+    batch_size: int = 64,
+    class_labels: list[str] | None = None,
+    backend: str = "auto",
+    device=None,
+) -> dict:
+    """Re-score every checkpoint in a training dir against one labeled list
+    (port of roomnet_tpu/infer/classify.py:evaluate_checkpoints).
+
+    The reference picks its best model by the accuracy in checkpoint file
+    names (legacy_plotter.py:19-37), each measured on whatever val set was
+    live during its run; this measures all of them on one list, markers
+    ('interrupt', 'stall') included. One classifier serves the sweep: each
+    checkpoint is assigned to `clf.variables`, which refolds the weights.
+
+    backend: "auto" or "npz". The JAX package's "orbax" store is not ported
+    and raises, as does "auto" on a dir of orbax checkpoints alone.
+
+    Returns {"checkpoints": [{step, checkpoint, name_accuracy, accuracy,
+    precisions, recalls, f-scores}...], "best": <entry>}.
+    """
+    from ..params.checkpoint import open_store
+    from ..params.schema import variables_from_numpy
+
+    if backend == "orbax":
+        raise NotImplementedError("orbax checkpoints are not ported yet (ROADMAP.md §1, Scale-out)")
+    if backend not in ("auto", "npz"):
+        raise ValueError(f"unknown checkpoint backend {backend!r}")
+    store = open_store(model_dir)
+    ckpts = store.list_checkpoints()
+    if not ckpts:
+        raise FileNotFoundError(f"no checkpoints in {model_dir}")
+    dev = default_device(device)
+    clf = None
+    entries = []
+    for step, suffix, path in ckpts:
+        var_flat, _ = store.load(path, cfg=cfg)
+        variables = variables_from_numpy(var_flat, cfg, dev)
+        if clf is None:
+            clf = RoomNetClassifier(variables, cfg, batch_size=batch_size,
+                                    class_labels=class_labels, device=dev)
+        else:
+            clf.variables = variables
+        try:
+            name_acc = float(suffix)
+        except ValueError:
+            name_acc = None
+        entry = {"step": step, "checkpoint": os.path.basename(path), "name_accuracy": name_acc}
+        entry.update(groundtruth_validation(clf, list_fpath))
+        entries.append(entry)
+    clf.close()
+    best = max(entries, key=lambda e: (e["accuracy"], e["step"]))
+    return {"checkpoints": entries, "best": best}

@@ -40,7 +40,8 @@ from roomnet_tpu_torch.ops.kernels.residual import residual_bn, residual_bn_plai
 from roomnet_tpu_torch.params.schema import load_npz
 # Imported by its own name (pytest puts tests/ on sys.path): on a machine with
 # another `tests` package installed, `tests.torch_port_util` would not resolve.
-from torch_port_util import cuda_device, outputs, random_bn, torch_tree, wrapper_cases  # noqa: F401
+from torch_port_util import (cuda_device, img_bytes, outputs, post, random_bn,  # noqa: F401
+                             tiny_classifier, torch_tree, wrapper_cases)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 BF16_ULP = 2.0 ** -7
@@ -94,6 +95,26 @@ def test_cuda_forward_golden_through_the_kernels(cuda_device, cfg_name):
     np.testing.assert_array_equal(logits.argmax(-1), g["argmax"])
     limit = 1e-4 if cfg_name == "roomnet-224" else 0.15
     assert np.abs(logits - g["logits"]).max() <= limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [1, 3], ids=["relu6_pool_bn", "dense_head"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_relu6_keeps_nan_as_the_plain_versions_do(cuda_device, case, dtype):
+    """NaN in the input stays NaN through relu6, as in the plain versions
+    and JAX's jnp.clip (fminf/fmaxf alone turn it into 0): the serving
+    daemon's reload probe rejects a NaN tree only if it does."""
+    kern, plain, args, kwargs = wrapper_cases(cuda_device, dtype)[case]
+    x = args[0].clone()
+    x.view(-1)[:: 7] = float("nan")
+    args = (x, *args[1:])
+    got, want = outputs(kern(*args, **kwargs)), outputs(plain(*args, **kwargs))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.isnan(b).any()
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        keep = ~torch.isnan(b)
+        torch.testing.assert_close(a[keep].float(), b[keep].float(), rtol=BF16_ULP, atol=BF16_ULP * 8)
 
 
 # The new designs' edges: tiles cut by H and W, batch 1 and 3, bias on and off.
@@ -294,7 +315,7 @@ def _one_batch_at_a_time(clf, x):
     synchronously: the reference for the pipeline."""
     ids, probs = [], []
     for i in range(0, len(x), clf.batch_size):
-        bid, bprobs = clf._predict(torch.from_numpy(x[i: i + clf.batch_size]).to(clf.device))
+        bid, bprobs = clf._predict(clf.variables, torch.from_numpy(x[i: i + clf.batch_size]).to(clf.device))
         ids.append(bid.cpu().numpy())
         probs.append(bprobs.cpu().numpy())
     return np.concatenate(ids), np.concatenate(probs)
@@ -353,9 +374,9 @@ def test_cuda_slow_forward_reads_its_own_batch(cuda_device, classifiers, monkeyp
     want_ids, want_probs = _one_batch_at_a_time(clf, x)
     real = clf._predict
 
-    def slow(xb):
+    def slow(variables, xb):
         torch.cuda._sleep(50_000_000)  # tens of ms of device time, before xb is read
-        return real(xb)
+        return real(variables, xb)
 
     monkeypatch.setattr(clf, "_predict", slow)
     ids, probs = clf.predict(x)
@@ -497,3 +518,157 @@ def test_cuda_train_step_launches_and_updates(cuda_device, cfg_name):
         assert all(not torch.equal(v, state.train_vars[p]) for p, v in new.train_vars.items())
     for k, v in schema.flatten_tensors(variables).items():
         assert torch.equal(v, before[k]), k
+
+
+# -- the serving daemon on the card --------------------------------------------
+
+def _decoded(clf, bodies):
+    import cv2
+
+    return np.stack([clf.prep_decoded(cv2.imdecode(np.frombuffer(b, np.uint8), cv2.IMREAD_COLOR))
+                     for b in bodies])
+
+
+def _assert_results(results, ids, probs):
+    for r, i, p in zip(results, ids, probs):
+        assert r["class_id"] == int(i), (r, i)
+        np.testing.assert_allclose(r["probs"], p, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_server_buckets_match_the_batch_forward(cuda_device):
+    """/classify and /classify_batch of 1-4 images (buckets 1, 2, 4) answer
+    as `predict` of the same decoded batch, with each device call launching
+    each kernel as often as one forward does; e2e spans of predict on the
+    card include the copy to the device."""
+    import base64
+    import json
+
+    from roomnet_tpu_torch.infer.server import ClassifierServer
+    from roomnet_tpu_torch.utils.profiling import SPANS
+
+    clf = tiny_classifier(0, batch_size=4, device=cuda_device)
+    bodies = [img_bytes(seed) for seed in range(4)]
+    ids, probs = clf.predict(_decoded(clf, bodies))
+    SPANS.reset()
+    clf.predict(_decoded(clf, bodies * 3))
+    assert SPANS.summary()["e2e/device_put"]["count"] == 3 and SPANS.summary()["e2e/wait_put"]["count"] == 3
+    srv = ClassifierServer(clf, port=0, warmup=True).start()
+    kernels = (conv3x3, relu6_pool_bn, residual_bn, dense_head)
+    try:
+        for k in kernels:
+            k.launches = 0
+        calls0 = SPANS.summary().get("serve/device_call", {}).get("count", 0)
+        for n in (1, 2, 3, 4):
+            status, out = post(srv, "/classify_batch",
+                               json.dumps({"images": [base64.b64encode(b).decode() for b in bodies[:n]]}).encode())
+            assert status == 200
+            _assert_results(out["results"], ids[:n], probs[:n])
+        for i, b in enumerate(bodies):
+            status, out = post(srv, "/classify", b)
+            assert status == 200
+            _assert_results([out], ids[i:i + 1], probs[i:i + 1])
+        calls = SPANS.summary()["serve/device_call"]["count"] - calls0
+        assert calls == 8
+        assert [k.launches for k in kernels] == [3 * calls, 3 * calls, calls, calls]
+    finally:
+        srv.stop()
+
+
+@pytest.mark.cuda
+def test_cuda_server_reload_under_live_traffic(cuda_device, tmp_path):
+    """/reload racing 32 requests on the card: every request answers 200,
+    and afterwards every answer is the new weights' (`predict` on them)."""
+    import threading
+
+    from roomnet_tpu_torch.infer.server import ClassifierServer
+    from roomnet_tpu_torch.params.checkpoint import CheckpointStore
+
+    clf = tiny_classifier(1, batch_size=4, device=cuda_device)
+    new = tiny_classifier(2, batch_size=4, device=cuda_device)
+    mdir = str(tmp_path / "models")
+    CheckpointStore(mdir).save(new.variables, 3)
+    bodies = [img_bytes(seed) for seed in range(4)]
+    want_ids, want_probs = new.predict(_decoded(new, bodies))
+    srv = ClassifierServer(clf, port=0, max_inflight=64, model_dir=mdir, warmup=True).start()
+    try:
+        statuses = []
+        lock = threading.Lock()
+
+        def hit(i):
+            s, _ = post(srv, "/classify", bodies[i % 4])
+            with lock:
+                statuses.append(s)
+
+        threads = [threading.Thread(target=hit, args=(i,)) for i in range(32)]
+        for t in threads:
+            t.start()
+        st, out = post(srv, "/reload", b"")
+        assert st == 200 and out["step"] == 3
+        for t in threads:
+            t.join(timeout=60)
+        assert len(statuses) == 32 and all(s == 200 for s in statuses), statuses
+        for i, b in enumerate(bodies):
+            st, out = post(srv, "/classify", b)
+            _assert_results([out], want_ids[i:i + 1], want_probs[i:i + 1])
+    finally:
+        srv.stop()
+
+
+@pytest.mark.cuda
+def test_cuda_server_slow_forward_reads_its_own_staged_batch(cuda_device):
+    """A /classify_batch of 12 images at batch 4 is one round of three
+    bucket-4 chunks. Each forward first sleeps on the device, so chunk k's
+    copy waits behind chunk k-1's sleep while the worker stages chunk k+1:
+    a staging buffer kept and rewritten would hand chunk k chunk k+1's
+    pixels. A fresh pinned tensor per chunk (the caching host allocator
+    reuses a block only after its copy) keeps every row its own."""
+    import base64
+    import json
+
+    from roomnet_tpu_torch.infer.server import ClassifierServer
+
+    clf = tiny_classifier(3, batch_size=4, device=cuda_device)
+    bodies = [img_bytes(seed) for seed in range(12)]
+    ids, probs = clf.predict(_decoded(clf, bodies))
+    real = clf._predict
+
+    def slow(variables, xb):
+        torch.cuda._sleep(50_000_000)  # tens of ms of device time, before xb is read
+        return real(variables, xb)
+
+    srv = ClassifierServer(clf, port=0, max_inflight=64, warmup=True).start()
+    clf._predict = slow
+    try:
+        for _ in range(3):
+            status, out = post(srv, "/classify_batch",
+                               json.dumps({"images": [base64.b64encode(b).decode() for b in bodies]}).encode())
+            assert status == 200
+            _assert_results(out["results"], ids, probs)
+    finally:
+        srv.stop()
+
+
+@pytest.mark.cuda
+def test_cuda_swaps_keep_the_packed_weight_cache_flat(cuda_device):
+    """20 assignments of `clf.variables` (a new tree each time, as a reload
+    loads one), each followed by a forward through the kernels: the conv's
+    packed-weight cache holds what one did."""
+    import dataclasses
+    import gc
+
+    from roomnet_tpu_torch.models.roomnet import init_variables
+    from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
+
+    for dtype in (torch.float32, torch.bfloat16):
+        clf = tiny_classifier(4, batch_size=4, device=cuda_device)
+        clf.cfg = dataclasses.replace(clf.cfg, compute_dtype=dtype)
+        x = torch.zeros((4, 32, 32, 3), dtype=torch.uint8, device=cuda_device)
+        sizes = []
+        for i in range(20):
+            clf.variables = init_variables(torch.Generator(cuda_device).manual_seed(5 + i % 2), clf.cfg)
+            clf._predict(clf.variables, x)
+            torch.cuda.synchronize()
+            gc.collect()
+            sizes.append(len(KC._packed))
+        assert sizes == [sizes[0]] * 20, (dtype, sizes)

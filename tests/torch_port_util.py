@@ -69,3 +69,54 @@ def wrapper_cases(device, dtype=torch.float32):
 def outputs(y):
     """A kernel's result as a tuple of tensors."""
     return (y,) if isinstance(y, torch.Tensor) else tuple(y)
+
+
+# -- the serving daemon --------------------------------------------------------
+
+LABELS4 = ["A", "B", "C", "D"]
+
+
+def tiny_classifier(seed: int = 0, batch_size: int = 4, device="cpu", **kw):
+    """A port classifier at tests/tiny.py's geometry (chip_smoke.tiny_config),
+    weights from the port's `init_variables` with `seed`, labels LABELS4."""
+    from chip_smoke import tiny_config
+    from roomnet_tpu_torch.infer.classify import RoomNetClassifier
+    from roomnet_tpu_torch.models.roomnet import init_variables
+
+    cfg = tiny_config()
+    variables = init_variables(torch.Generator(device).manual_seed(seed), cfg)
+    return RoomNetClassifier(variables, cfg, batch_size=batch_size, class_labels=LABELS4,
+                             device=device, **kw)
+
+
+def img_bytes(seed: int = 0, shape=(60, 80, 3)) -> bytes:
+    """PNG bytes of a random BGR image (chip_smoke.png_bytes: zlib only)."""
+    from chip_smoke import png_bytes
+
+    return png_bytes(np.random.RandomState(seed).randint(0, 255, shape, np.uint8))
+
+
+def url(server, path: str) -> str:
+    return f"http://127.0.0.1:{server.port}{path}"
+
+
+def post(server, path: str, body: bytes, headers: dict | None = None):
+    """(status, parsed JSON body) of one POST; HTTP errors are answers too."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url(server, path), data=body, method="POST", headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def get_json(server, path: str):
+    import json
+    import urllib.request
+
+    with urllib.request.urlopen(url(server, path), timeout=10) as r:
+        return json.loads(r.read())
