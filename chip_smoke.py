@@ -107,14 +107,43 @@ kernels, in phases; any failure raises and the script exits non-zero:
      the window's wall time); batch-1 `predict` p50 with predict_stream's
      e2e spans and with them off, in turns.
 
-Then the JSON line of serving, directory, training and server numbers, the
-script's wall time, one JSON line of per-kernel results and, last, the
-device line.
+  9. The training loop (train/loop.py), the main path of a user who trains
+     on their own photos: (a) tools/make_synth_dataset.generate writes 600
+     JPEGs of 250x330 (100 a class), extract_fpaths splits them 540 / 60;
+     (b) f32, batch 45, inference BN, no dropout, save_freq 5, from the
+     converted weights saved at step 0 by the port's CheckpointStore:
+     `Trainer.train(total_steps=6)` against six hand-driven calls of
+     make_train_step on the same restored state and the batches of a fresh
+     TrainFeeder, both with cuDNN's deterministic algorithms (params, BN
+     stats and Adam state within rtol = atol = LOOP_TOL, losses within
+     LOOP_TOL), one stats entry at step 5 in the
+     reference schema, its acc-named checkpoint, and launches 70/70/21/7
+     over the run (6 step forwards, 1 validation forward); (c) bf16, batch
+     45, frozen BN, no dropout, a fresh head on the converted tower
+     (restore_head=False), LOOP_LR: 301 steps with save_freq 100 give three
+     validations and acc-named checkpoints (steps 100, 200, 300), the
+     step-300 accuracy at least LOOP_ACC_GATE (chance 1/6), then a new
+     Trainer resumes step 300 and ends at 310; (d) `python -m
+     roomnet_tpu_torch train --steps 21 --save-freq 10` as a subprocess from
+     a directory of its own: exit 0, checkpoints and stats at steps 10 and
+     20; (e) times from (c), nothing claimed: Trainer img/s between
+     validations (host clock) beside phase 7's bare step, the train feeder's
+     dequeue wait p50 and p99, H2D of a batch-45 (CUDA events), the
+     device's busy share over steps 50-69 (torch.profiler), and the two
+     orders of the loss read (`read_orders`: the step's own loss read once
+     the next batch is staged, or the previous step's, timed in turns on one
+     feeder with a full queue). The kernels line's trainer_launches are (b)'s
+     counts for f32 and (c)'s for bf16.
+
+Then the JSON line of serving, directory, training, server and trainer
+numbers, the script's wall time, one JSON line of per-kernel results and,
+last, the device line.
 f32 parity needs TF32 off; the script turns it off for everything it runs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import ctypes
 import json
@@ -629,12 +658,16 @@ def main() -> None:
     server = phase8(variables, cfgs, gw, wide_logits, x256_u8, counts, zero_counts, per_forward, dev, smi)
     serve_launches = server.pop("launches")
 
+    # -- phase 9: the training loop -------------------------------------------
+    trainer = phase9(variables, cfgs, counts, zero_counts, per_forward, training["times"], dev, smi)
+    trainer_launches = trainer.pop("launches")
+
     for dt in cfgs:
         log(f"max |d| against plain [{dt}]: " + ", ".join(
             f"{n} {max_err[(n, dt, 8)]:.3g} (batch 8) {max_err[(n, dt, 256)]:.3g} (batch 256)"
             for n in kernels))
     log(json.dumps({"card": smi, "serving": serving, "directory": directory, "training": training,
-                    "server": server}))
+                    "server": server, "trainer": trainer}))
     log(f"wall: {time.perf_counter() - wall0:.1f} s from start to the result lines")
     rows = []
     for dt in cfgs:
@@ -652,6 +685,7 @@ def main() -> None:
                 "train_forward_max_abs_err": grad_checks[(name, dt)][0],
                 "train_grad_tolerance_share": grad_checks[(name, dt)][1],
                 "serve_launches": serve_launches[dt][name],
+                "trainer_launches": trainer_launches[dt][name],
             })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1160,6 +1194,410 @@ def profile_steps(run, steps: int, top: int = 12) -> tuple[float, dict]:
     per_step = {e.key[:60]: e.self_device_time_total / 1e3 / steps for e in kernels[:top]}
     return device_us / 1e3 / start.elapsed_time(end), per_step
 
+
+
+# -- the training loop (phase 9) and its tests' references ----------------------
+
+
+LOOP_LR = 1e-3  # (c)'s learning rate, picked on the card (PERF.md §6)
+LOOP_STEPS, LOOP_SAVE, LOOP_RESUME = 301, 100, 10
+LOOP_ACC_GATE = 0.35  # step-300 validation accuracy; chance is 1/6
+LOOP_TOL = 1e-5  # (b): Trainer against hand-driven steps, rtol = atol
+PROFILE_WINDOW = (50, 70)  # (c)'s step calls under torch.profiler, before the timed segments
+
+
+class LoopProbe:
+    """Times a Trainer's run from outside it: the host clock at each call of
+    its step function, the span of each validation, the train feeder's
+    dequeue waits, and a torch.profiler window over the step calls
+    [PROFILE_WINDOW[0], PROFILE_WINDOW[1]) with CUDA events around it."""
+
+    def __init__(self, trainer):
+        from roomnet_tpu_torch.data import loader
+
+        self.calls, self.validations, self.waits = [], [], []
+        self.busy = self.top = None
+        self._loader = loader
+        real_step, real_val = trainer._step_fn, trainer.run_validation
+
+        def step_fn(ph, **kw):
+            fn = real_step(ph, **kw)
+
+            def run(*args):
+                i = len(self.calls)
+                if i == PROFILE_WINDOW[0]:
+                    self._start()
+                elif i == PROFILE_WINDOW[1]:
+                    self._stop()
+                self.calls.append(time.perf_counter())
+                return fn(*args)
+            return run
+
+        def validation(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = real_val(*args, **kwargs)
+            self.validations.append((t0, time.perf_counter()))
+            return out
+
+        trainer._step_fn, trainer.run_validation = step_fn, validation
+
+    def _start(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        # Device activity alone: with the host's ops recorded too, the window
+        # and key_averages() took about 18 s of phase 9 on an H100 host.
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        self.ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        self.ev[0].record()
+
+    def _stop(self):
+        self.ev[1].record()
+        self.ev[1].synchronize()
+        self.prof.__exit__(None, None, None)
+        kernels = [e for e in self.prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in kernels)
+        if device_us == 0:
+            raise AssertionError("torch.profiler recorded no device time in the training loop")
+        kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        steps = PROFILE_WINDOW[1] - PROFILE_WINDOW[0]
+        self.busy = device_us / 1e3 / self.ev[0].elapsed_time(self.ev[1])
+        self.top = {e.key[:60]: e.self_device_time_total / 1e3 / steps for e in kernels[:8]}
+
+    def __enter__(self):
+        real, waits = self._loader.TrainFeeder.dequeue, self.waits
+
+        def dequeue(feeder):
+            t0 = time.perf_counter()
+            out = real(feeder)
+            if feeder.shuffle:  # the train feeder; the val feeder reads in order
+                waits.append(time.perf_counter() - t0)
+            return out
+
+        self._real = real
+        self._loader.TrainFeeder.dequeue = dequeue
+        return self
+
+    def __exit__(self, *exc):
+        self._loader.TrainFeeder.dequeue = self._real
+
+
+def phase9(variables, cfgs, counts, zero_counts, per_forward, step_times, dev, smi) -> dict:
+    """The training loop (docstring phase 9). Returns its numbers, and under
+    "launches" each dtype's counts over its Trainer run ((b) f32, (c) bf16)."""
+    import dataclasses
+    import io
+
+    from roomnet_tpu_torch.data.dataset import extract_fpaths
+    from roomnet_tpu_torch.data.loader import to_device_async
+    from roomnet_tpu_torch.params.checkpoint import CheckpointStore
+    from roomnet_tpu_torch.train.loop import Phase, TrainConfig, Trainer
+    from tools.make_synth_dataset import generate
+
+    t_phase = time.perf_counter()
+    schema_keys = {"step", "accuracy", "precisions", "recalls", "f-scores"}
+    result = {"card": smi, "launches": {}}
+
+    def want(forwards: int) -> dict:
+        return {n: c * forwards for n, c in per_forward.items()}
+
+    def checkpoints(tc) -> list:
+        return [(s, sfx) for s, sfx, _ in CheckpointStore(tc.model_dir).list_checkpoints()]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as root:
+        # (a) the data: 600 JPEGs of 250x330, split 540 / 60.
+        data = os.path.join(root, "data")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            generate(data, per_class=100, seed=0)
+        t1 = time.perf_counter()
+        lists = {"train_list_fpath": os.path.join(root, "train_list.txt"),
+                 "val_list_fpath": os.path.join(root, "val_list.txt"),
+                 "label_mappings_fpath": os.path.join(root, "label_mappings.json")}
+        train_txt, val_txt = extract_fpaths(data, *lists.values(), seed=0)
+        if (len(train_txt), len(val_txt)) != (540, 60):
+            raise AssertionError(f"extract_fpaths split {len(train_txt)} / {len(val_txt)}, not 540 / 60")
+        result["data"] = {"generate_s": t1 - t0, "extract_fpaths_s": time.perf_counter() - t1}
+        log(f"loop data: 600 JPEGs 250x330 (make_synth_dataset, {t1 - t0:.2f} s), extract_fpaths 540 / 60 "
+            f"({time.perf_counter() - t1:.2f} s)")
+
+        def config(name: str, **kw) -> TrainConfig:
+            tc = TrainConfig(data_dir=data, stats_fpath=os.path.join(root, f"stats_{name}.json"),
+                             model_dir=os.path.join(root, f"models_{name}"),
+                             phases=(Phase(until_step=1 << 62, batch_size=45),), **lists, **kw)
+            CheckpointStore(tc.model_dir).save(variables, 0)  # the converted weights at step 0
+            return tc
+
+        # (b) the loop adds nothing to the math: f32, inference BN, no dropout.
+        tc = config("b", save_freq=5)
+        tr = Trainer(tc, cfgs["f32"])
+        with deterministic():
+            states, want_losses = hand_driven(tr, 6)
+            losses = record_losses(tr)
+            zero_counts()
+            with contextlib.redirect_stdout(io.StringIO()):
+                state = tr.train(total_steps=6)
+        got = counts()
+        if got != want(7):
+            raise AssertionError(f"loop (b): launches {got} != {want(7)} (6 step forwards, 1 validation forward)")
+        result["launches"]["f32"] = got
+        gap = state_gap(state_tensors(state), state_tensors(states[-1]), LOOP_TOL)
+        d_loss = max(abs(float(a) - b) for a, b in zip(losses, want_losses))
+        if not d_loss <= LOOP_TOL:
+            raise AssertionError(f"loop (b): losses {d_loss:.3g} from the hand-driven steps")
+        with open(tc.stats_fpath) as f:
+            stats = json.load(f)
+        if [e["step"] for e in stats] != [5] or set(stats[0]) != schema_keys:
+            raise AssertionError(f"loop (b): stats {stats}")
+        if checkpoints(tc) != [(0, "none"), (5, str(stats[0]["accuracy"]))]:
+            raise AssertionError(f"loop (b): checkpoints {checkpoints(tc)}")
+        result["hand_driven"] = {"max_abs_d_state": gap, "max_abs_d_loss": d_loss, "launches": got,
+                                 "step5_accuracy": stats[0]["accuracy"]}
+        log(f"loop (b) f32 batch 45, 6 steps, save_freq 5: Trainer vs hand-driven make_train_step max |d| "
+            f"{gap:.3g} (params, BN stats, Adam; gate {LOOP_TOL}), losses {d_loss:.3g}; stats entry at step 5 "
+            f"(accuracy {stats[0]['accuracy']}), checkpoint roomnet--{stats[0]['accuracy']}--5.npz; launches {got}")
+        del tr, states, state
+
+        # (c) the loop learns: bf16, frozen BN, a fresh head on the converted tower.
+        tc = config("c", save_freq=LOOP_SAVE, learn_rate=LOOP_LR, restore_head=False)
+        tr = Trainer(tc, cfgs["bf16"])
+        zero_counts()
+        with LoopProbe(tr) as probe, contextlib.redirect_stdout(io.StringIO()):
+            state = tr.train(total_steps=LOOP_STEPS)
+        got = counts()
+        n_val = LOOP_STEPS // LOOP_SAVE
+        if got != want(LOOP_STEPS + n_val):
+            raise AssertionError(f"loop (c): launches {got} != {want(LOOP_STEPS + n_val)}")
+        result["launches"]["bf16"] = got
+        with open(tc.stats_fpath) as f:
+            stats = json.load(f)
+        curve = {e["step"]: e["accuracy"] for e in stats}
+        steps = [LOOP_SAVE * (i + 1) for i in range(n_val)]
+        if list(curve) != steps or any(set(e) != schema_keys for e in stats):
+            raise AssertionError(f"loop (c): stats {stats}")
+        if checkpoints(tc) != [(0, "none")] + [(s, str(curve[s])) for s in steps]:
+            raise AssertionError(f"loop (c): checkpoints {checkpoints(tc)}")
+        if int(state.step) != LOOP_STEPS:
+            raise AssertionError(f"loop (c): ended at step {int(state.step)}")
+        log(f"loop (c) bf16 batch 45, frozen BN, fresh head on the converted tower, lr {LOOP_LR:g}: "
+            f"validation accuracy " + ", ".join(f"step {s} {a:.4f}" for s, a in curve.items())
+            + f" (gate {LOOP_ACC_GATE} at step {steps[-1]}); launches {got}")
+        if not curve[steps[-1]] >= LOOP_ACC_GATE:
+            raise AssertionError(f"loop (c): step-{steps[-1]} accuracy {curve[steps[-1]]} < {LOOP_ACC_GATE}")
+        tr_r = Trainer(dataclasses.replace(tc, restore_head=True), cfgs["bf16"])
+        zero_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            state_r = tr_r.train(total_steps=LOOP_RESUME)
+        if f"Model restored at step {steps[-1]}" not in out.getvalue() or int(state_r.step) != steps[-1] + LOOP_RESUME:
+            raise AssertionError(f"loop (c) resume: ended at step {int(state_r.step)}\n{out.getvalue()[:300]}")
+        if counts() != want(LOOP_RESUME) or len(checkpoints(tc)) != n_val + 1:
+            raise AssertionError(f"loop (c) resume: launches {counts()}, checkpoints {checkpoints(tc)}")
+        log(f"loop (c) resume: a new Trainer restored step {steps[-1]} and ended at step {int(state_r.step)}")
+        result["learning"] = {"learn_rate": LOOP_LR, "accuracy": curve, "launches": got,
+                              "resumed_to": int(state_r.step)}
+        orders = read_orders(tr_r, state_r)
+        del tr, tr_r, state, state_r
+
+        # (d) the CLI, as a user runs it, from a directory of its own.
+        cli_dir = os.path.join(root, "cli")
+        os.makedirs(cli_dir)
+        repo = str(pathlib.Path(__file__).resolve().parent)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "roomnet_tpu_torch", "train", "--data-dir", data, "--steps",
+                               "21", "--save-freq", "10", "--model-dir", "m"], cwd=cli_dir, env=env,
+                              capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m roomnet_tpu_torch train: exit {proc.returncode}\n{proc.stderr[-2000:]}")
+        cli_ckpts = [s for s, _, _ in CheckpointStore(os.path.join(cli_dir, "m")).list_checkpoints()]
+        with open(os.path.join(cli_dir, "all_train_stats.json")) as f:
+            cli_stats = [e["step"] for e in json.load(f)]
+        if cli_ckpts != [10, 20] or cli_stats != [10, 20]:
+            raise AssertionError(f"python -m roomnet_tpu_torch train: checkpoints {cli_ckpts}, stats {cli_stats}")
+        result["cli"] = {"wall_s": cli_s, "checkpoints": cli_ckpts}
+        log(f"loop (d) python -m roomnet_tpu_torch train --steps 21 --save-freq 10: exit 0, checkpoints at steps "
+            f"{cli_ckpts}, 2 stats entries ({cli_s:.1f} s with the interpreter's start)")
+
+    # (e) times from (c), nothing claimed.
+    segments = [LOOP_SAVE * 45 / (b[0] - a[1]) for a, b in zip(probe.validations, probe.validations[1:])]
+    waits = np.array(probe.waits[10:]) * 1e3
+    step_ms = np.diff(np.array(probe.calls[LOOP_SAVE:])) * 1e3
+    x45 = np.random.RandomState(45).randint(0, 256, size=(45, 224, 224, 3), dtype=np.uint8)
+    y45 = np.arange(45, dtype=np.int32) % 6
+    pinned = torch.from_numpy(x45).pin_memory()
+    xd = torch.empty(pinned.shape, dtype=torch.uint8, device=dev)
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        h2d_ms = cuda_ms(lambda: xd.copy_(pinned, non_blocking=True))
+    stage_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        to_device_async((x45, y45), dev, side)
+        stage_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    bare = next(r for r in step_times if (r["dtype"], r["batch"]) == ("bf16", 45))
+    times = {"img_per_s_between_validations": segments, "bare_step_img_per_s": bare["img_per_s"],
+             "bare_step_ms": bare["ms_per_step"], "host_ms_per_step_p50": float(np.median(step_ms)),
+             "dequeue_wait_ms_p50": float(np.percentile(waits, 50)),
+             "dequeue_wait_ms_p99": float(np.percentile(waits, 99)), "h2d_ms_batch45": h2d_ms,
+             "stage_host_ms_batch45_p50": float(np.median(stage_ms)),
+             "validation_s": [b - a for a, b in probe.validations], "profiled_device_busy_share": probe.busy,
+             "profiled_steps": list(PROFILE_WINDOW), "profiled_top_ms_per_step": probe.top,
+             "read_orders_ms_per_step": orders, "card": smi}
+    result["times"] = times
+    log(f"loop times [bf16, batch 45, {smi}]: Trainer " + " / ".join(f"{v:.1f}" for v in segments)
+        + f" img/s between validations (host clock), bare step (phase 7) {bare['img_per_s']:.1f} img/s "
+        f"({bare['ms_per_step']:.3f} ms); host ms per step p50 {times['host_ms_per_step_p50']:.3f}; dequeue wait "
+        f"p50 {times['dequeue_wait_ms_p50']:.3f} ms, p99 {times['dequeue_wait_ms_p99']:.3f} ms; H2D {h2d_ms:.3f} ms "
+        f"per batch (CUDA events), staging on the host {times['stage_host_ms_batch45_p50']:.3f} ms; validation "
+        + ", ".join(f"{v:.2f}" for v in times["validation_s"]) + f" s; device busy {probe.busy:.3f} of steps "
+        f"{PROFILE_WINDOW[0]}-{PROFILE_WINDOW[1]} (torch.profiler); device ms per step by kernel: "
+        + "; ".join(f"{n} {v:.3f}" for n, v in probe.top.items()))
+    log(f"loop read orders [bf16, batch 45, {smi}], ms per step over {READ_ORDER_STEPS} steps from a full queue "
+        f"(host clock to a final synchronize), windows in the order {' '.join(READ_ORDERS)}: " + "; ".join(
+            f"{o} " + " / ".join(f"{v:.3f}" for v in ms) for o, ms in orders.items()))
+    result["wall_s"] = time.perf_counter() - t_phase
+    log(f"loop: phase 9 took {result['wall_s']:.1f} s")
+    return result
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms inside the block. Its default wgrad
+    algorithms may sum in another order from call to call: without this, the
+    first chip runs of phase 9 (b) found the Trainer and the hand-driven
+    steps, on the same batches, 1.36e-4 and 2.36e-5 apart in the Adam moment
+    of conv 0 (whose gradient sums 2.2 million products per weight at batch
+    45), with the params within LOOP_TOL."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+READ_ORDERS = ("now", "lagged", "lagged", "now")  # windows in turns, each order first and last once
+READ_ORDER_STEPS = 15
+
+
+def read_orders(trainer, state) -> dict:
+    """The Trainer's step (its first phase, from `state`) in a loop like the
+    Trainer's: stage a batch from a TrainFeeder over its train list on its
+    copy stream (`to_device_async`), issue the step on it (`on_stream`),
+    stage the next batch, then read a loss: the step's own ("now", the
+    Trainer's order) or the step's before it ("lagged"). Windows of
+    READ_ORDER_STEPS steps in the order READ_ORDERS, each started with the
+    feeder's queue full (bounded wait) and the device drained, so each
+    times the feeder at steady state, decoding one batch per step. Returns
+    {order: [ms per step of each window]}: host clock to a final
+    synchronize."""
+    from roomnet_tpu_torch.data.loader import TrainFeeder, on_stream, to_device_async
+
+    tc, dev = trainer.tc, trainer.device
+    ph = tc.phases[0]
+    step_fn = trainer._step_fn(ph)
+    gen = torch.Generator(dev).manual_seed(tc.seed + 1)
+    with open(tc.train_list_fpath) as f:
+        lines = f.readlines()
+    out = {o: [] for o in dict.fromkeys(READ_ORDERS)}
+    with TrainFeeder(lines, batch_size=ph.batch_size, batches_per_queue=tc.batches_per_queue, shuffle=True,
+                     im_side=tc.img_side, random_crop=True, preprocess=True, seed=tc.seed) as feeder:
+        def stage():
+            return to_device_async(feeder.dequeue(), dev, trainer._copy_stream)
+
+        for order in READ_ORDERS:
+            deadline = time.perf_counter() + 30.0
+            while not feeder._q.full() and time.perf_counter() < deadline:
+                time.sleep(0.01)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pending, prev = stage(), None
+            for _ in range(READ_ORDER_STEPS):
+                x, y = on_stream(pending)
+                state, metrics = step_fn(state, x, y, gen)
+                pending = stage()
+                if order == "now":
+                    float(metrics["loss"])
+                else:
+                    if prev is not None:
+                        float(prev)
+                    prev = metrics["loss"]
+            torch.cuda.synchronize()
+            out[order].append((time.perf_counter() - t0) * 1e3 / READ_ORDER_STEPS)
+    return out
+
+
+def hand_driven(trainer, steps: int) -> tuple[list, list]:
+    """(states, losses) after each of `steps` calls of make_train_step, from
+    `trainer.init_state()` (call it before the Trainer's run writes a
+    checkpoint) and the batches of a fresh TrainFeeder over the trainer's
+    train list and seed, with one dropout generator seeded tc.seed + 1: what
+    `trainer.train(total_steps=steps)` computes when its first phase spans
+    the run, since validation and checkpoints change no state."""
+    from roomnet_tpu_torch.data.loader import TrainFeeder
+    from roomnet_tpu_torch.train.step import make_train_step
+
+    tc, dev = trainer.tc, trainer.device
+    ph = tc.phases[0]
+    with open(tc.train_list_fpath) as f:
+        lines = f.readlines()
+    step_fn = make_train_step(trainer._hp(ph), trainer.cfg)
+    gen = torch.Generator(dev).manual_seed(tc.seed + 1)
+    state = trainer.init_state()
+    states, losses = [], []
+    with TrainFeeder(lines, batch_size=ph.batch_size, batches_per_queue=tc.batches_per_queue, shuffle=True,
+                     im_side=tc.img_side, random_crop=True, preprocess=True, seed=tc.seed) as feeder:
+        for _ in range(steps):
+            x, y = feeder.dequeue()
+            state, metrics = step_fn(state, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev), gen)
+            states.append(state)
+            losses.append(float(metrics["loss"]))
+    return states, losses
+
+
+def record_losses(trainer) -> list:
+    """Wrap `trainer._step_fn` so that each step's loss tensor is appended to
+    the list returned (read them after the run)."""
+    real, losses = trainer._step_fn, []
+
+    def step_fn(ph, **kw):
+        fn = real(ph, **kw)
+
+        def run(*args):
+            state, metrics = fn(*args)
+            losses.append(metrics["loss"])
+            return state, metrics
+        return run
+
+    trainer._step_fn = step_fn
+    return losses
+
+
+def state_tensors(state) -> dict:
+    """{name: tensor} of a TrainState: step, train vars, BN moving stats and
+    the Adam count and moments, under the checkpoint's names."""
+    from roomnet_tpu_torch.train.optimizer import flatten_opt_state
+
+    return {"meta/step": state.step, **state.train_vars, **state.frozen_vars,
+            **{f"opt/{k}": v for k, v in flatten_opt_state(state.opt_state).items()}}
+
+
+def state_gap(got: dict, want: dict, tol: float) -> float:
+    """Max |d| between two {name: array or tensor} dicts with the same keys;
+    raises where |d| > tol + tol * |want|."""
+    if set(got) != set(want):
+        raise AssertionError(f"state keys differ: {sorted(set(got) ^ set(want))[:6]}")
+    worst = 0.0
+    for k in want:
+        a = np.asarray(got[k].detach().cpu() if isinstance(got[k], torch.Tensor) else got[k], np.float64)
+        b = np.asarray(want[k].detach().cpu() if isinstance(want[k], torch.Tensor) else want[k], np.float64)
+        d = np.abs(a - b)
+        if a.shape != b.shape or (d > tol + tol * np.abs(b)).any():
+            raise AssertionError(f"{k}: max |d| {d.max() if d.size else 'shape'} beyond {tol}")
+        worst = max(worst, float(d.max()) if d.size else 0.0)
+    return worst
 
 
 # -- phase 8: the serving daemon ----------------------------------------------

@@ -1,6 +1,7 @@
 """The port's CLI (port of roomnet_tpu/cli.py): the subcommands whose
 modules the port has.
 
+    python -m roomnet_tpu_torch train      --data-dir ./data/REI-Dataset [--curriculum]
     python -m roomnet_tpu_torch infer      --images-dir ./test_images [--no-overlay]
     python -m roomnet_tpu_torch validate   --list-file val_list.txt
     python -m roomnet_tpu_torch eval-ckpts --model-dir all_trained_models/... --list-file val_list.txt
@@ -11,10 +12,13 @@ Flags and defaults are the JAX package's, with two deliberate differences:
   * --device (default: the CUDA card) picks the device; `--device cpu` runs
     the kernels' plain PyTorch versions on the CPU. With no GPU and no
     --device the commands raise.
-  * --profile-port, --data-parallel, eval-ckpts --plot and --ckpt-backend
-    orbax are left out until their modules are ported (ROADMAP.md), as are
-    the subcommands train, convert, convert-to-tf, plot, plot-checkpoints,
-    label, export and bench.
+  * --profile-port, serve's and infer's --data-parallel, eval-ckpts --plot
+    and --ckpt-backend orbax are left out until their modules are ported
+    (ROADMAP.md), as are the subcommands convert, convert-to-tf, plot,
+    plot-checkpoints, label, export and bench. `train` keeps the JAX
+    parser's dests and refuses, as it parses them, --data-parallel,
+    --ckpt-backend orbax and --feed-mode sharded (ROADMAP.md §1 item 3,
+    Scale-out).
 """
 
 from __future__ import annotations
@@ -61,6 +65,48 @@ def _device(args):
     from . import default_device
 
     return default_device(args.device)
+
+
+class _ScaleOut(argparse.Action):
+    """An option whose value (`refuse`; any use when None) needs a module
+    that waits for Scale-out: the parser errors on it."""
+
+    def __init__(self, option_strings, dest, refuse=None, **kwargs):
+        self.refuse = refuse
+        super().__init__(option_strings, dest, **kwargs)
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        if self.refuse is None or values == self.refuse:
+            what = option_string if self.refuse is None else f"{option_string} {values}"
+            parser.error(f"{what} is not ported yet (ROADMAP.md §1 item 3, Scale-out)")
+        setattr(namespace, self.dest, values)
+
+
+def cmd_train(args):
+    from .train.loop import TrainConfig, Trainer
+
+    kwargs = dict(
+        data_dir=args.data_dir,
+        train_steps=args.steps,
+        save_freq=args.save_freq,
+        keep_checkpoints=args.keep_checkpoints,
+        learn_rate=args.learn_rate,
+        l2_coeff=args.l2,
+        model_dir=args.model_dir,
+        img_side=args.img_side,
+        seed=args.seed,
+        restore_head=not args.fresh_head,
+        ckpt_backend=args.ckpt_backend,
+        steps_per_call=args.steps_per_call,
+        stall_timeout_s=args.stall_timeout,
+        stall_abort=args.stall_abort,
+        feed_mode=args.feed_mode,
+        val_use_batch_stats={"phase": None, "batch": True, "moving": False}[args.val_bn],
+    )
+    if args.curriculum:
+        kwargs["phases"] = TrainConfig.reference_curriculum(args.steps)
+    cfg = _model_cfg(args.img_side, bf16=args.precision == "bf16")
+    Trainer(TrainConfig(**kwargs), cfg, device=_device(args)).train()
 
 
 def cmd_infer(args):
@@ -225,6 +271,46 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="roomnet_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train", help="train / fine-tune (reference train.py)")
+    t.add_argument("--data-dir", default="./data/REI-Dataset")
+    t.add_argument("--steps", type=int, default=100_000,
+                   help="steps of the run, and the horizon of the learning-rate decay")
+    t.add_argument("--save-freq", type=int, default=10)
+    t.add_argument("--keep-checkpoints", type=int, default=None, metavar="N",
+                   help="opt-in retention: keep only the newest N regular checkpoints (+ the "
+                        "best-accuracy one + all interrupt/stall markers); default keep-all, the "
+                        "reference contract")
+    t.add_argument("--learn-rate", type=float, default=2e-4)
+    t.add_argument("--l2", type=float, default=6e-2)
+    t.add_argument("--model-dir", default="all_trained_models/trained_models")
+    t.add_argument("--img-side", type=int, default=224)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--steps-per-call", type=int, default=1,
+                   help="optimizer steps per call of the step function")
+    t.add_argument("--fresh-head", action="store_true",
+                   help="exclude the dense head on restore (network.py:78)")
+    t.add_argument("--curriculum", action="store_true",
+                   help="README.md:34-38 batch/dropout/BN-freeze schedule")
+    t.add_argument("--feed-mode", choices=["replicated", "sharded"], default="replicated",
+                   action=_ScaleOut, refuse="sharded", help="multi-process input mode (sharded: Scale-out)")
+    t.add_argument("--data-parallel", action=_ScaleOut, nargs=0, default=False,
+                   help="shard the batch over all local devices (Scale-out)")
+    t.add_argument("--ckpt-backend", choices=["npz", "orbax"], default="npz", action=_ScaleOut,
+                   refuse="orbax", help="checkpoint store (orbax: Scale-out)")
+    t.add_argument("--stall-timeout", type=float, default=600.0,
+                   help="watchdog: warn + emergency-checkpoint when no step completes for this many "
+                        "seconds (0 disables)")
+    t.add_argument("--stall-abort", action="store_true",
+                   help="watchdog escalation: interrupt training after the emergency checkpoint")
+    t.add_argument("--val-bn", choices=["phase", "batch", "moving"], default="phase",
+                   help="validation BN statistics: 'phase' follows the active phase's "
+                        "compute_bn_mean_var (reference nn.infer semantics), or force batch/moving stats")
+    t.add_argument("--precision", choices=["bf16", "f32"], default="bf16",
+                   help="bf16 = fast mixed-precision (default; f32 params, bf16 compute); f32 = "
+                        "full-precision parity mode")
+    _add_device(t)
+    t.set_defaults(fn=cmd_train)
 
     i = sub.add_parser("infer", help="classify a directory (reference infer.py)")
     i.add_argument("--images-dir", required=True)

@@ -49,6 +49,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY6 = dataclasses.replace(TINY, num_classes=6)
 CFG6 = dataclasses.replace(tiny_config(), num_classes=6)
 SUBCOMMANDS = {
+    "train": ["train"],
     "infer": ["infer", "--images-dir", "/x"],
     "validate": ["validate", "--list-file", "/x"],
     "eval-ckpts": ["eval-ckpts", "--model-dir", "/m", "--list-file", "/x"],
@@ -114,9 +115,10 @@ def test_cli_parses_the_ported_subcommands_only():
                  ["serve", "--port", "0", "--drain", "10", "--auto-reload", "1", "--model-dir", "/m"],
                  ["eval-ckpts", "--model-dir", "/m", "--list-file", "/x", "--ckpt-backend", "npz"]]:
         assert callable(p.parse_args(argv).fn)
-    for argv in (["train"], ["convert"], ["convert-to-tf"], ["plot"], ["plot-checkpoints"], ["label"],
+    for argv in (["convert"], ["convert-to-tf"], ["plot"], ["plot-checkpoints"], ["label"],
                  ["export"], ["bench"], ["serve", "--profile-port", "1"], ["serve", "--data-parallel"],
-                 ["eval-ckpts", "--model-dir", "/m", "--list-file", "/x", "--ckpt-backend", "orbax"]):
+                 ["eval-ckpts", "--model-dir", "/m", "--list-file", "/x", "--ckpt-backend", "orbax"],
+                 ["train", "--data-parallel"], ["train", "--ckpt-backend", "orbax"], ["train", "--feed-mode", "sharded"]):
         with pytest.raises(SystemExit):
             p.parse_args(argv)
 

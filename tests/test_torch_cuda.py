@@ -3,7 +3,9 @@ the forward through all four against the TF-graph goldens; the classifier's
 pipeline (pinned ring, copy stream, results copied back behind each forward)
 against one batch at a time, fed arrays through its decode seam; each
 kernel's autograd Function against autograd through its plain version, and
-the launches of one training step.
+the launches of one training step; the training loop against hand-driven
+steps, its staging under slow steps and slow copies, its stall checkpoint
+while steps are in flight, and `device_prefetch` under a slow consumer.
 
 Every test here is marked `cuda` and skips where no GPU is present. The file
 imports neither JAX nor roomnet_tpu, so it runs on a machine without them:
@@ -672,3 +674,181 @@ def test_cuda_swaps_keep_the_packed_weight_cache_flat(cuda_device):
             gc.collect()
             sizes.append(len(KC._packed))
         assert sizes == [sizes[0]] * 20, (dtype, sizes)
+
+
+# -- the training loop on the card ---------------------------------------------
+# tests/tiny.py's geometry (chip_smoke.tiny_config) with 2 classes, over 20
+# PNG files of 40x48 written here; one forward launches conv3x3 3 times,
+# relu6_pool_bn 3, residual_bn 1 and dense_head 1.
+
+def _loop_setup(tmp_path, **kw):
+    """(TrainConfig, cfg) of a tiny run over a fresh 2-class directory, its
+    list files written."""
+    import dataclasses
+
+    from roomnet_tpu_torch.data.dataset import extract_fpaths
+    from roomnet_tpu_torch.train.loop import Phase, TrainConfig
+
+    rng = np.random.RandomState(0)
+    for cls, base in [("Kitchen", 40), ("Bedroom", 200)]:
+        d = tmp_path / "data" / cls
+        d.mkdir(parents=True)
+        for i in range(10):
+            im = np.clip(rng.randint(base - 30, base + 60, (40, 48, 3)), 0, 255).astype(np.uint8)
+            (d / f"im_{i}.png").write_bytes(chip_smoke.png_bytes(im))
+    base = dict(data_dir=str(tmp_path / "data"), train_list_fpath=str(tmp_path / "train_list.txt"),
+                val_list_fpath=str(tmp_path / "val_list.txt"), stats_fpath=str(tmp_path / "stats.json"),
+                model_dir=str(tmp_path / "models"), img_side=32, train_steps=1000, save_freq=5, val_batch_size=2,
+                learn_rate=1e-3, l2_coeff=6e-2, stall_timeout_s=0,
+                phases=(Phase(until_step=1 << 62, batch_size=4),))
+    base.update(kw)
+    tc = TrainConfig(**base)
+    extract_fpaths(tc.data_dir, tc.train_list_fpath, tc.val_list_fpath, str(tmp_path / "labels.json"), seed=0)
+    return tc, dataclasses.replace(chip_smoke.tiny_config(), num_classes=2)
+
+
+def _feeder_batches(tc, n):
+    """The first n (x, y) of a fresh TrainFeeder over tc's list and seed."""
+    from roomnet_tpu_torch.data.loader import TrainFeeder
+
+    with open(tc.train_list_fpath) as f:
+        lines = f.readlines()
+    with TrainFeeder(lines, batch_size=tc.phases[0].batch_size, shuffle=True, im_side=tc.img_side,
+                     random_crop=True, preprocess=True, seed=tc.seed) as feeder:
+        return [feeder.dequeue() for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps_per_call", [1, 3])
+def test_cuda_trainer_matches_hand_driven_steps(cuda_device, tmp_path, steps_per_call):
+    """chip_smoke.py phase 9 (b) at tiny: Trainer.train(6) equals six
+    hand-driven steps within 1e-5 (params, BN stats, Adam state, losses);
+    the launches over the run are 6 step forwards and 1 validation forward.
+    Both run with deterministic cuDNN algorithms (chip_smoke.deterministic)."""
+    import json
+
+    from roomnet_tpu_torch.train.loop import Trainer
+
+    tc, cfg = _loop_setup(tmp_path, steps_per_call=steps_per_call)
+    tr = Trainer(tc, cfg)
+    with chip_smoke.deterministic():
+        states, want_losses = chip_smoke.hand_driven(tr, 6)
+        losses = chip_smoke.record_losses(tr)
+        kernels = (conv3x3, relu6_pool_bn, residual_bn, dense_head)
+        for k in kernels:
+            k.launches = 0
+        state = tr.train(total_steps=6, log_every=1)
+    assert [k.launches for k in kernels] == [21, 21, 7, 7]
+    assert chip_smoke.state_gap(chip_smoke.state_tensors(state), chip_smoke.state_tensors(states[-1]), 1e-5) <= 1e-5
+    if steps_per_call == 1:
+        np.testing.assert_allclose([float(v) for v in losses], want_losses, rtol=1e-5, atol=1e-5)
+    stats = json.load(open(tc.stats_fpath))
+    assert [s["step"] for s in stats] == [5]
+    assert [p.rsplit("/", 1)[1] for _, _, p in tr.store.list_checkpoints()] == [
+        f"roomnet--{stats[0]['accuracy']}--5.npz"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["slow-step", "copy-behind-step", "slow-copy"])
+def test_cuda_slow_step_reads_its_own_batch(cuda_device, tmp_path, monkeypatch, mode):
+    """Each step sums the batch it was given on the compute stream, and the
+    loop reads no loss until its end (log_every past the run), so the host
+    stages batches ahead of the steps. slow-step: each step first sleeps on
+    the compute stream; a device batch handed to a later copy before its
+    step ran (no record_stream) would sum other pixels. copy-behind-step:
+    the same, and the copy stream waits for the compute stream before each
+    copy, so a staged batch's copy runs only after the previous step while
+    the host has already written the next batch: a pinned buffer kept and
+    rewritten would hand that copy the next batch's pixels. slow-copy: the
+    copy stream sleeps before each copy and the step reads at once; a step
+    that did not wait for its copy's event would read the buffer early.
+    Each sum must be that of the batch a fresh feeder dequeues at its step."""
+    from roomnet_tpu_torch.train import loop
+    from roomnet_tpu_torch.train.loop import Trainer
+
+    tc, cfg = _loop_setup(tmp_path, save_freq=0)
+    want = [int(x.astype(np.int64).sum()) for x, _ in _feeder_batches(tc, 12)]
+    tr = Trainer(tc, cfg)
+    orig, seen = tr._step_fn, []
+
+    def step_fn(ph, **kw):
+        fn = orig(ph, **kw)
+
+        def wrapped(state, x, *a):
+            if mode != "slow-copy":
+                torch.cuda._sleep(50_000_000)  # tens of ms of device time, before x is read
+            seen.append(x.sum(dtype=torch.int64))
+            return fn(state, x, *a)
+        return wrapped
+
+    tr._step_fn = step_fn
+    real = loop.to_device_async
+
+    def staged(arrays, device, stream):
+        if mode == "copy-behind-step":
+            stream.wait_stream(torch.cuda.current_stream(device))
+        elif mode == "slow-copy":
+            with torch.cuda.stream(stream):
+                torch.cuda._sleep(50_000_000)
+        return real(arrays, device, stream)
+
+    monkeypatch.setattr(loop, "to_device_async", staged)
+    tr.train(total_steps=12, log_every=1000)
+    assert [int(s) for s in seen] == want
+
+
+@pytest.mark.cuda
+def test_cuda_stall_save_writes_the_last_completed_state(cuda_device, tmp_path):
+    """Each step leaves device work in flight (a long sleep on the compute
+    stream) and then sleeps on the host past the stall timeout, so the
+    watchdog thread saves while the main thread keeps issuing steps. Every
+    stall checkpoint holds the hand-driven state of the step it names."""
+    import time
+
+    from roomnet_tpu_torch.train.loop import Trainer
+
+    tc, cfg = _loop_setup(tmp_path, save_freq=1000, stall_timeout_s=0.25)
+    tr = Trainer(tc, cfg)
+    with chip_smoke.deterministic():
+        states, _ = chip_smoke.hand_driven(tr, 5)
+    orig = tr._step_fn
+
+    def stalling_step_fn(ph, **kw):
+        fn = orig(ph, **kw)
+
+        def wrapped(*a):
+            out = fn(*a)
+            torch.cuda._sleep(500_000_000)  # a few hundred ms of device work behind the step
+            time.sleep(0.6)
+            return out
+        return wrapped
+
+    tr._step_fn = stalling_step_fn
+    with chip_smoke.deterministic():
+        tr.train(total_steps=5, log_every=1)
+    stalls = [(s, p) for s, sfx, p in tr.store.list_checkpoints() if sfx == "stall"]
+    assert stalls
+    for step, path in stalls:
+        with np.load(path) as f:
+            saved = dict(f)
+        assert int(saved["meta/step"]) == step
+        assert chip_smoke.state_gap(saved, chip_smoke.state_tensors(states[step - 1]), 1e-5) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_device_prefetch_with_a_slow_consumer(cuda_device):
+    """The consumer sleeps on its stream before it reads each batch, while
+    device_prefetch copies the next ones on its own stream: every batch is
+    read as it was on the host, in order."""
+    from roomnet_tpu_torch.data.loader import device_prefetch
+
+    rng = np.random.RandomState(12)
+    batches = [(rng.randint(0, 256, (8, 32, 32, 3), np.uint8), rng.randint(0, 6, 8).astype(np.int32))
+               for _ in range(16)]
+    seen = []
+    for x, y in device_prefetch(iter(batches), size=2, device=cuda_device):
+        assert x.device.type == "cuda" and x.dtype == torch.uint8 and y.dtype == torch.int32
+        torch.cuda._sleep(20_000_000)
+        seen.append((x.sum(dtype=torch.int64), y.sum(dtype=torch.int64)))
+    assert [(int(a), int(b)) for a, b in seen] == [(int(x.astype(np.int64).sum()), int(y.sum()))
+                                                    for x, y in batches]
