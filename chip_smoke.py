@@ -134,10 +134,39 @@ kernels, in phases; any failure raises and the script exits non-zero:
      the next batch is staged, or the previous step's, timed in turns on one
      feeder with a full queue). The kernels line's trainer_launches are (b)'s
      counts for f32 and (c)'s for bf16.
+ 10. Scale-out (parallel/, the Trainer on a mesh, params/orbax_io.py), on a
+     dataset of 120 JPEGs (make_synth_dataset, split 108 / 12), each Trainer
+     from the converted weights at step 0, f32, 6 steps (3 with batch
+     statistics and the moving update, then 3 with inference BN), save_freq 5,
+     under cuDNN's deterministic algorithms: (a) a world of one over NCCL
+     (`make_mesh()` without a process group): Trainer(mesh=...) against
+     Trainer() at batch 45, max |d| 0 in params, BN stats and Adam state,
+     equal stats entries, launches 70/70/21/4; (b) two ranks spawned on the
+     one card over gloo (NCCL refuses two ranks on one device), replicated
+     then sharded feed, at batch 46 (45 rounded up to the data axis, 23 rows
+     a rank) against one process at 46: the ranks' states equal; params and
+     BN stats, and the Adam moments (of their largest), each within the
+     larger of DP_TOL / DP_MOMENT_SHARE and DP_FLOOR_TIMES the gap between
+     one process and itself on the same batches with their rows reversed
+     (the floor of any other order of summation); launches per rank per
+     step 10/10/3/0 with batch statistics
+     and 10/10/3/1 with inference BN; (c) the DCP store on the card: an async
+     save of the converted weights, `wait`, a load equal to them; a one-rank
+     orbax Trainer saves step 5, the two ranks of (b) resume it and save
+     step 10 collectively, one process resumes step 10; (d) `python -m
+     roomnet_tpu_torch train --data-parallel --ckpt-backend orbax --steps 6`
+     as a subprocess: exit 0, a DCP checkpoint at step 5; (e) the bf16 step
+     at batch 45, inference BN and batch statistics, without and with the
+     world-of-one mesh, DP_TIMED_STEPS steps a window in the turns
+     DP_WINDOWS, ms per step on the host clock, nothing claimed; (f) only
+     where torch.cuda.device_count() >= 2: (b)'s replicated run over NCCL
+     across two cards. The kernels line's dp_launches are (a)'s counts for
+     f32 and (e)'s mesh windows' for bf16; dp_rank_step_launches are (b)'s
+     per rank per step (f32) and (e)'s per mesh step (bf16).
 
-Then the JSON line of serving, directory, training, server and trainer
-numbers, the script's wall time, one JSON line of per-kernel results and,
-last, the device line.
+Then the JSON line of serving, directory, training, server, trainer and
+scale-out numbers, the script's wall time, one JSON line of per-kernel
+results and, last, the device line.
 f32 parity needs TF32 off; the script turns it off for everything it runs.
 """
 
@@ -662,12 +691,18 @@ def main() -> None:
     trainer = phase9(variables, cfgs, counts, zero_counts, per_forward, training["times"], dev, smi)
     trainer_launches = trainer.pop("launches")
 
+    # -- phase 10: scale-out ----------------------------------------------------
+    scale_out = phase10(variables, cfgs, counts, zero_counts, dev, smi)
+    dp_launches = scale_out.pop("launches")
+    dp_per_step = {"f32": scale_out["two_ranks_gloo"]["replicated"]["launches_per_rank_step"],
+                   "bf16": scale_out["step_ms"]["per_step_launches"]}
+
     for dt in cfgs:
         log(f"max |d| against plain [{dt}]: " + ", ".join(
             f"{n} {max_err[(n, dt, 8)]:.3g} (batch 8) {max_err[(n, dt, 256)]:.3g} (batch 256)"
             for n in kernels))
     log(json.dumps({"card": smi, "serving": serving, "directory": directory, "training": training,
-                    "server": server, "trainer": trainer}))
+                    "server": server, "trainer": trainer, "scale_out": scale_out}))
     log(f"wall: {time.perf_counter() - wall0:.1f} s from start to the result lines")
     rows = []
     for dt in cfgs:
@@ -686,6 +721,8 @@ def main() -> None:
                 "train_grad_tolerance_share": grad_checks[(name, dt)][1],
                 "serve_launches": serve_launches[dt][name],
                 "trainer_launches": trainer_launches[dt][name],
+                "dp_launches": dp_launches[dt][name],
+                "dp_rank_step_launches": {m: c[name] for m, c in dp_per_step[dt].items()},
             })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1598,6 +1635,402 @@ def state_gap(got: dict, want: dict, tol: float) -> float:
             raise AssertionError(f"{k}: max |d| {d.max() if d.size else 'shape'} beyond {tol}")
         worst = max(worst, float(d.max()) if d.size else 0.0)
     return worst
+
+
+# -- phase 10: scale-out -----------------------------------------------------------
+
+
+DP_STEPS = 6  # (a), (b): 3 steps with batch statistics, then 3 with inference BN; a validation at step 5
+# (b): two ranks against one process, params and BN moving stats (|d| / (1 + |want|)) and the Adam moments
+# (of each tensor's largest), each within the larger of a fixed limit and DP_FLOOR_TIMES the floor: one
+# process against itself on the same batches with their rows reversed, which changes only the order of
+# every sum over rows. On an H100 that floor was 1.04e-4 to 1.09e-4 and 0.0125 to 0.0256 (PERF.md §6): under batch
+# statistics a few gradients are small differences of large sums, and TF1 Adam's m / sqrt(v) turns their
+# rounding into steps, so no limit below the floor holds for any order of summation.
+DP_TOL = 1e-5
+DP_MOMENT_SHARE = 5e-3
+DP_FLOOR_TIMES = 2.0
+DP_TIMED_STEPS = 20  # (e): steps per timed window
+DP_WINDOWS = ("plain", "mesh", "mesh", "plain")  # (e): windows in turns
+DP_JOIN_S = 420.0  # (b), (c), (f): the spawned ranks' join limit
+
+
+def kernel_counters() -> dict:
+    """The four kernel wrappers, whose `launches` count their launches."""
+    from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
+    from roomnet_tpu_torch.ops.kernels import dense_head as KD
+    from roomnet_tpu_torch.ops.kernels import pool as KP
+    from roomnet_tpu_torch.ops.kernels import residual as KR
+
+    return {"conv3x3": KC.conv3x3, "relu6_pool_bn": KP.relu6_pool_bn, "residual_bn": KR.residual_bn,
+            "dense_head": KD.dense_head}
+
+
+class StepLaunches:
+    """Wraps a Trainer's step function: the kernels' launches of each step
+    call, by BN mode ("trainbn" with batch statistics, else "infbn"). A
+    wrapper counts when it launches, on the host, so no sync is needed."""
+
+    def __init__(self, trainer):
+        self.by_mode: dict = {}
+        kernels, real = kernel_counters(), trainer._step_fn
+
+        def step_fn(ph, **kw):
+            fn = real(ph, **kw)
+
+            def run(*args):
+                before = {n: k.launches for n, k in kernels.items()}
+                out = fn(*args)
+                got = {n: k.launches - before[n] for n, k in kernels.items()}
+                self.by_mode.setdefault("trainbn" if ph.compute_bn_mean_var else "infbn", []).append(got)
+                return out
+            return run
+
+        trainer._step_fn = step_fn
+
+    def per_step(self) -> dict:
+        """{mode: counts of one step}; raises if the steps of a mode differ."""
+        out = {}
+        for mode, steps in self.by_mode.items():
+            if any(s != steps[0] for s in steps):
+                raise AssertionError(f"launches differ from step to step [{mode}]: {steps}")
+            out[mode] = steps[0]
+        return out
+
+
+def dp_phases(batch: int) -> tuple:
+    from roomnet_tpu_torch.train.loop import Phase
+
+    return (Phase(until_step=3, batch_size=batch, compute_bn_mean_var=True, update_bn_moving=True),
+            Phase(until_step=1 << 62, batch_size=batch))
+
+
+def dp_rank(rank: int, world: int, backend: str, devices: list, store: str, jobs: list, out_dir: str) -> None:
+    """One spawned rank of phase 10 (b), (c) and (f): each job (name,
+    TrainConfig, steps) as `Trainer(tc, f32, mesh=make_mesh()).train(steps)`
+    under cuDNN's deterministic algorithms; writes {name: state, per-step
+    launches, stdout} to out_dir/rank{rank}.pkl."""
+    import io
+    import pickle
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from roomnet_tpu_torch.models.roomnet import DEFAULT_CONFIG
+    from roomnet_tpu_torch.parallel import distributed
+    from roomnet_tpu_torch.parallel.mesh import make_mesh
+    from roomnet_tpu_torch.train.loop import Trainer
+
+    distributed.initialize(f"file://{store}", world, rank, backend=backend, device=devices[rank], timeout_s=300.0)
+    results = {}
+    try:
+        for name, tc, steps in jobs:
+            tr = Trainer(tc, DEFAULT_CONFIG, mesh=make_mesh())
+            probe = StepLaunches(tr)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with deterministic(), contextlib.redirect_stdout(buf):
+                state = tr.train(total_steps=steps)
+            results[name] = {"state": {k: v.detach().cpu().numpy() for k, v in state_tensors(state).items()},
+                             "launches": probe.per_step(), "stdout": buf.getvalue(),
+                             "wall_s": time.perf_counter() - t0}
+    finally:
+        distributed.shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+
+
+def spawn_ranks(backend: str, devices: list, jobs: list, root: str) -> list:
+    """Run `jobs` on len(devices) spawned ranks (dp_rank); each rank's
+    results, by rank. Raises if a rank fails or the join outlasts
+    DP_JOIN_S; every rank is stopped before it returns."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    out_dir = tempfile.mkdtemp(prefix="ranks_", dir=root)
+    store = os.path.join(out_dir, "pg_store")
+    ctx = mp.start_processes(dp_rank, args=(len(devices), backend, devices, store, jobs, out_dir),
+                             nprocs=len(devices), join=False, start_method="spawn")
+    deadline = time.perf_counter() + DP_JOIN_S
+    try:
+        while not ctx.join(timeout=5.0):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"scale-out: the {len(devices)} ranks did not finish in {DP_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    out = []
+    for r in range(len(devices)):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def param_gap(got: dict, want: dict) -> tuple[float, str]:
+    """The largest |d| / (1 + |want|) over the params, BN stats and step (the
+    measure state_gap holds to its tol), and the tensor where it is."""
+    return max((float((np.abs(np.asarray(got[k], np.float64) - np.asarray(want[k]))
+                       / (1.0 + np.abs(np.asarray(want[k], np.float64)))).max()), k)
+               for k in want if not k.startswith("opt/"))
+
+
+def moment_share(got: dict, want: dict) -> float:
+    """The largest |d| of an Adam moment over its tensor's largest |value|."""
+    return max(float(np.abs(np.asarray(got[k], np.float64) - np.asarray(want[k])).max()
+                     / max(float(np.abs(np.asarray(want[k])).max()), 1e-30))
+               for k in want if k.startswith(("opt/mu/", "opt/nu/")))
+
+
+def phase10(variables, cfgs, counts, zero_counts, dev, smi) -> dict:
+    """Scale-out (docstring phase 10). Returns its numbers, and under
+    "launches" the counts of its mesh runs in this process: f32 (a)'s
+    Trainer, bf16 (e)'s mesh windows."""
+    import io
+
+    import torch.distributed as dist
+
+    from roomnet_tpu_torch.data.dataset import extract_fpaths
+    from roomnet_tpu_torch.parallel import distributed
+    from roomnet_tpu_torch.parallel.mesh import make_mesh
+    from roomnet_tpu_torch.params.checkpoint import CheckpointStore
+    from roomnet_tpu_torch.params.orbax_io import OrbaxCheckpointStore
+    from roomnet_tpu_torch.params.schema import flatten_variables
+    from roomnet_tpu_torch.train.loop import TrainConfig, Trainer
+    from roomnet_tpu_torch.train.step import TrainHParams, init_train_state, make_train_step
+    from tools.make_synth_dataset import generate
+
+    t_phase = time.perf_counter()
+    result = {"card": smi, "launches": {}}
+    nccl_cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as root:
+        data = os.path.join(root, "data")
+        with contextlib.redirect_stdout(io.StringIO()):
+            generate(data, per_class=20, seed=1)
+        lists = {"train_list_fpath": os.path.join(root, "train_list.txt"),
+                 "val_list_fpath": os.path.join(root, "val_list.txt"),
+                 "label_mappings_fpath": os.path.join(root, "label_mappings.json")}
+        extract_fpaths(data, *lists.values(), seed=0)
+
+        def config(name: str, batch: int, *, step0: bool = True, **kw) -> TrainConfig:
+            tc = TrainConfig(data_dir=data, stats_fpath=os.path.join(root, f"stats_{name}.json"),
+                             model_dir=os.path.join(root, f"models_{name}"), phases=dp_phases(batch), save_freq=5,
+                             stall_timeout_s=0, **lists, **kw)
+            if step0:
+                CheckpointStore(tc.model_dir).save(variables, 0)  # the converted weights at step 0
+            return tc
+
+        def stats(tc) -> list:
+            with open(tc.stats_fpath) as f:
+                return json.load(f)
+
+        # (a) A world of one over NCCL: the mesh adds nothing to the math.
+        distributed.start_single(dev)
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"scale-out (a): the world of one runs {dist.get_backend()}, not nccl")
+        mesh = make_mesh()
+        tc_plain, tc_mesh = config("a_plain", 45), config("a_mesh", 45)
+        with deterministic(), contextlib.redirect_stdout(io.StringIO()):
+            plain = state_tensors(Trainer(tc_plain, cfgs["f32"]).train(total_steps=DP_STEPS))
+            tr = Trainer(tc_mesh, cfgs["f32"], mesh=mesh)
+            probe = StepLaunches(tr)
+            zero_counts()
+            meshed = state_tensors(tr.train(total_steps=DP_STEPS))
+            got = counts()
+        want = {"conv3x3": 70, "relu6_pool_bn": 70, "residual_bn": 21, "dense_head": 4}
+        if got != want:
+            raise AssertionError(f"scale-out (a): launches {got} != {want} (3 batch-stat steps, 3 inference-BN "
+                                 "steps, 1 validation forward)")
+        gap = state_gap(meshed, plain, 0.0)
+        if stats(tc_mesh) != stats(tc_plain):
+            raise AssertionError(f"scale-out (a): stats {stats(tc_mesh)} != {stats(tc_plain)}")
+        result["launches"]["f32"] = got
+        result["world_of_one"] = {"backend": "nccl", "max_abs_d": gap, "launches": got,
+                                  "per_step": probe.per_step(), "step5_accuracy": stats(tc_mesh)[0]["accuracy"]}
+        log(f"scale-out (a) world of one over NCCL, f32 batch 45, {DP_STEPS} steps (3 batch-stat, 3 inference BN): "
+            f"Trainer(mesh=make_mesh()) vs Trainer() max |d| {gap:.3g} (params, BN stats, Adam; gate 0), equal "
+            f"stats at step 5; launches {got}, per step {probe.per_step()}")
+        del tr
+
+        # (c), first half: the DCP store on the card, and a one-rank checkpoint.
+        store = OrbaxCheckpointStore(os.path.join(root, "c_store"), async_save=True)
+        t0 = time.perf_counter()
+        store.save(variables, 0, suffix="0.5")
+        t_issue = time.perf_counter() - t0
+        store.wait()
+        t_save = time.perf_counter() - t0
+        loaded, step = store.load()
+        want_flat = flatten_variables(variables)
+        if step != 0 or set(loaded) != set(want_flat) or any(
+                not np.array_equal(loaded[k], want_flat[k]) for k in want_flat):
+            raise AssertionError("scale-out (c): the DCP store's load differs from its async save")
+        tc_one = config("c_resume", 46, ckpt_backend="orbax")
+        with deterministic(), contextlib.redirect_stdout(io.StringIO()):
+            Trainer(tc_one, cfgs["f32"]).train(total_steps=DP_STEPS)
+        if [s for s, _, _ in OrbaxCheckpointStore(tc_one.model_dir).list_checkpoints()] != [5]:
+            raise AssertionError("scale-out (c): no one-rank DCP checkpoint at step 5")
+
+        # (b) Two ranks spawned on the one card over gloo (NCCL refuses two
+        # ranks on one device), replicated then sharded feed, against one
+        # process at the same global batch (46: 45 rounded up to the data axis).
+        # The floor: one process on the same batches with their rows reversed,
+        # which changes no math, only the order of every sum over rows.
+        from roomnet_tpu_torch.data import loader
+
+        def host(state) -> dict:
+            return {k: v.detach().cpu().numpy() for k, v in state_tensors(state).items()}
+
+        with deterministic(), contextlib.redirect_stdout(io.StringIO()):
+            one = host(Trainer(config("b_one", 46), cfgs["f32"]).train(total_steps=DP_STEPS))
+            real_dequeue = loader.TrainFeeder.dequeue
+
+            def reversed_rows(feeder):
+                x, y = real_dequeue(feeder)
+                return (x[::-1].copy(), y[::-1].copy()) if feeder.shuffle else (x, y)
+
+            loader.TrainFeeder.dequeue = reversed_rows
+            try:
+                rev = host(Trainer(config("b_rev", 46), cfgs["f32"]).train(total_steps=DP_STEPS))
+            finally:
+                loader.TrainFeeder.dequeue = real_dequeue
+        floor, floor_at = param_gap(rev, one)
+        gates = {"params": max(DP_TOL, DP_FLOOR_TIMES * floor),
+                 "moments": max(DP_MOMENT_SHARE, DP_FLOOR_TIMES * moment_share(rev, one))}
+        result["reorder_floor"] = {"param_gap": floor, "at": floor_at, "moment_share": moment_share(rev, one),
+                                   "gates": gates}
+        log(f"scale-out (b) floor: one process, rows reversed, vs one process: params and BN stats "
+            f"{floor:.3g} (|d| / (1 + |want|), at {floor_at}), Adam moments {moment_share(rev, one):.3g} of their "
+            "largest")
+        jobs = [("replicated", config("b_rep", 46), DP_STEPS),
+                ("sharded", config("b_shard", 46, feed_mode="sharded"), DP_STEPS),
+                ("resume", config("c_resume", 46, step0=False, ckpt_backend="orbax"), DP_STEPS)]
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("gloo", ["cuda:0", "cuda:0"], jobs, root)
+        spawn_s = time.perf_counter() - t0
+
+        def check_ranks(ranks, what: str) -> dict:
+            out = {}
+            for feed in ("replicated", "sharded"):
+                if feed not in ranks[0]:
+                    continue
+                a, b = ranks[0][feed], ranks[1][feed]
+                gap, at = param_gap(a["state"], one)
+                share = moment_share(a["state"], one)
+                log(f"scale-out {what} [{feed}]: vs one process, params and BN stats {gap:.3g} (at {at}), Adam "
+                    f"moments {share:.3g} of their largest")
+                if any(not np.array_equal(a["state"][k], b["state"][k]) for k in a["state"]):
+                    raise AssertionError(f"scale-out {what} [{feed}]: the ranks' states differ")
+                if not gap <= gates["params"]:
+                    raise AssertionError(f"scale-out {what} [{feed}]: params {gap:.3g} from one process at {at} "
+                                         f"(> {gates['params']:.3g})")
+                if not share <= gates["moments"]:
+                    raise AssertionError(f"scale-out {what} [{feed}]: Adam moments {share:.3g} of their largest from "
+                                         f"one process (> {gates['moments']:.3g})")
+                per = a["launches"]
+                want_per = {"trainbn": {"conv3x3": 10, "relu6_pool_bn": 10, "residual_bn": 3, "dense_head": 0},
+                            "infbn": {"conv3x3": 10, "relu6_pool_bn": 10, "residual_bn": 3, "dense_head": 1}}
+                if per != want_per or b["launches"] != want_per:
+                    raise AssertionError(f"scale-out {what} [{feed}]: launches per rank per step {per}, "
+                                         f"{b['launches']} != {want_per}")
+                out[feed] = {"param_gap": gap, "at": at, "moment_share": share, "launches_per_rank_step": per,
+                             "wall_s": a["wall_s"]}
+            return out
+
+        result["two_ranks_gloo"] = check_ranks(ranks, "(b)")
+        result["two_ranks_gloo"]["spawn_s"] = spawn_s
+        for feed, r in result["two_ranks_gloo"].items():
+            if feed != "spawn_s":
+                log(f"scale-out (b) two ranks on one card over gloo [{feed} feed], f32 batch 46 (23 rows a rank), "
+                    f"{DP_STEPS} steps: vs one process {r['param_gap']:.3g} (params, BN stats; gate "
+                    f"{gates['params']:.3g}), Adam moments {r['moment_share']:.3g} of their largest (gate "
+                    f"{gates['moments']:.3g}); launches per rank per step "
+                    f"{r['launches_per_rank_step']}; {r['wall_s']:.1f} s on rank 0")
+
+        # (c), second half: the two ranks resumed the one-rank checkpoint
+        # (step 5) and saved step 10 collectively; one process resumes that.
+        res = ranks[0]["resume"]
+        if "Model restored at step 5" not in res["stdout"] or int(res["state"]["meta/step"]) != 5 + DP_STEPS:
+            raise AssertionError(f"scale-out (c): the two ranks did not resume step 5\n{res['stdout'][-600:]}")
+        ckpts = [s for s, _, _ in OrbaxCheckpointStore(tc_one.model_dir).list_checkpoints()]
+        back = Trainer(config("c_resume", 46, step0=False, ckpt_backend="orbax"), cfgs["f32"]).init_state()
+        if ckpts != [5, 10] or int(back.step) != 10:
+            raise AssertionError(f"scale-out (c): checkpoints {ckpts}, resumed at step {int(back.step)}")
+        result["dcp"] = {"async_issue_s": t_issue, "async_save_s": t_save, "checkpoints": ckpts,
+                         "files": sorted(os.listdir(OrbaxCheckpointStore(tc_one.model_dir).latest_path()))}
+        log(f"scale-out (c) DCP store on the card: async save issued in {t_issue * 1e3:.1f} ms, landed in "
+            f"{t_save * 1e3:.1f} ms, load equal; one rank saved step 5, two ranks resumed it and saved step 10 "
+            f"({', '.join(result['dcp']['files'])}), one process resumed step 10")
+
+        # (d) The CLI, as a user runs it: train --data-parallel --ckpt-backend orbax.
+        cli_dir = os.path.join(root, "cli")
+        os.makedirs(cli_dir)
+        repo = str(pathlib.Path(__file__).resolve().parent)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "roomnet_tpu_torch", "train", "--data-dir", data, "--steps", "6",
+                               "--save-freq", "5", "--model-dir", "m", "--data-parallel", "--ckpt-backend", "orbax"],
+                              cwd=cli_dir, env=env, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        cli_ckpts = [s for s, _, _ in OrbaxCheckpointStore(os.path.join(cli_dir, "m")).list_checkpoints()]
+        if proc.returncode != 0 or cli_ckpts != [5]:
+            raise AssertionError(f"train --data-parallel --ckpt-backend orbax: exit {proc.returncode}, checkpoints "
+                                 f"{cli_ckpts}\n{proc.stderr[-2000:]}")
+        result["cli"] = {"wall_s": cli_s, "checkpoints": cli_ckpts}
+        log(f"scale-out (d) python -m roomnet_tpu_torch train --data-parallel --ckpt-backend orbax --steps 6: exit 0, "
+            f"a DCP checkpoint at step 5 ({cli_s:.1f} s with the interpreter's start)")
+
+        # (f) Only with two cards: (b) over NCCL across them.
+        if nccl_cards >= 2:
+            ranks = spawn_ranks("nccl", ["cuda:0", "cuda:1"], [("replicated", config("f_rep", 46), DP_STEPS)], root)
+            result["two_cards_nccl"] = check_ranks(ranks, "(f)")
+            r = result["two_cards_nccl"]["replicated"]
+            log(f"scale-out (f) two ranks on two cards over NCCL [replicated feed], f32 batch 46, {DP_STEPS} steps: vs "
+                f"one process {r['param_gap']:.3g} (gate {gates['params']:.3g}), Adam moments {r['moment_share']:.3g} "
+                f"(gate {gates['moments']:.3g}); launches per rank per step {r['launches_per_rank_step']}; "
+                f"{r['wall_s']:.1f} s on rank 0")
+
+    # (e) bf16 ms per step at batch 45, without and with the mesh in the world
+    # of one, in turns; nothing claimed.
+    x45 = torch.from_numpy(np.random.RandomState(45).randint(0, 256, (45, 224, 224, 3), dtype=np.uint8)).to(dev)
+    y45 = torch.arange(45, device=dev, dtype=torch.int32) % 6
+    times, per_step = {}, {}
+    mesh_launches = dict.fromkeys(counts(), 0)
+    zero_counts()
+    for mode, hp in (("infbn", TrainHParams()),
+                     ("trainbn", TrainHParams(compute_bn_mean_var=True, update_bn_moving=True))):
+        steps = {"plain": make_train_step(hp, cfgs["bf16"]), "mesh": make_train_step(hp, cfgs["bf16"],
+                                                                                      group=mesh.group("data"))}
+        states = {k: init_train_state(variables, hp) for k in steps}
+        gen = torch.Generator(dev).manual_seed(1)
+        for k in steps:  # warm-up
+            states[k], m = steps[k](states[k], x45, y45, gen)
+        torch.cuda.synchronize()
+        times[mode] = {k: [] for k in steps}
+        for k in DP_WINDOWS:
+            before = counts()
+            t0 = time.perf_counter()
+            for _ in range(DP_TIMED_STEPS):
+                states[k], m = steps[k](states[k], x45, y45, gen)
+            float(m["loss"])
+            times[mode][k].append((time.perf_counter() - t0) * 1e3 / DP_TIMED_STEPS)
+            if k == "mesh":
+                got = {n: c - before[n] for n, c in counts().items()}
+                per_step[mode] = {n: c // DP_TIMED_STEPS for n, c in got.items()}
+                mesh_launches = {n: mesh_launches[n] + c for n, c in got.items()}
+        del states
+    result["launches"]["bf16"] = mesh_launches
+    distributed.shutdown()
+    result["step_ms"] = {"card": smi, "batch": 45, "dtype": "bf16", "windows": list(DP_WINDOWS),
+                         "steps_per_window": DP_TIMED_STEPS, "ms": times, "per_step_launches": per_step}
+    for mode, t in times.items():
+        log(f"scale-out (e) bf16 batch 45 [{mode}, {smi}], ms per step (host clock, {DP_TIMED_STEPS} steps a window, "
+            f"windows {' '.join(DP_WINDOWS)}): no mesh " + " / ".join(f"{v:.3f}" for v in t["plain"])
+            + ", mesh (world of one, NCCL) " + " / ".join(f"{v:.3f}" for v in t["mesh"])
+            + f"; launches per mesh step {per_step[mode]}")
+    result["wall_s"] = time.perf_counter() - t_phase
+    log(f"scale-out: phase 10 took {result['wall_s']:.1f} s")
+    return result
 
 
 # -- phase 8: the serving daemon ----------------------------------------------

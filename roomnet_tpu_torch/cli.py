@@ -12,13 +12,18 @@ Flags and defaults are the JAX package's, with two deliberate differences:
   * --device (default: the CUDA card) picks the device; `--device cpu` runs
     the kernels' plain PyTorch versions on the CPU. With no GPU and no
     --device the commands raise.
-  * --profile-port, serve's and infer's --data-parallel, eval-ckpts --plot
-    and --ckpt-backend orbax are left out until their modules are ported
-    (ROADMAP.md), as are the subcommands convert, convert-to-tf, plot,
-    plot-checkpoints, label, export and bench. `train` keeps the JAX
-    parser's dests and refuses, as it parses them, --data-parallel,
-    --ckpt-backend orbax and --feed-mode sharded (ROADMAP.md §1 item 3,
-    Scale-out).
+  * --profile-port and eval-ckpts --plot are left out until their modules
+    are ported (ROADMAP.md), as are the subcommands convert, convert-to-tf,
+    plot, plot-checkpoints, label, export and bench; `serve --data-parallel`
+    is refused as it is parsed (the server's mesh, ROADMAP.md).
+
+--data-parallel (train, infer, validate, eval-ckpts) runs the command on a
+mesh over every rank of the launch, one process per card, rank 0 writing
+the outputs:
+
+    torchrun --nproc-per-node N -m roomnet_tpu_torch train --data-parallel ...
+
+Without torchrun it is a world of one on this process's device.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import json
 import os
 import sys
 
+DP_HELP = ("run on a mesh over every rank of the launch (torchrun --nproc-per-node N; a world of one "
+           "without it), the batch split over the 'data' axis; rank 0 writes the outputs")
 DEVICE_HELP = ("device to run on (default: the CUDA card; 'cpu' runs the kernels' plain "
                "PyTorch versions; with no GPU and no --device the command raises)")
 
@@ -67,19 +74,39 @@ def _device(args):
     return default_device(args.device)
 
 
-class _ScaleOut(argparse.Action):
-    """An option whose value (`refuse`; any use when None) needs a module
-    that waits for Scale-out: the parser errors on it."""
+class _NotPorted(argparse.Action):
+    """An option that needs a module not ported yet: the parser errors on
+    any use of it, with `why`."""
 
-    def __init__(self, option_strings, dest, refuse=None, **kwargs):
-        self.refuse = refuse
+    def __init__(self, option_strings, dest, why="", **kwargs):
+        self.why = why
         super().__init__(option_strings, dest, **kwargs)
 
     def __call__(self, parser, namespace, values, option_string=None):
-        if self.refuse is None or values == self.refuse:
-            what = option_string if self.refuse is None else f"{option_string} {values}"
-            parser.error(f"{what} is not ported yet (ROADMAP.md §1 item 3, Scale-out)")
-        setattr(namespace, self.dest, values)
+        parser.error(f"{option_string} is not ported yet ({self.why})")
+
+
+def _maybe_mesh(args):
+    """--data-parallel: a mesh over every rank of the launch (a world of one
+    without torchrun), on --device or this rank's card. The batch must
+    split evenly over the 'data' axis, checked before anything runs."""
+    if not getattr(args, "data_parallel", False):
+        return None
+    from .parallel import distributed
+    from .parallel.mesh import make_mesh
+
+    distributed.initialize(device=args.device)
+    mesh = make_mesh(devices=args.device)
+    n_data = int(mesh.shape["data"])
+    batch = getattr(args, "batch_size", None)
+    if batch is not None and batch % n_data:
+        raise SystemExit(f"--data-parallel: --batch-size {batch} is not divisible by the {n_data}-rank 'data' "
+                         f"mesh — use a multiple of {n_data}")
+    return mesh
+
+
+def _is_rank0(mesh) -> bool:
+    return mesh is None or mesh.rank == 0
 
 
 def cmd_train(args):
@@ -106,41 +133,53 @@ def cmd_train(args):
     if args.curriculum:
         kwargs["phases"] = TrainConfig.reference_curriculum(args.steps)
     cfg = _model_cfg(args.img_side, bf16=args.precision == "bf16")
-    Trainer(TrainConfig(**kwargs), cfg, device=_device(args)).train()
+    mesh = _maybe_mesh(args)
+    dev = mesh.device if mesh is not None else _device(args)
+    Trainer(TrainConfig(**kwargs), cfg, device=dev, mesh=mesh).train()
 
 
 def cmd_infer(args):
-    from .infer.classify import RoomNetClassifier, classify_im_dir
+    from .infer.classify import RoomNetClassifier, classify_im_dir, dir_images
 
-    dev = _device(args)
+    mesh = _maybe_mesh(args)
+    dev = mesh.device if mesh is not None else _device(args)
     cfg = _model_cfg(args.img_side, bf16=not args.exact)
     clf = RoomNetClassifier(
         _load_variables(args.params, args.model_dir, dev, cfg), cfg,
         batch_size=args.batch_size, fast_decode=args.fast_decode,
-        device_resize_side=args.device_resize_side, device=dev,
+        device_resize_side=args.device_resize_side, device=dev, mesh=mesh,
     )
-    xl = classify_im_dir(clf, args.images_dir, overlay=not args.no_overlay)
-    print("Results:", xl)
+    if _is_rank0(mesh):
+        xl = classify_im_dir(clf, args.images_dir, overlay=not args.no_overlay)
+        print("Results:", xl)
+    else:  # the same batches as rank 0's, for the collectives; rank 0 writes
+        clf.predict_paths(dir_images(args.images_dir))
 
 
 def cmd_validate(args):
     from .infer.classify import RoomNetClassifier, groundtruth_validation
 
-    dev = _device(args)
+    mesh = _maybe_mesh(args)
+    dev = mesh.device if mesh is not None else _device(args)
     cfg = _model_cfg(args.img_side, bf16=not args.exact)
     clf = RoomNetClassifier(_load_variables(args.params, args.model_dir, dev, cfg), cfg,
-                            batch_size=args.batch_size, device=dev)
+                            batch_size=args.batch_size, device=dev, mesh=mesh)
     stats = groundtruth_validation(clf, args.list_file)
-    print(json.dumps(stats, indent=2))
+    if _is_rank0(mesh):
+        print(json.dumps(stats, indent=2))
 
 
 def cmd_eval_ckpts(args):
     from .infer.classify import evaluate_checkpoints
 
+    mesh = _maybe_mesh(args)
     out = evaluate_checkpoints(
         args.model_dir, args.list_file, _model_cfg(args.img_side, bf16=not args.exact),
-        batch_size=args.batch_size, backend=args.ckpt_backend, device=_device(args),
+        batch_size=args.batch_size, backend=args.ckpt_backend,
+        device=mesh.device if mesh is not None else _device(args), mesh=mesh,
     )
+    if not _is_rank0(mesh):
+        return
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=2)
@@ -293,11 +332,11 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--curriculum", action="store_true",
                    help="README.md:34-38 batch/dropout/BN-freeze schedule")
     t.add_argument("--feed-mode", choices=["replicated", "sharded"], default="replicated",
-                   action=_ScaleOut, refuse="sharded", help="multi-process input mode (sharded: Scale-out)")
-    t.add_argument("--data-parallel", action=_ScaleOut, nargs=0, default=False,
-                   help="shard the batch over all local devices (Scale-out)")
-    t.add_argument("--ckpt-backend", choices=["npz", "orbax"], default="npz", action=_ScaleOut,
-                   refuse="orbax", help="checkpoint store (orbax: Scale-out)")
+                   help="multi-rank input mode: sharded = each rank decodes only its rows of the batch")
+    t.add_argument("--data-parallel", action="store_true", help=DP_HELP)
+    t.add_argument("--ckpt-backend", choices=["npz", "orbax"], default="npz",
+                   help="checkpoint store: portable npz, or orbax = DCP directories, asynchronous and saved "
+                        "collectively (not the JAX package's orbax format)")
     t.add_argument("--stall-timeout", type=float, default=600.0,
                    help="watchdog: warn + emergency-checkpoint when no step completes for this many "
                         "seconds (0 disables)")
@@ -328,6 +367,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "device")
     i.add_argument("--fast-decode", action="store_true",
                    help="DCT-scaled JPEG decode in the native decoder (>=2x supersampling enforced)")
+    i.add_argument("--data-parallel", action="store_true", help=DP_HELP)
     _add_device(i)
     i.set_defaults(fn=cmd_infer)
 
@@ -341,6 +381,7 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--img-side", type=int, default=224,
                    help="model input geometry; must match the loaded weights' dense head "
                         "(README.md:32 variants)")
+    v.add_argument("--data-parallel", action="store_true", help=DP_HELP)
     _add_device(v)
     v.set_defaults(fn=cmd_validate)
 
@@ -354,8 +395,10 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--exact", action="store_true")
     ev.add_argument("--img-side", type=int, default=224)
     ev.add_argument("--out", default=None, help="also write the full per-checkpoint JSON here")
-    ev.add_argument("--ckpt-backend", choices=["auto", "npz"], default="auto",
-                    help="checkpoint store format in --model-dir (orbax is not ported yet)")
+    ev.add_argument("--ckpt-backend", choices=["auto", "npz", "orbax"], default="auto",
+                    help="checkpoint store format in --model-dir (auto: npz files win if present; orbax = "
+                         "the port's DCP directories)")
+    ev.add_argument("--data-parallel", action="store_true", help=DP_HELP)
     _add_device(ev)
     ev.set_defaults(fn=cmd_eval_ckpts)
 
@@ -388,6 +431,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--request-timeout", type=float, default=30.0,
                    help="per-request budget cap (s), stamped at admission; clients may lower it "
                         "per request with the X-Timeout-Seconds header")
+    s.add_argument("--data-parallel", action=_NotPorted, nargs=0, default=False,
+                   why="the server's mesh, ROADMAP.md §1", help="not ported yet (the server's mesh)")
     _add_device(s)
     s.set_defaults(fn=cmd_serve)
 
@@ -399,7 +444,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    finally:
+        if getattr(args, "data_parallel", False):
+            from .parallel import distributed
+
+            distributed.shutdown()
 
 
 if __name__ == "__main__":

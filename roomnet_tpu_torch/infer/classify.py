@@ -20,6 +20,11 @@ forward waits on the copy's event. Results stay on the device until each
 batch's ids and probs are copied into pinned host memory behind its forward,
 and one synchronize ends the run. `predict` (uint8 arrays already decoded)
 goes through the same pipeline.
+
+Under a mesh (`parallel/mesh.py`) every rank classifies the same items:
+each batch's rows are split over the data axis, each rank runs its rows
+through the forward, and the probabilities of every rank come back on every
+rank (the JAX classifier's batch sharded over 'data').
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from ..data import native
 from ..data.loader import center_crop, draw_crop_rect
 from ..models.roomnet import DEFAULT_CONFIG, fold_variables, forward_folded, normalize_bgr_uint8
 from ..ops.resize import resize_bilinear_half_pixel
+from ..parallel import collectives as C
 from ..utils.profiling import trace
 from ..utils.xls import Workbook
 
@@ -102,6 +108,7 @@ class RoomNetClassifier:
         fast_decode_safety: int = 2,
         device_resize_side: int | None = None,
         device=None,
+        mesh=None,
     ):
         """fast_decode: DCT-scaled JPEG decode in the native decoder (up to
         8x less decode work for large sources; slight pixel deltas — serving
@@ -113,10 +120,16 @@ class RoomNetClassifier:
         device (ops/resize.py:resize_bilinear_half_pixel, cv2 semantics),
         then round back to uint8. Exact to one uint8 level only when the
         cropped source already has this side (no host resample). Must
-        exceed cfg.im_side."""
+        exceed cfg.im_side.
+
+        mesh: split each batch's rows over the mesh's data axis (module
+        docstring); the device defaults to the mesh's. Every rank must make
+        the same calls. Weights are folded once per rank."""
         if batch_size < 1:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
-        self.device = default_device(device)
+        self.device = default_device(device if device is not None or mesh is None else mesh.device)
+        self.mesh = mesh
+        self._group = mesh.group("data") if mesh is not None else None
         self.cfg = cfg
         self.batch_size = batch_size
         self.class_labels = class_labels or CLASS_LABELS
@@ -166,12 +179,20 @@ class RoomNetClassifier:
         published, folded = self._weights
         if variables is not published:
             folded = fold_variables(_to_device(variables, self.device), self.cfg, uint8_input=False)
+        n, group = x_uint8_bgr.shape[0], self._group
+        if group is not None:
+            # This rank's rows of the batch, cycle-padded to a multiple of
+            # the data axis; the padding's rows are dropped after the gather.
+            per = -(-n // C.size(group))
+            i = C.index(group)
+            x_uint8_bgr = x_uint8_bgr[torch.arange(i * per, (i + 1) * per, device=x_uint8_bgr.device) % n]
         if self.device_resize_side is not None:
             side = self.cfg.im_side
             xr = resize_bilinear_half_pixel(x_uint8_bgr.float(), (side, side))
             # Back to uint8, as cv2's resize would give (to one level).
             x_uint8_bgr = xr.round().clamp(0, 255).to(torch.uint8)
         _, probs = forward_folded(folded, normalize_bgr_uint8(x_uint8_bgr), self.cfg)
+        probs = C.gather_rows(probs, group)[:n]
         return probs.argmax(dim=-1), probs
 
     # -- host preprocess ----------------------------------------------------
@@ -386,6 +407,11 @@ class RoomNetClassifier:
         return ids, confs, ids >= 0
 
 
+def dir_images(imgs_dir: str) -> list[str]:
+    """The files `classify_im_dir` classifies, in its order."""
+    return [p for p in sorted(glob(os.path.join(imgs_dir, "*"))) if os.path.isfile(p)]
+
+
 def classify_im_dir(
     classifier: RoomNetClassifier,
     imgs_dir: str,
@@ -396,8 +422,7 @@ def classify_im_dir(
 ) -> str:
     """Directory classification with xls + per-class dir outputs (infer.py:65-100)."""
     labels = classifier.class_labels
-    all_im_paths = sorted(glob(os.path.join(imgs_dir, "*")))
-    all_im_paths = [p for p in all_im_paths if os.path.isfile(p)]
+    all_im_paths = dir_images(imgs_dir)
     out_dir = out_dir or (imgs_dir.rstrip(os.sep) + "_classified")
     xl_fpath = out_dir + "_results.xls"
     csv_fpath = out_dir + "_results.csv"  # modern-tooling twin of the .xls
@@ -524,6 +549,7 @@ def evaluate_checkpoints(
     class_labels: list[str] | None = None,
     backend: str = "auto",
     device=None,
+    mesh=None,
 ) -> dict:
     """Re-score every checkpoint in a training dir against one labeled list
     (port of roomnet_tpu/infer/classify.py:evaluate_checkpoints).
@@ -534,24 +560,27 @@ def evaluate_checkpoints(
     ('interrupt', 'stall') included. One classifier serves the sweep: each
     checkpoint is assigned to `clf.variables`, which refolds the weights.
 
-    backend: "auto" or "npz". The JAX package's "orbax" store is not ported
-    and raises, as does "auto" on a dir of orbax checkpoints alone.
+    backend: "auto" (`open_store`: npz files win, else DCP directories),
+    "npz" or "orbax" (the DCP store, `params/orbax_io.py`). A dir of the JAX
+    package's orbax directories raises. mesh: the classifier's
+    (`RoomNetClassifier`); every rank runs the sweep.
 
     Returns {"checkpoints": [{step, checkpoint, name_accuracy, accuracy,
     precisions, recalls, f-scores}...], "best": <entry>}.
     """
-    from ..params.checkpoint import open_store
+    from ..params.checkpoint import CheckpointStore, open_store
+    from ..params.orbax_io import OrbaxCheckpointStore
     from ..params.schema import variables_from_numpy
 
-    if backend == "orbax":
-        raise NotImplementedError("orbax checkpoints are not ported yet (ROADMAP.md §1, Scale-out)")
-    if backend not in ("auto", "npz"):
+    stores = {"auto": open_store, "npz": CheckpointStore,
+              "orbax": lambda d: OrbaxCheckpointStore(d, async_save=False)}
+    if backend not in stores:
         raise ValueError(f"unknown checkpoint backend {backend!r}")
-    store = open_store(model_dir)
+    store = stores[backend](model_dir)
     ckpts = store.list_checkpoints()
     if not ckpts:
         raise FileNotFoundError(f"no checkpoints in {model_dir}")
-    dev = default_device(device)
+    dev = default_device(device if device is not None or mesh is None else mesh.device)
     clf = None
     entries = []
     for step, suffix, path in ckpts:
@@ -559,7 +588,7 @@ def evaluate_checkpoints(
         variables = variables_from_numpy(var_flat, cfg, dev)
         if clf is None:
             clf = RoomNetClassifier(variables, cfg, batch_size=batch_size,
-                                    class_labels=class_labels, device=dev)
+                                    class_labels=class_labels, device=dev, mesh=mesh)
         else:
             clf.variables = variables
         try:

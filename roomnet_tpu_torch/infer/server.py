@@ -20,7 +20,8 @@ Endpoints:
                               404 on an empty dir; 409 keeps the old weights
                               if the new ones fail the structural gate or
                               the probe device call, or if the dir holds
-                              orbax checkpoints, which are not ported)
+                              the JAX package's orbax directories, which
+                              the port does not read)
   POST /classify           -> body = raw image bytes (jpeg/png); response
                               JSON {label, class_id, confidence, probs}
   POST /classify_batch     -> body = JSON {"images": [<base64>, ...]};
@@ -458,8 +459,9 @@ class ClassifierServer:
             return self._reload_latest_locked()
 
     def _open_store(self):
-        """The model dir's npz store (params/checkpoint.open_store: raises
-        on a dir of orbax checkpoints, which are not ported)."""
+        """The model dir's store (params/checkpoint.open_store: npz files
+        win, else DCP directories; raises on the JAX package's orbax
+        directories)."""
         return open_store(self.model_dir)
 
     def _reload_latest_locked(self):

@@ -185,7 +185,7 @@ def init_variables(generator: torch.Generator, cfg: RoomNetConfig = DEFAULT_CONF
 def forward(variables: Variables, x: torch.Tensor, cfg: RoomNetConfig = DEFAULT_CONFIG, *,
             use_batch_stats: bool = False, collect_batch_stats: bool = False,
             dropout_rate: float | None = None, generator: torch.Generator | None = None,
-            batch_row_mask: torch.Tensor | None = None):
+            batch_row_mask: torch.Tensor | None = None, group=None):
     """Logits (B, num_classes) f32, ReLU6-clipped like the reference, under
     autograd.
 
@@ -202,6 +202,11 @@ def forward(variables: Variables, x: torch.Tensor, cfg: RoomNetConfig = DEFAULT_
       None.
     batch_row_mask: float (B,) of 1.0 (real) / 0.0 (padded row); with batch
       statistics, the moments leave the padded rows out.
+    group: a mesh's data group (`parallel/mesh.py`). With batch statistics
+      the moments are the global batch's, and dropout keeps this rank's rows
+      of the global batch's masks (`blocks.batch_norm_train`,
+      `blocks.dropout`): every rank's logits are then its rows of the
+      single-device forward of the global batch. The kernels run as without.
 
     Returns logits, or (logits, stats) with `collect_batch_stats`.
     """
@@ -209,10 +214,10 @@ def forward(variables: Variables, x: torch.Tensor, cfg: RoomNetConfig = DEFAULT_
     drop = dropout_rate is not None and generator is not None
 
     def maybe_dropout(h):
-        return B.dropout(h, dropout_rate, generator) if drop else h
+        return B.dropout(h, dropout_rate, generator, group) if drop else h
 
     def batch_bn(h, bn, path):
-        h, st = B.batch_norm_train(h, bn, cfg.bn_eps, row_weights=batch_row_mask)
+        h, st = B.batch_norm_train(h, bn, cfg.bn_eps, row_weights=batch_row_mask, group=group)
         if collect_batch_stats:
             stats[path] = B.BNStats(*(t.detach() for t in st))
         return h

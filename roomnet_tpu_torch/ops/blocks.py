@@ -27,6 +27,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives as C
+
 __all__ = ["BN_EPS", "BN_MOMENTUM", "BNStats", "relu6", "conv2d_valid", "avg_pool_valid",
            "bn_fold", "batch_norm", "batch_norm_train", "dense", "dropout", "full_f32"]
 
@@ -90,8 +92,8 @@ def batch_norm(x: torch.Tensor, bn: dict, eps: float = BN_EPS) -> torch.Tensor:
     return x * w.to(x.dtype) + b.to(x.dtype)
 
 
-def batch_norm_train(x: torch.Tensor, bn: dict, eps: float = BN_EPS,
-                     row_weights: torch.Tensor | None = None) -> tuple[torch.Tensor, BNStats]:
+def batch_norm_train(x: torch.Tensor, bn: dict, eps: float = BN_EPS, row_weights: torch.Tensor | None = None,
+                     group=None) -> tuple[torch.Tensor, BNStats]:
     """Training-mode BN over every axis but the last, in f32 and rounded
     once to x.dtype (`tf.layers.batch_normalization(training=True)`). The
     JAX package applies the affine in x.dtype; in bf16 the backward's
@@ -105,21 +107,31 @@ def batch_norm_train(x: torch.Tensor, bn: dict, eps: float = BN_EPS,
     a float (B,) of 1.0 (real row) and 0.0 (padding), weights the moments so
     that the statistics are those of the real rows alone; with no real row
     the denominator is clamped to one row and mean = var = 0.
+
+    `group`, a mesh's data group: the moments are those of the global batch,
+    every rank's rows (the single-device function, as XLA computes it under
+    a `P("data")` sharding). The sums and the row count are all-reduced, then
+    the centered sum of squares; the all-reduce is differentiable, so the
+    gradient through the moments reaches every rank's rows. Every rank holds
+    the same number of rows.
     """
     axes = tuple(range(x.ndim - 1))
     x32 = x.float()
     per_row = math.prod(x.shape[1:-1])
+    # One formula with and without row weights (and the same bits for
+    # weights of all ones): the count is a device tensor either way, so
+    # every division is a true division, also on the card.
     if row_weights is None:
-        mean = x32.mean(axes)
-        var = (x32 - mean).square().mean(axes)
-        n = x.shape[0] * per_row
-        bessel = n / max(n - 1, 1)
+        w, xw, rows = None, x32, x32.new_full((1,), float(x.shape[0]))
     else:
         w = row_weights.float().reshape((-1,) + (1,) * (x.ndim - 1))
-        n = torch.clamp(row_weights.float().sum(), min=1.0) * per_row
-        mean = (x32 * w).sum(axes) / n
-        var = ((x32 - mean).square() * w).sum(axes) / n
-        bessel = n / torch.clamp(n - 1.0, min=1.0)
+        xw, rows = x32 * w, row_weights.float().sum().reshape(1)
+    packed = C.all_reduce_sum(torch.cat([xw.sum(axes), rows]), group, differentiable=True)
+    n = torch.clamp(packed[-1].detach(), min=1.0) * per_row
+    mean = packed[:-1] / n
+    sq = (x32 - mean).square()
+    var = C.all_reduce_sum((sq if w is None else sq * w).sum(axes), group, differentiable=True) / n
+    bessel = n / torch.clamp(n - 1.0, min=1.0)
     inv = torch.rsqrt(var + eps)
     scale = bn["scale"].float()
     y = x32 * (scale * inv) + (bn["bias"].float() - mean * scale * inv)
@@ -133,12 +145,19 @@ def dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = Non
     return y
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator, group=None) -> torch.Tensor:
     """Inverted dropout (`tf.nn.dropout(rate=...)`, network.py:205): each
     value is kept with probability 1 - rate and scaled by 1 / (1 - rate).
     The mask is drawn from `generator`, on x's device; rate 0 keeps every
-    value (a uniform draw in [0, 1) is always below 1) and scales by 1."""
+    value (a uniform draw in [0, 1) is always below 1) and scales by 1.
+
+    `group`, a mesh's data group: the mask of the global batch is drawn
+    (every rank's generator seeded alike, so every rank draws the same) and
+    this rank keeps its rows, so a world of N computes what a world of one
+    computes on the global batch."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    n, i = x.shape[0], C.index(group)
+    draw = torch.rand((n * C.size(group),) + tuple(x.shape[1:]), generator=generator, device=x.device)
+    mask = draw[i * n:(i + 1) * n] < keep
     scale = 1.0 / max(keep, 1e-8) if keep > 0 else 0.0
     return torch.where(mask, x * scale, x.new_zeros(()))

@@ -1,0 +1,66 @@
+"""The collectives of the data-parallel step, over a mesh's data group.
+
+Only `all_reduce` (SUM) is used, so the same code runs on NCCL and on gloo
+with CUDA tensors (two ranks that share one card go over gloo: NCCL
+refuses two ranks on one device). A gather is a zero-padded all-reduce.
+Every function takes `group=None` as "no group": the local value, so one
+code path serves a single process and a mesh, and a world of one computes
+the same bits as no mesh.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def index(group) -> int:
+    """This rank's place in `group` (0 without one)."""
+    return 0 if group is None else dist.get_rank(group)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """sum over the group's ranks of x, under autograd: each rank's output is
+    the same sum, so the gradient of x is the sum of every rank's incoming
+    gradient (SyncBatchNorm's rule)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def all_reduce_sum(x: torch.Tensor, group, *, differentiable: bool = False) -> torch.Tensor:
+    """A new tensor: x summed over the group (x itself without a group)."""
+    if group is None:
+        return x
+    if differentiable:
+        return _AllReduceSum.apply(x, group)
+    y = x.detach().clone()
+    dist.all_reduce(y, group=group)
+    return y
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """The rows of every rank in rank order, on every rank: each rank's
+    (B, ...) placed in zeros of (size * B, ...) and summed over the group.
+    Every rank must pass the same shape."""
+    if group is None:
+        return x
+    n, i = x.shape[0], index(group)
+    out = x.new_zeros((size(group) * n,) + tuple(x.shape[1:]))
+    out[i * n:(i + 1) * n] = x
+    dist.all_reduce(out, group=group)
+    return out

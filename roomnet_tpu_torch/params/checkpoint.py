@@ -17,8 +17,8 @@ The files are the JAX package's, byte for byte in layout: a flat
 ``opt/nu/<path>``; train/optimizer.py:flatten_opt_state) and the step under
 ``meta/step``. A checkpoint written by either package loads in the other.
 
-The JAX package's other store, orbax directories, is not ported: a model
-dir that holds them raises `OrbaxNotPorted` (ROADMAP.md §1, Scale-out).
+The sharded, asynchronous store is `params/orbax_io.py` (DCP directories);
+`open_store` picks the store a model dir holds.
 """
 
 from __future__ import annotations
@@ -37,11 +37,6 @@ from ..models.roomnet import DEFAULT_CONFIG, RoomNetConfig, Variables
 from . import schema
 
 CKPT_RE = re.compile(r"roomnet--(?P<suffix>.*?)--(?P<step>\d+)\.npz$")
-ORBAX_DIR_RE = re.compile(r"roomnet--(?P<suffix>.*?)--(?P<step>\d+)$")
-
-
-class OrbaxNotPorted(RuntimeError):
-    """The model dir holds the JAX package's orbax checkpoint directories."""
 
 
 def _numpy(v) -> np.ndarray:
@@ -65,19 +60,19 @@ def save_flat(flat: dict[str, np.ndarray], out_path: str, meta: dict | None = No
         json.dump(manifest, f, indent=2, sort_keys=True)
 
 
-def _has_orbax_checkpoints(model_dir: str) -> bool:
-    return any(os.path.isdir(p) and ORBAX_DIR_RE.search(os.path.basename(p))
-               for p in glob(os.path.join(model_dir, "roomnet--*--*")))
+def open_store(model_dir: str):
+    """The model dir's store, as the JAX package detects it: npz files win
+    if present; else a dir of DCP checkpoint directories is an
+    `OrbaxCheckpointStore` (synchronous saves); else an npz store, empty
+    until its first save. A dir of the JAX package's orbax directories
+    raises `orbax_io.JaxOrbaxCheckpoint`, naming them."""
+    if glob(os.path.join(model_dir, "roomnet--*--*.npz")):
+        return CheckpointStore(model_dir)
+    from . import orbax_io
 
-
-def open_store(model_dir: str) -> "CheckpointStore":
-    """The model dir's store: npz files win if present (the JAX package's
-    auto-detection); a dir of orbax checkpoints alone raises
-    `OrbaxNotPorted`; an empty dir is an npz store with nothing in it."""
-    if not glob(os.path.join(model_dir, "roomnet--*--*.npz")) and _has_orbax_checkpoints(model_dir):
-        raise OrbaxNotPorted(
-            f"{model_dir} holds orbax checkpoints; orbax checkpoints are not ported yet "
-            "(ROADMAP.md §1, Scale-out): save npz checkpoints or convert them with roomnet_tpu")
+    orbax_io.refuse_jax_orbax(orbax_io.jax_orbax_dirs(model_dir))
+    if glob(os.path.join(model_dir, "roomnet--*--*", orbax_io.DCP_METADATA)):
+        return orbax_io.OrbaxCheckpointStore(model_dir, async_save=False)
     return CheckpointStore(model_dir)
 
 
@@ -150,11 +145,13 @@ class CheckpointStore:
             if p in keep:
                 continue
             try:
-                os.remove(p)
+                self._delete(p)
                 deleted.append(p)
             except OSError:
                 pass  # a racing reader holding the file open is fine
         return deleted
+
+    _delete = staticmethod(os.remove)
 
     def latest_path(self) -> str | None:
         """The max-step checkpoint in the dir, from the file names."""

@@ -23,8 +23,17 @@ tensors and leaves the state it was given as it was (`train/step.py`), so
 the last completed state that an emergency save writes is a reference,
 taken only after the read that proves its step completed.
 
-Not ported yet (ROADMAP.md §1 item 3, Scale-out): a device mesh, the
-sharded feed and the orbax checkpoint backend. The Trainer refuses them.
+Data-parallel training over a mesh of ranks (`parallel/mesh.py`): every
+rank runs this loop on its own card with the same config and seed, holds
+its rows of each global batch and the replicated state, and the step
+computes the single-device step of the global batch (`train/step.py`), as
+the JAX Trainer's step jitted over a `P("data")` mesh does. With
+feed_mode="replicated" every rank's feeder decodes the whole global batch
+and the rank keeps its rows; with "sharded" it decodes its rows alone. Rank
+0 alone writes npz checkpoints, prunes and writes the stats JSON; the orbax
+backend (`params/orbax_io.py`, DCP) saves collectively from every rank.
+Ranks along a model axis > 1 hold the same rows, as in the JAX Trainer,
+which never applies `variables_shardings`.
 """
 
 from __future__ import annotations
@@ -44,12 +53,11 @@ from ..data.loader import TrainFeeder, on_stream, to_device_async
 from ..models.roomnet import DEFAULT_CONFIG, RoomNetConfig, forward, init_variables, normalize_bgr_uint8
 from ..ops import blocks as B
 from ..params import schema
-from ..params.checkpoint import OrbaxNotPorted, merge_partial_restore, open_store
+from ..parallel import collectives as C
+from ..params.checkpoint import CheckpointStore, merge_partial_restore
 from .metrics import make_stats_entry
 from .optimizer import flatten_opt_state, unflatten_opt_state
 from .step import TrainHParams, TrainState, init_train_state, make_multi_train_step, make_train_step
-
-SCALE_OUT = "is not ported yet (ROADMAP.md §1 item 3, Scale-out)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,8 +76,7 @@ class Phase:
 class TrainConfig:
     """Reference train.py:26-41 constants, typed; plus phases. Every field of
     the JAX package's TrainConfig, so a config written for one package
-    constructs in the other; `feed_mode="sharded"` and `ckpt_backend="orbax"`
-    are refused by the Trainer."""
+    constructs in the other."""
 
     data_dir: str = "./data/REI-Dataset"
     train_list_fpath: str = "train_list.txt"
@@ -92,6 +99,14 @@ class TrainConfig:
     seed: int = 0
     restore_head: bool = True  # False = reference's fresh-dense-head restore
     phases: tuple[Phase, ...] = (Phase(until_step=1 << 62),)
+    # Multi-rank input mode. "replicated": every rank's feeder decodes the
+    # same global batch (the feeder is deterministic per seed) and the rank
+    # keeps its rows; decode is repeated on every rank. "sharded": each rank
+    # decodes only its rows (same epoch order and per-row augment draws, so
+    # the union is the replicated batch row for row). Sharded masks a rank's
+    # unreadable rows out of the loss instead of skipping the batch (a skip
+    # on one rank would desync the collectives). Validation always feeds
+    # replicated. Needs a mesh; no-op without one.
     feed_mode: str = "replicated"
     # Failure detection: warn when no step completes for this long
     # (0 disables). See utils/watchdog.py.
@@ -107,6 +122,8 @@ class TrainConfig:
     # training=compute_bn_mean_var, network.py:128-135, :193). True/False
     # force one mode.
     val_use_batch_stats: bool | None = None
+    # Checkpoint backend: "npz" (portable flat files) or "orbax" (DCP
+    # directories, asynchronous, saved collectively; params/orbax_io.py).
     ckpt_backend: str = "npz"
     # Optimizer steps per call of the step function; the window clamps at
     # phase and save boundaries, so validation cadence and the curriculum
@@ -132,8 +149,9 @@ class TrainConfig:
 
 
 def _cycle_pad(a: np.ndarray, n: int) -> np.ndarray:
-    """Pad (or trim) axis 0 to exactly n rows by cycling existing rows (the
-    multi-step batch stacker's row-padding rule)."""
+    """Pad (or trim) axis 0 to exactly n rows by cycling existing rows — the
+    one row-padding rule of the mesh-divisibility guard and the multi-step
+    batch stacker."""
     if a.shape[0] >= n:
         return a[:n]
     idx = np.arange(n - a.shape[0]) % a.shape[0]
@@ -149,27 +167,31 @@ def phase_at(phases: tuple[Phase, ...], step: int) -> Phase:
 
 class Trainer:
     """Owns the feeders, the step functions (one per phase signature) and
-    the checkpoints. Runs on `device`, default `default_device()` (cuda, or
-    raise)."""
+    the checkpoints. Runs on `device`, default the mesh's device, else
+    `default_device()` (cuda, or raise). `mesh` (`parallel/mesh.py`): data
+    parallelism over its ranks (module docstring); every rank constructs
+    its Trainer alike and calls `train` alike."""
 
     def __init__(self, tc: TrainConfig = TrainConfig(), cfg: RoomNetConfig = DEFAULT_CONFIG,
                  device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(f"a device mesh {SCALE_OUT}")
         if tc.img_side != cfg.im_side:
             raise ValueError(
                 f"TrainConfig.img_side={tc.img_side} (data pipeline) != "
                 f"cfg.im_side={cfg.im_side} (model geometry); pass matching "
                 f"values — the CLI's --img-side sets both"
             )
-        if tc.ckpt_backend != "npz":
-            raise OrbaxNotPorted(f"ckpt_backend={tc.ckpt_backend!r} {SCALE_OUT}; use 'npz'")
-        if tc.feed_mode != "replicated":
-            raise NotImplementedError(f"feed_mode={tc.feed_mode!r} {SCALE_OUT}")
         self.tc = tc
         self.cfg = cfg
-        self.device = default_device(device)
-        self.store = open_store(tc.model_dir)
+        self.mesh = mesh
+        self.device = default_device(device if device is not None or mesh is None else mesh.device)
+        self._group = mesh.group("data") if mesh is not None else None
+        self._rank = mesh.rank if mesh is not None else 0
+        if tc.ckpt_backend == "orbax":
+            from ..params.orbax_io import OrbaxCheckpointStore
+
+            self.store = OrbaxCheckpointStore(tc.model_dir)
+        else:
+            self.store = CheckpointStore(tc.model_dir)
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._compiled: dict = {}
         self._infer_fns: dict = {}
@@ -203,6 +225,77 @@ class Trainer:
         print(f"Model restored at step {step}")
         return state
 
+    def _n_data(self) -> int:
+        return 1 if self.mesh is None else int(self.mesh.shape.get("data", 1))
+
+    def _to_global(self, x: np.ndarray, *, leading_steps: bool = False, from_local: bool = False) -> np.ndarray:
+        """This rank's rows of a host batch. Without a mesh, or for a sharded
+        feed's batch (from_local: the rank decoded its rows alone), the batch
+        itself; a replicated batch gives the rows of the rank's data
+        coordinate. leading_steps: a (K, batch, ...) stack, rows on axis 1."""
+        n = self._n_data()
+        if n == 1 or from_local:
+            return x
+        axis = 1 if leading_steps else 0
+        rows = x.shape[axis] // n
+        d = self.mesh.coords[0]
+        return x[:, d * rows:(d + 1) * rows] if leading_steps else x[d * rows:(d + 1) * rows]
+
+    def _feed_rows(self, global_batch: int) -> tuple[int, int] | None:
+        """This rank's row slice of the nominal batch under
+        feed_mode="sharded" (None in replicated mode / without a mesh)."""
+        if self.tc.feed_mode != "sharded" or self.mesh is None:
+            return None
+        n = self._n_data()
+        if global_batch % n:
+            raise ValueError(f"sharded feed: batch {global_batch} not divisible by the {n}-rank data axis")
+        local, d = global_batch // n, self.mesh.coords[0]
+        return (d * local, (d + 1) * local)
+
+    def _feeder_batch(self, mesh_bs: int, n_usable: int) -> int:
+        """Clamp the nominal batch to the dataset size BEFORE slicing it into
+        sharded-feed rows (the feeder clamps its batch anyway; rows computed
+        against the unclamped batch would fail its range check). The sharded
+        global batch is rounded down to a multiple of lcm(ranks, data axis),
+        so that it slices evenly, dropping fewer than that many tail rows per
+        epoch, as the feeder's own epoch tail does."""
+        eff = min(mesh_bs, n_usable)
+        if self.tc.feed_mode == "sharded" and self.mesh is not None:
+            import math
+
+            quantum = math.lcm(self.mesh.size, self._n_data())
+            eff = (eff // quantum) * quantum
+            if eff == 0:
+                raise ValueError(
+                    f"sharded feed: {n_usable} usable rows cannot fill one batch quantum of {quantum} "
+                    f"(ranks x data axis); use feed_mode='replicated' for datasets this small")
+        return eff
+
+    def _pad_for_mesh(self, x, y=None):
+        """Pad a host batch up to a multiple of the 'data' axis by cycling
+        rows: the guard for batches the feeder shrank (unreadable files
+        dropped, a dataset smaller than the rounded batch)."""
+        n = self._n_data()
+        rem = x.shape[0] % n
+        if rem == 0:
+            return (x, y) if y is not None else x
+        target = x.shape[0] + (n - rem)
+        x = _cycle_pad(x, target)
+        return x if y is None else (x, _cycle_pad(y, target))
+
+    def _mesh_batch(self, batch_size: int) -> int:
+        """Round a batch size UP to a multiple of the mesh's 'data' axis, so
+        that every rank holds as many rows. Ceiling, never floor: the global
+        batch must not shrink below the phase's size (45 on two ranks is
+        46, not 44). No-op without a mesh."""
+        n = self._n_data()
+        if self.mesh is None:
+            return batch_size
+        rounded = max(n, -(-batch_size // n) * n)
+        if rounded != batch_size:
+            print(f"batch {batch_size} -> {rounded} (multiple of data axis {n})")
+        return rounded
+
     def _hp(self, ph: Phase) -> TrainHParams:
         return TrainHParams(
             learn_rate=self.tc.learn_rate,
@@ -222,23 +315,27 @@ class Trainer:
         key = (ph.dropout_enabled, ph.dropout_rate, ph.compute_bn_mean_var, ph.update_bn_moving, multi)
         if key not in self._compiled:
             factory = make_multi_train_step if multi else make_train_step
-            self._compiled[key] = factory(self._hp(ph), self.cfg)
+            self._compiled[key] = factory(self._hp(ph), self.cfg, group=self._group)
         return self._compiled[key]
 
     def infer_fn(self, use_batch_stats: bool = False):
         """Validation forward: (train_vars, frozen_vars, x_uint8) -> argmax.
         `use_batch_stats=True` is the reference's validation during
         BN-unfrozen phases: `nn.infer` runs the same graph with
-        training=compute_bn_mean_var (network.py:128-135, :193)."""
+        training=compute_bn_mean_var (network.py:128-135, :193).
+
+        Under a mesh, x_uint8 is this rank's rows; the predictions of every
+        rank's rows come back on every rank (the JAX Trainer's replicated
+        output), and batch statistics are the global batch's."""
         if use_batch_stats not in self._infer_fns:
-            cfg = self.cfg
+            cfg, group = self.cfg, self._group
 
             def _infer(train_vars, frozen_vars, x_uint8):
                 variables = schema.unflatten_variables({**train_vars, **frozen_vars}, cfg)
                 with torch.no_grad(), B.full_f32():
                     logits = forward(variables, normalize_bgr_uint8(x_uint8), cfg,
-                                     use_batch_stats=use_batch_stats)
-                return logits.argmax(dim=-1)
+                                     use_batch_stats=use_batch_stats, group=group)
+                return C.gather_rows(logits.argmax(dim=-1), group)
 
             self._infer_fns[use_batch_stats] = _infer
         return self._infer_fns[use_batch_stats]
@@ -263,8 +360,9 @@ class Trainer:
                 # toward accuracy: drop their labels and skip the infer.
                 del y_vals[len(y_vals) - len(y_val):]
             else:
-                x_dev = torch.from_numpy(x_val).to(self.device)
-                y_preds += list(infer(state.train_vars, state.frozen_vars, x_dev).cpu().numpy())
+                n_real = x_val.shape[0]
+                x_dev = torch.from_numpy(self._to_global(self._pad_for_mesh(x_val))).to(self.device)
+                y_preds += list(infer(state.train_vars, state.frozen_vars, x_dev).cpu().numpy()[:n_real])
             x_val, y_val = val_reader.dequeue()
             y_vals += list(y_val)
             if val_reader.train_state["previous_epoch_done"]:
@@ -305,14 +403,17 @@ class Trainer:
                 os.replace(tc.stats_fpath, quarantine)
                 print(f"stats file unparseable — moved to {quarantine}; starting a fresh stats history")
 
+        n_usable = sum(1 for line in train_txt if str(line).strip())
+
         def feeder(batch_size: int) -> TrainFeeder:
-            return TrainFeeder(train_txt, batch_size=batch_size, batches_per_queue=tc.batches_per_queue,
+            mesh_bs = self._feeder_batch(self._mesh_batch(batch_size), n_usable)
+            return TrainFeeder(train_txt, batch_size=mesh_bs, batches_per_queue=tc.batches_per_queue,
                                shuffle=True, im_side=tc.img_side, random_crop=True, preprocess=True,
-                               seed=tc.seed)
+                               seed=tc.seed, rows=self._feed_rows(mesh_bs))
 
         ph = phase_at(tc.phases, start_step)
         train_reader = feeder(ph.batch_size)
-        val_reader = TrainFeeder(val_txt, batch_size=tc.val_batch_size, batches_per_queue=10,
+        val_reader = TrainFeeder(val_txt, batch_size=self._mesh_batch(tc.val_batch_size), batches_per_queue=10,
                                  shuffle=False, im_side=tc.img_side, random_crop=False, preprocess=False,
                                  seed=tc.seed)
         from ..utils.watchdog import StepWatchdog
@@ -324,13 +425,26 @@ class Trainer:
         self._live_state = None  # last state whose step is known complete
 
         def _emergency_save(st, suffix: str):
-            """Best-effort save of the last COMPLETED state (stall or interrupt)."""
+            """Best-effort save of the last COMPLETED state (stall or
+            interrupt). Rank 0 with npz: a normal resumable save into the
+            model dir. Otherwise (the orbax backend, or rank > 0): a
+            collective save cannot be driven from the watchdog thread or an
+            exception handler without hanging the other ranks, so a local
+            npz dump under model_dir/emergency/ instead."""
             if st is None:
                 print(f"{suffix}: no completed step state yet — nothing to dump")
                 return
-            path = self.store.save(st.variables(self.cfg), int(st.step), suffix=suffix,
-                                   opt_state_flat=flatten_opt_state(st.opt_state))
-            print(f"{suffix}: emergency checkpoint written to {path}")
+            if tc.ckpt_backend != "orbax" and self._rank == 0:
+                path = self.store.save(st.variables(self.cfg), int(st.step), suffix=suffix,
+                                       opt_state_flat=flatten_opt_state(st.opt_state))
+                print(f"{suffix}: emergency checkpoint written to {path}")
+                return
+            dump = CheckpointStore(os.path.join(tc.model_dir, "emergency"))
+            path = dump.save(st.variables(self.cfg), int(st.step), suffix=f"{suffix}-rank{self._rank}",
+                             opt_state_flat=flatten_opt_state(st.opt_state))
+            print(f"{suffix}: collective checkpointing unavailable here (backend={tc.ckpt_backend}, "
+                  f"rank={self._rank}) — local npz emergency dump written to {path}; restore it with "
+                  "CheckpointStore.load")
 
         self._stall_aborting = False
         # Set when the watchdog thread's stall save finishes: with stall_abort
@@ -362,15 +476,35 @@ class Trainer:
         # resume restarts it, as the JAX package restarts its key).
         rng = torch.Generator(self.device).manual_seed(tc.seed + 1)
         pending = None  # the next window's batch, staged while a step runs
+        consec_synthetic = 0  # sharded feed: batches in a row whose slice was all unreadable
 
         def fetch_host_batch():
+            nonlocal consec_synthetic
+            if train_reader.rows is not None:
+                # Sharded feed: never skip — a skip on one rank would desync
+                # the ranks' batch streams and hang the collectives. An
+                # unreadable local slice weighs nothing through the row mask
+                # (and a batch with no real row on any rank is a state no-op
+                # in the step). A slice unreadable for a whole epoch means
+                # this rank's files are gone: raise, as the replicated path.
+                x, y = train_reader.dequeue()
+                lo, hi = train_reader.rows
+                n_real = 0 if train_reader.last_batch_synthetic else x.shape[0]
+                consec_synthetic = consec_synthetic + 1 if n_real == 0 else 0
+                if consec_synthetic > max(train_reader.batches_per_epoch, 1):
+                    raise RuntimeError(
+                        "sharded feed: every batch in a full epoch of this rank's row slice was unreadable "
+                        "— dataset files missing or corrupt on this host")
+                return _cycle_pad(x, hi - lo), _cycle_pad(y, hi - lo), n_real
             # Skip synthetic batches (whole batch unreadable — fabricated zeros
             # labelled class 0), bounded by one epoch of consecutive misses,
             # after which the dataset is plainly gone.
             for _ in range(max(train_reader.batches_per_epoch, 1) + 1):
                 x, y = train_reader.dequeue()
                 if not train_reader.last_batch_synthetic:
-                    return x, y, x.shape[0]
+                    n_real = x.shape[0]  # before the mesh's row-cycling pad
+                    x, y = self._pad_for_mesh(x, y)
+                    return x, y, n_real
                 print("skipping synthetic batch (all files unreadable)")
             raise RuntimeError(
                 "every batch in a full epoch was unreadable — dataset files "
@@ -378,22 +512,39 @@ class Trainer:
             )
 
         def fetch_next(k: int):
-            """k host batches, staged to the device: (x, y) for k == 1 (a
-            shrunk batch keeps its shape); (x, y, mask) for k > 1, stacked to
-            (k, B, ...) with every batch cycle-padded to the nominal size and
-            a (k, B) float mask of the real rows, so padding carries no
+            """k host batches, staged to the device as this rank's rows:
+            (x, y) for k == 1 (a shrunk batch keeps its shape), with a (B,)
+            float mask of the real rows where rows were padded (the mesh's
+            divisibility pad) and always under the sharded feed; for k > 1
+            (x, y, mask) stacked to (k, B, ...), every batch cycle-padded to
+            the nominal size and the mask (k, B), so padding carries no
             gradient weight, as with k == 1."""
+            sharded = train_reader.rows is not None
             if k == 1:
-                x, y, _ = fetch_host_batch()
-                return to_device_async((x, y), self.device, self._copy_stream)
-            n = train_reader.batch_size
+                x, y, n_real = fetch_host_batch()
+                arrays = (x, y)
+                if sharded or x.shape[0] != n_real:
+                    mask = np.zeros((x.shape[0],), np.float32)
+                    mask[:n_real] = 1.0
+                    arrays = (x, y, mask)
+                return to_device_async([self._to_global(a, from_local=sharded) for a in arrays],
+                                       self.device, self._copy_stream)
+            if sharded:
+                n = train_reader.rows[1] - train_reader.rows[0]
+            else:
+                # The feeder may have clamped its batch below the mesh's
+                # rounding (a dataset smaller than the phase batch): pad the
+                # rows up to the data-axis multiple, masked out below.
+                d = self._n_data()
+                n = -(-train_reader.batch_size // d) * d
             triples = [fetch_host_batch() for _ in range(k)]
             x = np.stack([_cycle_pad(t[0], n) for t in triples])
             y = np.stack([_cycle_pad(t[1], n) for t in triples])
             mask = np.zeros((k, n), np.float32)
             for j, t in enumerate(triples):
                 mask[j, : min(t[2], n)] = 1.0
-            return to_device_async((x, y, mask), self.device, self._copy_stream)
+            return to_device_async([self._to_global(a, leading_steps=True, from_local=sharded)
+                                    for a in (x, y, mask)], self.device, self._copy_stream)
 
         end_step = start_step + total_steps
 
@@ -439,18 +590,30 @@ class Trainer:
                     if watchdog:
                         watchdog.resume()
                     entry = make_stats_entry(int(state.step), y_vals, y_preds)
-                    self.store.save(state.variables(self.cfg), int(state.step), suffix=str(entry["accuracy"]),
-                                    opt_state_flat=flatten_opt_state(state.opt_state))
-                    if tc.keep_checkpoints:
+                    # The npz store is a plain file write: every rank saving
+                    # would race identical bytes through one tmp path, so rank
+                    # 0 alone writes (the state is replicated). The orbax
+                    # backend's save is collective: every rank calls it.
+                    is_rank0 = self._rank == 0
+                    if tc.ckpt_backend == "orbax" or is_rank0:
+                        self.store.save(state.variables(self.cfg), int(state.step),
+                                        suffix=str(entry["accuracy"]),
+                                        opt_state_flat=flatten_opt_state(state.opt_state))
+                    if tc.keep_checkpoints and is_rank0:
+                        # Prune sees finished checkpoints only: an async write
+                        # lands first.
+                        if hasattr(self.store, "wait"):
+                            self.store.wait()
                         self.store.prune(tc.keep_checkpoints)
-                    all_stats.append(entry)
-                    # Atomic tmp+rename: an unclean death mid-write must not
-                    # leave truncated JSON for the next resume.
-                    tmp = tc.stats_fpath + ".tmp"
-                    with open(tmp, "w") as f:
-                        json.dump(all_stats, f, indent=4, sort_keys=True)
-                    os.replace(tmp, tc.stats_fpath)
-                    print(f"Validated at step {int(state.step)}: acc {entry['accuracy']:.4f}")
+                    if is_rank0:
+                        all_stats.append(entry)
+                        # Atomic tmp+rename: an unclean death mid-write must
+                        # not leave truncated JSON for the next resume.
+                        tmp = tc.stats_fpath + ".tmp"
+                        with open(tmp, "w") as f:
+                            json.dump(all_stats, f, indent=4, sort_keys=True)
+                        os.replace(tmp, tc.stats_fpath)
+                        print(f"Validated at step {int(state.step)}: acc {entry['accuracy']:.4f}")
                 k = window(it)
                 staged = pending if pending is not None else fetch_next(k)
                 pending = None
@@ -467,6 +630,8 @@ class Trainer:
                     watchdog.pause()
                 if k > 1:
                     state, metrics = self._step_fn(ph, multi=True)(state, x, y, rng, mk[0])
+                elif mk:  # masked rows (sharded feed, or the mesh's pad)
+                    state, metrics = self._step_fn(ph)(state, x, y, rng, mk[0])
                 else:
                     state, metrics = self._step_fn(ph)(state, x, y, rng)
                 if first_call:
@@ -508,6 +673,8 @@ class Trainer:
                 signal.signal(signal.SIGTERM, old_sigterm)
             if watchdog:
                 watchdog.stop()
+            if hasattr(self.store, "wait"):
+                self.store.wait()  # an async (orbax) save lands before the run returns
             train_reader.close()
             val_reader.close()
         return state

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ..models.roomnet import DEFAULT_CONFIG, RoomNetConfig, forward, normalize_bgr_uint8, update_moving_stats
 from ..ops import blocks as B
+from ..parallel import collectives as C
 from ..params import schema
 from .optimizer import TF1AdamState, exponential_decay, tf1_adam
 
@@ -72,13 +73,20 @@ def init_train_state(variables, hp: TrainHParams = TrainHParams()) -> TrainState
 
 
 def loss_fn(train_vars, frozen_vars, x_norm, y, hp: TrainHParams, cfg: RoomNetConfig,
-            generator: torch.Generator | None = None, row_mask: torch.Tensor | None = None):
-    """(loss, (logits, bn_stats or None)).
+            generator: torch.Generator | None = None, row_mask: torch.Tensor | None = None, group=None):
+    """(loss, (logits, bn_stats or None, count)).
 
     row_mask: optional float (B,) of 1.0 (real row) / 0.0 (padding). Masked
     rows add nothing to the CE, whose mean divides by the real rows, nor to
     the BN batch statistics, so a padded batch computes the loss, gradients
-    and statistics of the shrunk batch of its real rows."""
+    and statistics of the shrunk batch of its real rows.
+
+    group: a mesh's data group. The loss is then this rank's share of the
+    global batch's: its CE sum over the global count of real rows, plus
+    L2 / world, so that the shares summed over the ranks are the
+    single-device loss, and so are their gradients summed (`make_train_step`).
+    `count` is that global count of real rows, before the clamp to one.
+    """
     variables = schema.unflatten_variables({**train_vars, **frozen_vars}, cfg)
     out = forward(
         variables, x_norm, cfg,
@@ -87,19 +95,25 @@ def loss_fn(train_vars, frozen_vars, x_norm, y, hp: TrainHParams, cfg: RoomNetCo
         dropout_rate=hp.dropout_rate if hp.dropout_enabled else None,
         generator=generator if hp.dropout_enabled else None,
         batch_row_mask=row_mask,
+        group=group,
     )
     logits, bn_stats = out if isinstance(out, tuple) else (out, None)
     ce = F.cross_entropy(logits, y.long(), reduction="none")
     l2 = hp.l2_coeff * 0.5 * torch.stack([v.float().square().sum() for v in train_vars.values()]).sum()
+    world = C.size(group)
+    # One formula with and without a mask (and the same bits for a mask of
+    # ones): the count of real rows is a device tensor either way.
     if row_mask is None:
-        ce_mean = ce.mean()
+        ce_sum, local = ce.sum(), ce.new_full((), float(ce.shape[0]))
     else:
         m = row_mask.to(ce.dtype)
-        ce_mean = (ce * m).sum() / torch.clamp(m.sum(), min=1.0)
-    return ce_mean + l2, (logits, bn_stats)
+        ce_sum, local = (ce * m).sum(), m.sum()
+    count = C.all_reduce_sum(local, group)
+    return ce_sum / torch.clamp(count, min=1.0) + l2 / world, (logits, bn_stats, count)
 
 
-def make_train_step(hp: TrainHParams = TrainHParams(), cfg: RoomNetConfig = DEFAULT_CONFIG) -> Callable:
+def make_train_step(hp: TrainHParams = TrainHParams(), cfg: RoomNetConfig = DEFAULT_CONFIG, *,
+                    group=None) -> Callable:
     """step(state, x_bgr_uint8, y, generator=None, row_mask=None, *,
     mark=None) -> (state, metrics).
 
@@ -110,20 +124,41 @@ def make_train_step(hp: TrainHParams = TrainHParams(), cfg: RoomNetConfig = DEFA
     then "backward" as each part of the step has been issued (a timer
     records a CUDA event there). The forward and backward run with TF32
     off (`blocks.full_f32`), so f32 steps are full f32 on the card.
+
+    `group`, a mesh's data group: the step takes this rank's rows of the
+    global batch and computes the single-device step of the global batch,
+    as the JAX step jitted over a `P("data")` mesh does. BN moments and the
+    real-row count are global (`loss_fn`), the gradients are all-reduced
+    with SUM (each rank's is the gradient of its share of the loss), and so
+    are the loss and the hits of the metrics. The update, the moving stats
+    and the step then come out the same on every rank, with no broadcast.
+    Every rank must pass the same shapes and a generator seeded alike.
     """
     opt = _optimizer(hp)
 
     def step_fn(state: TrainState, x_bgr_uint8, y, generator=None, row_mask=None, *, mark=None):
         params = {k: v.detach().requires_grad_() for k, v in state.train_vars.items()}
         with B.full_f32():
-            loss, (logits, bn_stats) = loss_fn(params, state.frozen_vars, normalize_bgr_uint8(x_bgr_uint8),
-                                               y, hp, cfg, generator, row_mask)
+            loss, (logits, bn_stats, count) = loss_fn(params, state.frozen_vars, normalize_bgr_uint8(x_bgr_uint8),
+                                                      y, hp, cfg, generator, row_mask, group)
             if mark is not None:
                 mark("forward")
             grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
             if mark is not None:
                 mark("backward")
         grads = {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(params.items(), grads)}
+        hits = (logits.detach().argmax(-1) == y).float()
+        if row_mask is not None:
+            hits = hits * row_mask.float()
+        hit_sum, loss = hits.sum(), loss.detach()
+        if group is not None:
+            # One all-reduce for the gradients and the metrics' sums.
+            keys = list(grads)
+            flat = C.all_reduce_sum(torch.cat([grads[k].reshape(-1) for k in keys]
+                                              + [loss.reshape(1), hit_sum.reshape(1)]), group)
+            parts = flat.split([grads[k].numel() for k in keys] + [1, 1])
+            grads = {k: p.view_as(grads[k]) for k, p in zip(keys, parts)}
+            loss, hit_sum = parts[-2][0], parts[-1][0]
         # step=state.step: the schedule follows the global step, not Adam's
         # moment count, so the applied LR and metrics["learn_rate"] agree.
         updates, opt_state = opt.update(grads, state.opt_state, step=state.step)
@@ -137,15 +172,14 @@ def make_train_step(hp: TrainHParams = TrainHParams(), cfg: RoomNetConfig = DEFA
             merged = schema.unflatten_variables({**state.train_vars, **frozen_vars}, cfg)
             updated = update_moving_stats(merged, bn_stats, cfg.bn_momentum)
             frozen_vars = schema.partition_flat(schema.flatten_tensors(updated))[1]
-        hits = (logits.detach().argmax(-1) == y).float()
-        if row_mask is None:
-            acc = hits.mean()
-        else:
-            # A batch with no real row is a state no-op: the masked CE is
-            # zero but the L2 gradient, Adam's moments and the BN averages
-            # would still move. `where`, not a host-side branch, keeps the
-            # step free of a sync.
-            has_real = row_mask.sum() > 0
+        acc = hit_sum / torch.clamp(count, min=1.0)
+        if row_mask is not None:
+            # A batch with no real row (over every rank) is a state no-op:
+            # the masked CE is zero but the L2 gradient, Adam's moments and
+            # the BN averages would still move. `where`, not a host-side
+            # branch, keeps the step free of a sync, and every rank runs the
+            # same collectives.
+            has_real = count > 0
 
             def keep(new: dict, old: dict) -> dict:
                 return {k: torch.where(has_real, new[k], old[k]) for k in new}
@@ -155,21 +189,20 @@ def make_train_step(hp: TrainHParams = TrainHParams(), cfg: RoomNetConfig = DEFA
             old = state.opt_state
             opt_state = TF1AdamState(count=torch.where(has_real, opt_state.count, old.count),
                                      mu=keep(opt_state.mu, old.mu), nu=keep(opt_state.nu, old.nu))
-            m = row_mask.float()
-            acc = (hits * m).sum() / torch.clamp(m.sum(), min=1.0)
-        metrics = {"loss": loss.detach(), "learn_rate": opt.learning_rate(state.step), "accuracy": acc}
+        metrics = {"loss": loss, "learn_rate": opt.learning_rate(state.step), "accuracy": acc}
         return TrainState(step=state.step + 1, train_vars=train_vars, frozen_vars=frozen_vars,
                           opt_state=opt_state), metrics
 
     return step_fn
 
 
-def make_multi_train_step(hp: TrainHParams = TrainHParams(), cfg: RoomNetConfig = DEFAULT_CONFIG) -> Callable:
+def make_multi_train_step(hp: TrainHParams = TrainHParams(), cfg: RoomNetConfig = DEFAULT_CONFIG, *,
+                          group=None) -> Callable:
     """multi_step(state, x[K,B,S,S,3] uint8, y[K,B], generator=None,
     row_mask[K,B]=None) -> (state, metrics): K train steps in one call, the
     same as K calls of `make_train_step`'s step with the same generator.
     The metrics are the last step's plus `mean_loss` over the K."""
-    step_fn = make_train_step(hp, cfg)
+    step_fn = make_train_step(hp, cfg, group=group)
 
     def multi_step_fn(state: TrainState, x_k, y_k, generator=None, row_mask_k=None):
         losses = []

@@ -167,11 +167,21 @@ def test_prune_keeps_newest_best_and_markers(tmp_path, variables):
 
 
 def test_open_store_refuses_orbax_directories(tmp_path):
+    """open_store refuses a dir of the JAX package's orbax directories (found
+    by orbax's own files), naming them; the port's DCP directories open as
+    its orbax store; npz files win where both are present (the JAX
+    package's detection)."""
+    from roomnet_tpu_torch.params import orbax_io
+
     (tmp_path / "roomnet--0.8--12").mkdir()
-    with pytest.raises(tckpt.OrbaxNotPorted, match="not ported yet"):
+    (tmp_path / "roomnet--0.8--12" / "_CHECKPOINT_METADATA").write_text("{}")
+    with pytest.raises(orbax_io.JaxOrbaxCheckpoint, match="roomnet--0.8--12"):
         tckpt.open_store(str(tmp_path))
-    # npz files win where both are present (the JAX package's detection)
-    tckpt.CheckpointStore(str(tmp_path)).save(init_variables(torch.Generator().manual_seed(1), CFG), 3)
+    dcp_dir = tmp_path / "dcp"
+    variables = init_variables(torch.Generator().manual_seed(1), CFG)
+    orbax_io.OrbaxCheckpointStore(str(dcp_dir), async_save=False).save(variables, 5)
+    assert isinstance(tckpt.open_store(str(dcp_dir)), orbax_io.OrbaxCheckpointStore)
+    tckpt.CheckpointStore(str(tmp_path)).save(variables, 3)
     assert [s for s, _, _ in tckpt.open_store(str(tmp_path)).list_checkpoints()] == [3]
 
 
@@ -330,12 +340,45 @@ def test_evaluate_checkpoints_matches_roomnet_tpu(tmp_path, weights):
 
 
 def test_evaluate_checkpoints_refuses_empty_and_orbax(tmp_path):
+    """An empty dir raises with every backend; a dir of the JAX package's
+    orbax directories is refused by name (auto and orbax); an unknown
+    backend raises."""
+    from roomnet_tpu_torch.params import orbax_io
+
     lst = tmp_path / "list.txt"
     lst.write_text("")
-    with pytest.raises(FileNotFoundError):
-        TC.evaluate_checkpoints(str(tmp_path / "nothing"), str(lst), CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="orbax"):
-        TC.evaluate_checkpoints(str(tmp_path / "nothing"), str(lst), CFG, backend="orbax", device="cpu")
+    for backend in ("auto", "npz", "orbax"):
+        with pytest.raises(FileNotFoundError):
+            TC.evaluate_checkpoints(str(tmp_path / "nothing"), str(lst), CFG, backend=backend, device="cpu")
     (tmp_path / "orbax" / "roomnet--0.8--20").mkdir(parents=True)
-    with pytest.raises(tckpt.OrbaxNotPorted):
-        TC.evaluate_checkpoints(str(tmp_path / "orbax"), str(lst), CFG, device="cpu")
+    (tmp_path / "orbax" / "roomnet--0.8--20" / "manifest.ocdbt").write_bytes(b"")
+    for backend in ("auto", "orbax"):
+        with pytest.raises(orbax_io.JaxOrbaxCheckpoint, match="roomnet--0.8--20"):
+            TC.evaluate_checkpoints(str(tmp_path / "orbax"), str(lst), CFG, backend=backend, device="cpu")
+    with pytest.raises(ValueError, match="backend"):
+        TC.evaluate_checkpoints(str(tmp_path / "orbax"), str(lst), CFG, backend="tf", device="cpu")
+
+
+def test_evaluate_checkpoints_on_dcp_directories_matches_npz(tmp_path, weights):
+    """The same three checkpoints in the port's DCP store and in the JAX
+    package's npz store: equal entries but for the names, through the
+    orbax backend and through auto-detection."""
+    from roomnet_tpu_torch.params.orbax_io import OrbaxCheckpointStore
+
+    flat_a, flat_b = weights
+    paths = _write_images(str(tmp_path / "imgs"), 6)
+    npz = jckpt.CheckpointStore(str(tmp_path / "npz"))
+    dcp = OrbaxCheckpointStore(str(tmp_path / "dcp"), async_save=False)
+    for flat, step, sfx in ((flat_b, 100, "0.5000"), (flat_a, 200, "0.9000"), (flat_b, 300, "interrupt")):
+        npz.save(jschema.unflatten_variables(flat, TINY), step, suffix=sfx)
+        dcp.save(schema.variables_from_numpy(flat, CFG, "cpu"), step, suffix=sfx)
+    lst = tmp_path / "list.txt"
+    lst.write_text("".join(f"{p} {i % 4}\n" for i, p in enumerate(paths)))
+    want = TC.evaluate_checkpoints(str(tmp_path / "npz"), str(lst), CFG, batch_size=4, class_labels=LABELS4,
+                                   device="cpu")
+    for backend in ("orbax", "auto"):
+        got = TC.evaluate_checkpoints(str(tmp_path / "dcp"), str(lst), CFG, batch_size=4, class_labels=LABELS4,
+                                      backend=backend, device="cpu")
+        for g, w in zip(got["checkpoints"] + [got["best"]], want["checkpoints"] + [want["best"]]):
+            assert g["checkpoint"] == w["checkpoint"][: -len(".npz")]
+            assert {k: v for k, v in g.items() if k != "checkpoint"} == {k: v for k, v in w.items() if k != "checkpoint"}

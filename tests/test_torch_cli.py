@@ -113,12 +113,13 @@ def test_cli_parses_the_ported_subcommands_only():
     for argv in [*SUBCOMMANDS.values(),
                  ["infer", "--images-dir", "/x", "--no-overlay", "--exact", "--device", "cpu"],
                  ["serve", "--port", "0", "--drain", "10", "--auto-reload", "1", "--model-dir", "/m"],
-                 ["eval-ckpts", "--model-dir", "/m", "--list-file", "/x", "--ckpt-backend", "npz"]]:
+                 ["eval-ckpts", "--model-dir", "/m", "--list-file", "/x", "--ckpt-backend", "npz"],
+                 ["eval-ckpts", "--model-dir", "/m", "--list-file", "/x", "--ckpt-backend", "orbax", "--data-parallel"],
+                 ["infer", "--images-dir", "/x", "--data-parallel"], ["validate", "--list-file", "/x", "--data-parallel"],
+                 ["train", "--data-parallel"], ["train", "--ckpt-backend", "orbax"], ["train", "--feed-mode", "sharded"]]:
         assert callable(p.parse_args(argv).fn)
     for argv in (["convert"], ["convert-to-tf"], ["plot"], ["plot-checkpoints"], ["label"],
-                 ["export"], ["bench"], ["serve", "--profile-port", "1"], ["serve", "--data-parallel"],
-                 ["eval-ckpts", "--model-dir", "/m", "--list-file", "/x", "--ckpt-backend", "orbax"],
-                 ["train", "--data-parallel"], ["train", "--ckpt-backend", "orbax"], ["train", "--feed-mode", "sharded"]):
+                 ["export"], ["bench"], ["serve", "--profile-port", "1"], ["serve", "--data-parallel"]):
         with pytest.raises(SystemExit):
             p.parse_args(argv)
 

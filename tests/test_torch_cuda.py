@@ -5,7 +5,9 @@ against one batch at a time, fed arrays through its decode seam; each
 kernel's autograd Function against autograd through its plain version, and
 the launches of one training step; the training loop against hand-driven
 steps, its staging under slow steps and slow copies, its stall checkpoint
-while steps are in flight, and `device_prefetch` under a slow consumer.
+while steps are in flight, and `device_prefetch` under a slow consumer;
+two ranks on the one card over gloo against one rank, and the DCP store
+with tensors on the card.
 
 Every test here is marked `cuda` and skips where no GPU is present. The file
 imports neither JAX nor roomnet_tpu, so it runs on a machine without them:
@@ -852,3 +854,74 @@ def test_cuda_device_prefetch_with_a_slow_consumer(cuda_device):
         seen.append((x.sum(dtype=torch.int64), y.sum(dtype=torch.int64)))
     assert [(int(a), int(b)) for a, b in seen] == [(int(x.astype(np.int64).sum()), int(y.sum()))
                                                     for x, y in batches]
+
+
+def _dp_inputs():
+    """tiny-geometry variables with random BN fields (as a trained model
+    has) and a batch of 8, from numpy seeds."""
+    from roomnet_tpu_torch.params import schema
+
+    rng = np.random.RandomState(21)
+    flat = schema.flatten_variables(M.init_variables(torch.Generator().manual_seed(3), chip_smoke.tiny_config()))
+    for k in flat:
+        if "bn/" in k:
+            n = flat[k].shape
+            flat[k] = {"scale": rng.rand(*n) + 0.5, "bias": rng.randn(*n) * 0.1, "mean": rng.randn(*n) * 0.1,
+                       "var": rng.rand(*n) + 0.5}[k.rsplit("/", 1)[1]].astype(np.float32)
+    x = rng.randint(0, 256, (8, 32, 32, 3)).astype(np.uint8)
+    y = rng.randint(0, 4, (8,)).astype(np.int32)
+    return flat, x, y
+
+
+@pytest.mark.cuda
+def test_cuda_two_ranks_on_one_card_match_one_rank(cuda_device, tmp_path):
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device): three DP steps, inference BN and batch statistics, against the
+    global batch on one rank in this process. Params, moving stats and the
+    Adam count within 1e-4, the moments under batch statistics within 5e-3
+    of their largest (tests/test_torch_parallel.py's rule); both ranks hold
+    the same state; each rank launches 10/10/3/1 kernels per tiny step with
+    inference BN (3 convs, 3 pools, 1 residual at tiny) and no head with
+    batch statistics."""
+    import torch_dp_worker as W
+
+    flat, x, y = _dp_inputs()
+    hp = dict(learn_rate=1e-3, num_steps=1000, l2_coeff=6e-2)
+    cases = {"infbn": dict(hp=hp, steps=3),
+             "trainbn": dict(hp=dict(hp, compute_bn_mean_var=True, update_bn_moving=True), steps=3)}
+    ranks = W.spawn("dp_steps", 2, tmp_path, flat=flat, x=x, y=y, cases=cases, device="cuda")
+    for name, c in cases.items():
+        one = W._steps(flat, x, y, c["hp"], c["steps"], group=None, rank=0, world=1, device="cuda")
+        got = ranks[0][name]["state"]
+        for k, v in got.items():
+            np.testing.assert_array_equal(ranks[1][name]["state"][k], v, err_msg=k)
+        moments = {k for k in got if k.startswith(("opt/mu/", "opt/nu/"))} if name == "trainbn" else set()
+        for k in moments:
+            assert np.abs(got[k].astype(np.float64) - one["state"][k]).max() <= 5e-3 * np.abs(one["state"][k]).max()
+        chip_smoke.state_gap({k: v for k, v in got.items() if k not in moments},
+                             {k: v for k, v in one["state"].items() if k not in moments}, 1e-4)
+        per_step = [3, 3, 1, 1] if name == "infbn" else [3, 3, 1, 0]
+        for r in ranks:
+            assert r[name]["launches"] == [n * 3 for n in per_step], r[name]["launches"]
+
+
+@pytest.mark.cuda
+def test_cuda_dcp_store_on_the_card(cuda_device, tmp_path):
+    """The orbax (DCP) store with variables and Adam state on the card: an
+    asynchronous save, `wait`, and a load equal to what was saved."""
+    from roomnet_tpu_torch.params import schema
+    from roomnet_tpu_torch.params.orbax_io import OrbaxCheckpointStore
+    from roomnet_tpu_torch.train.optimizer import flatten_opt_state
+    from roomnet_tpu_torch.train.step import init_train_state
+
+    flat, _, _ = _dp_inputs()
+    state = init_train_state(schema.variables_from_numpy(flat, chip_smoke.tiny_config(), cuda_device))
+    store = OrbaxCheckpointStore(str(tmp_path), async_save=True)
+    store.save(state.variables(chip_smoke.tiny_config()), 4, suffix="0.5",
+               opt_state_flat=flatten_opt_state(state.opt_state))
+    store.wait()
+    var_flat, step, opt = store.load(with_opt_state=True)
+    assert step == 4 and set(var_flat) == set(flat)
+    for k, v in flat.items():
+        np.testing.assert_array_equal(var_flat[k], v, err_msg=k)
+    assert int(opt["count"]) == 0

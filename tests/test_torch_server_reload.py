@@ -3,7 +3,8 @@ structural gate, the probe forward, auto-reload, serialized reloads, a
 swap under live traffic), graceful drain, shutdown, warmup, and the worker
 surviving a result-assembly error, each behaviour of tests/test_server.py;
 reload answers against the JAX package's CheckpointStore files; a model dir
-of orbax checkpoints answers 409. tests/test_torch_server.py has the rest.
+of the JAX package's orbax checkpoints answers 409, and one of the port's
+DCP checkpoints reloads. tests/test_torch_server.py has the rest.
 """
 
 import base64
@@ -198,15 +199,29 @@ def test_auto_reload_survives_poll_failure(tmp_path):
 
 
 def test_orbax_model_dir_answers_409(tmp_path):
-    """A model dir of orbax checkpoint directories: /reload answers 409
-    "orbax checkpoints are not ported yet" and the weights stay."""
+    """A model dir of the JAX package's orbax checkpoint directories: /reload
+    answers 409 naming the directory and the weights stay. One of the port's
+    DCP checkpoint directories (params/orbax_io.py) reloads: 200, its step."""
+    from roomnet_tpu_torch.params.orbax_io import OrbaxCheckpointStore
+
     mdir = tmp_path / "models_orbax"
     (mdir / "roomnet--0.8--12").mkdir(parents=True)
+    (mdir / "roomnet--0.8--12" / "_CHECKPOINT_METADATA").write_text("{}")
     srv = ClassifierServer(tiny_classifier(23, batch_size=2), port=0, model_dir=str(mdir)).start()
     try:
         st, out = post(srv, "/reload", b"")
-        assert st == 409 and "orbax checkpoints are not ported yet" in out["error"], out
+        assert st == 409 and "roomnet--0.8--12" in out["error"] and "JAX package's orbax" in out["error"], out
         assert get_json(srv, "/version")["step"] is None
+        assert post(srv, "/classify", img_bytes())[0] == 200
+    finally:
+        srv.stop()
+    ddir = tmp_path / "models_dcp"
+    OrbaxCheckpointStore(str(ddir), async_save=False).save(_variables(5), 14, suffix="0.7")
+    srv = ClassifierServer(tiny_classifier(23, batch_size=2), port=0, model_dir=str(ddir)).start()
+    try:
+        st, out = post(srv, "/reload", b"")
+        assert st == 200, out
+        assert get_json(srv, "/version")["step"] == 14
         assert post(srv, "/classify", img_bytes())[0] == 200
     finally:
         srv.stop()

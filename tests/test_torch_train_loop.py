@@ -2,8 +2,8 @@
 and its `train` subcommand, on the CPU at tests/tiny.py's geometry.
 
 Every behaviour of tests/test_train_loop.py that needs no mesh, sharded feed
-or orbax store, run on the port (those twelve wait for Scale-out, ROADMAP.md
-§1 item 3, and the Trainer refuses them), and every behaviour of
+or orbax store, run on the port (those twelve run on two ranks in
+tests/test_torch_train_loop_dp.py), and every behaviour of
 tests/test_watchdog.py. Then: the Trainer against hand-driven steps
 (chip_smoke.hand_driven, the gate of chip_smoke.py phase 9 (b)), the stall
 checkpoint against the hand-driven state of its step, the `train` parser
@@ -24,7 +24,7 @@ from chip_smoke import hand_driven, record_losses, state_gap, state_tensors, tin
 from roomnet_tpu import cli as jcli
 from roomnet_tpu_torch import cli as tcli
 from roomnet_tpu_torch.data.dataset import extract_fpaths
-from roomnet_tpu_torch.params.checkpoint import CheckpointStore, OrbaxNotPorted
+from roomnet_tpu_torch.params.checkpoint import CheckpointStore
 from roomnet_tpu_torch.train.loop import Phase, TrainConfig, Trainer, phase_at
 from roomnet_tpu_torch.utils.watchdog import StepWatchdog
 
@@ -443,12 +443,26 @@ def test_trainer_matches_hand_driven_steps(data_dir, steps_per_call):
 
 
 def test_trainer_refuses_what_waits_for_scale_out(tmp_path):
-    with pytest.raises(NotImplementedError, match="Scale-out"):
-        Trainer(_tc(tmp_path), CFG2, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="Scale-out"):
-        Trainer(_tc(tmp_path, feed_mode="sharded"), CFG2, device="cpu")
-    with pytest.raises(OrbaxNotPorted, match="Scale-out"):
-        Trainer(_tc(tmp_path, ckpt_backend="orbax"), CFG2, device="cpu")
+    """Scale-out is ported: a Trainer takes a mesh (its device and data
+    group), the sharded feed (a no-op without a mesh, as in the JAX package)
+    and the orbax (DCP) store. What still waits refuses: collectives over
+    the 'model' axis (tensor parallelism, ROADMAP.md)."""
+    from roomnet_tpu_torch.parallel import distributed
+    from roomnet_tpu_torch.parallel.mesh import make_mesh
+    from roomnet_tpu_torch.params.orbax_io import OrbaxCheckpointStore
+
+    try:
+        mesh = make_mesh(devices="cpu")
+        tr = Trainer(_tc(tmp_path), CFG2, mesh=mesh)
+        assert tr.device == torch.device("cpu") and tr._group is mesh.group("data")
+        assert tr._mesh_batch(45) == 45 and tr._feed_rows(4) is None
+        assert Trainer(_tc(tmp_path, feed_mode="sharded"), CFG2, device="cpu")._feed_rows(4) is None
+        store = Trainer(_tc(tmp_path, ckpt_backend="orbax"), CFG2, device="cpu").store
+        assert isinstance(store, OrbaxCheckpointStore)
+        with pytest.raises(NotImplementedError, match="tensor parallelism"):
+            mesh.group("model")
+    finally:
+        distributed.shutdown()
 
 
 def test_trainer_without_a_device_needs_cuda(tmp_path, monkeypatch):
@@ -485,12 +499,18 @@ def test_train_parser_has_the_jax_dests_plus_device():
     assert (args.ckpt_backend, args.feed_mode, args.device) == ("npz", "replicated", "cpu")
 
 
-@pytest.mark.parametrize("argv", [["--data-parallel"], ["--ckpt-backend", "orbax"], ["--feed-mode", "sharded"]],
+@pytest.mark.parametrize("argv,dest,value", [(["--data-parallel"], "data_parallel", True),
+                                              (["--ckpt-backend", "orbax"], "ckpt_backend", "orbax"),
+                                              (["--feed-mode", "sharded"], "feed_mode", "sharded")],
                          ids=["data-parallel", "orbax", "sharded"])
-def test_train_parser_refuses_what_waits_for_scale_out(argv, capsys):
+def test_train_parser_refuses_what_waits_for_scale_out(argv, dest, value, capsys):
+    """The Scale-out flags parse to the JAX parser's values now; what still
+    waits refuses as it parses: serve --data-parallel (the server's mesh)."""
+    assert getattr(tcli.build_parser().parse_args(["train", *argv]), dest) == value
+    assert getattr(jcli.build_parser().parse_args(["train", *argv]), dest) == value
     with pytest.raises(SystemExit):
-        tcli.build_parser().parse_args(["train", *argv])
-    assert "Scale-out" in capsys.readouterr().err
+        tcli.build_parser().parse_args(["serve", "--data-parallel"])
+    assert "server's mesh" in capsys.readouterr().err
 
 
 def test_train_cli_runs_on_the_cpu(data_dir, monkeypatch, capsys):

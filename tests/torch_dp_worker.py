@@ -1,0 +1,284 @@
+"""Ranks of the port's data-parallel tests: processes that import the port
+and never JAX, joined over gloo on the CPU through a FileStore.
+
+`spawn(job, world, workdir, **kwargs)` starts `world` processes of this
+module, each running `job(rank, world, workdir, **kwargs)` (a function
+below) in its process group, and returns each rank's result (a pickled
+value written to workdir). A job's `device` keyword is each rank's device
+(default the CPU): "cuda" puts every rank on the one card, still over gloo,
+since NCCL refuses two ranks on one device. The group's collectives time out after 60 s and
+each spawn has its own join limit, so a collective that never completes
+fails its test instead of hanging the suite.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import inspect
+import os
+import pickle
+import subprocess
+import sys
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PG_TIMEOUT_S = 60.0
+
+
+def spawn(job: str, world: int, workdir, timeout_s: float = 240.0, **kwargs) -> list:
+    """Run `job` on `world` ranks; each rank's return value, by rank.
+    Raises with the ranks' output when one fails or the join times out."""
+    workdir = str(workdir)
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "job.pkl"), "wb") as f:
+        pickle.dump((job, kwargs), f)
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT", "COORDINATOR_ADDRESS"):
+        env.pop(k, None)
+    # Run by path: a machine may have another package named `tests` installed.
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), str(world), workdir],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout_s)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of {job} exited {p.returncode}:\n{out[-4000:]}")
+    results = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"result_{r}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def main():
+    rank, world, workdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    from roomnet_tpu_torch.parallel import distributed
+
+    with open(os.path.join(workdir, "job.pkl"), "rb") as f:
+        job, kwargs = pickle.load(f)
+    assert distributed.initialize(f"file://{os.path.join(workdir, 'pg_store')}", world, rank, backend="gloo",
+                                  device=kwargs.get("device", "cpu"), timeout_s=PG_TIMEOUT_S)
+    try:
+        result = globals()[job](rank, world, workdir, **kwargs)
+    finally:
+        distributed.shutdown()
+    with open(os.path.join(workdir, f"result_{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+# -- helpers -----------------------------------------------------------------
+
+
+def tiny(num_classes: int = 4):
+    from chip_smoke import tiny_config
+
+    return dataclasses.replace(tiny_config(), num_classes=num_classes)
+
+
+def numpy_state(state) -> dict:
+    from chip_smoke import state_tensors
+
+    return {k: v.detach().cpu().numpy().copy() for k, v in state_tensors(state).items()}
+
+
+@contextlib.contextmanager
+def mutated(module, old: str, new: str):
+    """`module` with `old` in its source replaced by `new` (exactly one
+    occurrence) for the block: a planted fault, in this process alone."""
+    src = inspect.getsource(module)
+    if src.count(old) != 1:
+        raise AssertionError(f"{module.__name__}: the fault's anchor occurs {src.count(old)} times: {old!r}")
+    exec(compile(src.replace(old, new), module.__file__, "exec"), module.__dict__)
+    try:
+        yield
+    finally:
+        exec(compile(src, module.__file__, "exec"), module.__dict__)
+
+
+# Planted faults of the data-parallel step: (module, anchor, replacement).
+FAULTS = {
+    # BN moments of this rank's rows alone.
+    "per_rank_bn": ("roomnet_tpu_torch.ops.blocks", "    axes = tuple(range(x.ndim - 1))\n    x32 = x.float()\n",
+                    "    group = None\n    axes = tuple(range(x.ndim - 1))\n    x32 = x.float()\n"),
+    # DDP's mean of per-rank means in place of the global-count division.
+    "mean_over_ranks": ("roomnet_tpu_torch.train.step", "count = C.all_reduce_sum(local, group)",
+                        "count = local * world"),
+    # The L2 term counted once per rank.
+    "l2_on_every_rank": ("roomnet_tpu_torch.train.step", "+ l2 / world, (logits", "+ l2, (logits"),
+}
+
+
+# -- jobs --------------------------------------------------------------------
+
+
+def mesh_layout(rank, world, workdir):
+    """make_mesh's shapes, coordinates and groups on this rank."""
+    import torch
+    import torch.distributed as dist
+
+    from roomnet_tpu_torch.parallel import distributed
+    from roomnet_tpu_torch.parallel.mesh import make_mesh
+
+    out = {"count": distributed.process_count(), "index": distributed.process_index()}
+    for shape in ((world, 1), (1, world), (None, 1)):
+        mesh = make_mesh(*shape, devices="cpu")
+        g = mesh.group("data")
+        t = torch.tensor([float(rank + 1)])
+        dist.all_reduce(t, group=g)
+        out[shape] = {"devices": mesh.devices.tolist(), "axis_names": mesh.axis_names, "shape": dict(mesh.shape),
+                      "coords": mesh.coords, "device": str(mesh.device), "group_size": dist.get_world_size(g),
+                      "group_sum": float(t)}
+    global_mesh = distributed.global_mesh()
+    out["global"] = dict(global_mesh.shape)
+    return out
+
+
+def bn_moments(rank, world, workdir, x, bn, weights, grad_out):
+    """batch_norm_train on this rank's rows with the data group: y, the
+    stats and the gradients of sum(y * grad_out) for x, scale and bias."""
+    import torch
+    import torch.distributed as dist
+
+    from roomnet_tpu_torch.ops.blocks import batch_norm_train
+
+    n = x.shape[0] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    xt = torch.from_numpy(x[rows]).requires_grad_()
+    bnt = {k: torch.from_numpy(v).requires_grad_(k in ("scale", "bias")) for k, v in bn.items()}
+    w = None if weights is None else torch.from_numpy(weights[rows])
+    y, st = batch_norm_train(xt, bnt, row_weights=w, group=dist.group.WORLD)
+    (y * torch.from_numpy(grad_out[rows])).sum().backward()
+    gs, gb = bnt["scale"].grad.clone(), bnt["bias"].grad.clone()
+    dist.all_reduce(gs)
+    dist.all_reduce(gb)
+    return {"y": y.detach().numpy(), "mean": st.mean.detach().numpy(), "var": st.var.detach().numpy(),
+            "var_unbiased": st.var_unbiased.detach().numpy(), "dx": xt.grad.numpy(), "dscale": gs.numpy(),
+            "dbias": gb.numpy()}
+
+
+def _steps(flat, x, y, hp_kw, steps, *, mask=None, group, rank, world, seed=7, gen_seed=None, num_classes=4,
+           device="cpu"):
+    """`steps` DP steps of make_train_step from `flat` on this rank's rows of
+    (x, y[, mask]), the same batch each step, on `device`; the state and
+    metrics, and the kernels' launches over the steps."""
+    import torch
+
+    from roomnet_tpu_torch.params.schema import variables_from_numpy
+    from roomnet_tpu_torch.train import step as TS
+
+    cfg = tiny(num_classes)
+    hp = TS.TrainHParams(**hp_kw)
+    n = x.shape[0] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    from roomnet_tpu_torch.models import roomnet as M
+
+    state = TS.init_train_state(variables_from_numpy(flat, cfg, device), hp)
+    step = TS.make_train_step(hp, cfg, group=group)
+    gen = torch.Generator(device).manual_seed(seed if gen_seed is None else gen_seed)
+    xt, yt = torch.from_numpy(x[rows]).to(device), torch.from_numpy(y[rows]).to(device)
+    mt = None if mask is None else torch.from_numpy(mask[rows]).to(device)
+    kernels = (M.conv3x3, M.relu6_pool_bn, M.residual_bn, M.dense_head)
+    before = [k.launches for k in kernels]
+    metrics = []
+    for _ in range(steps):
+        state, m = step(state, xt, yt, gen, mt)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"state": numpy_state(state), "metrics": metrics,
+            "launches": [k.launches - b for k, b in zip(kernels, before)]}
+
+
+def dp_steps(rank, world, workdir, flat, x, y, cases, faults=(), device="cpu"):
+    """Each case of `cases` ({name: dict(hp=..., steps=..., mask=...)}) as DP
+    steps over the world; then each fault of `faults` ((fault, case) pairs)
+    planted and the case run again. Dropout cases also run with a
+    per-rank-seeded generator (fault "per_rank_dropout_seeds")."""
+    import importlib
+
+    import torch.distributed as dist
+
+    out = {}
+    for name, c in cases.items():
+        out[name] = _steps(flat, x, y, c["hp"], c["steps"], mask=c.get("mask"), group=dist.group.WORLD,
+                           rank=rank, world=world, device=device)
+    for fault, case in faults:
+        c = cases[case]
+        if fault == "per_rank_dropout_seeds":
+            out[(fault, case)] = _steps(flat, x, y, c["hp"], c["steps"], mask=c.get("mask"),
+                                        group=dist.group.WORLD, rank=rank, world=world, gen_seed=7 + rank)
+            continue
+        mod, old, new = FAULTS[fault]
+        with mutated(importlib.import_module(mod), old, new):
+            out[(fault, case)] = _steps(flat, x, y, c["hp"], c["steps"], mask=c.get("mask"),
+                                        group=dist.group.WORLD, rank=rank, world=world)
+    return out
+
+
+def trainers(rank, world, workdir, runs):
+    """Each run of `runs` ({name: dict(tc=TrainConfig kwargs, steps=...,
+    classes=2, mesh=(n_data, n_model), may_raise=False, mesh_batch=())}) as
+    `Trainer(...).train` on a mesh over the world, in order. Returns {name:
+    {"state", "error", "stdout", "mesh_batch"}}."""
+    import io
+
+    from roomnet_tpu_torch.parallel.mesh import make_mesh
+    from roomnet_tpu_torch.train.loop import Phase, TrainConfig, Trainer
+
+    out = {}
+    for name, r in runs.items():
+        mesh = make_mesh(*r.get("mesh", (world, 1)), devices="cpu")
+        tc = dict(r["tc"])
+        tc["phases"] = tuple(Phase(**p) for p in tc.get("phases", [dict(until_step=1 << 62, batch_size=8)]))
+        tr = Trainer(TrainConfig(**tc), tiny(r.get("classes", 2)), device="cpu", mesh=mesh)
+        res = {"mesh_batch": {b: tr._mesh_batch(b) for b in r.get("mesh_batch", ())}, "error": None, "state": None}
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                res["state"] = numpy_state(tr.train(total_steps=r["steps"], log_every=r.get("log_every", 100)))
+        except Exception as e:  # noqa: BLE001 — a run that is expected to raise reports it
+            if not r.get("may_raise"):
+                raise
+            res["error"] = f"{type(e).__name__}: {e}"
+        res["stdout"] = buf.getvalue()
+        out[name] = res
+    return out
+
+
+def dp_checkpoint(rank, world, workdir, flat, x, y, ckpt_dir):
+    """One DP step, then the orbax store's collective save of the state from
+    every rank: synchronous at step 1, asynchronous (then `wait`) as step 2."""
+    import torch.distributed as dist
+
+    from roomnet_tpu_torch.params.orbax_io import OrbaxCheckpointStore
+    from roomnet_tpu_torch.params.schema import variables_from_numpy
+    from roomnet_tpu_torch.train import step as TS
+    from roomnet_tpu_torch.train.optimizer import flatten_opt_state
+
+    hp = TS.TrainHParams(learn_rate=1e-3, num_steps=1000, l2_coeff=1e-4)
+    cfg = tiny()
+    n = x.shape[0] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    state = TS.init_train_state(variables_from_numpy(flat, cfg, "cpu"), hp)
+    import torch
+
+    state, _ = TS.make_train_step(hp, cfg, group=dist.group.WORLD)(state, torch.from_numpy(x[rows]),
+                                                                  torch.from_numpy(y[rows]))
+    opt = flatten_opt_state(state.opt_state)
+    OrbaxCheckpointStore(ckpt_dir, async_save=False).save(state.variables(cfg), 1, suffix="dp", opt_state_flat=opt)
+    store = OrbaxCheckpointStore(ckpt_dir, async_save=True)
+    store.save(state.variables(cfg), 2, suffix="async", opt_state_flat=opt)
+    store.wait()
+    return numpy_state(state)
+
+
+if __name__ == "__main__":
+    main()
