@@ -164,9 +164,32 @@ kernels, in phases; any failure raises and the script exits non-zero:
      f32 and (e)'s mesh windows' for bf16; dp_rank_step_launches are (b)'s
      per rank per step (f32) and (e)'s per mesh step (bf16).
 
-Then the JSON line of serving, directory, training, server, trainer and
-scale-out numbers, the script's wall time, one JSON line of per-kernel
-results and, last, the device line.
+ 11. The server on a mesh (infer/server.py's lockstep ranks, `serve
+     --data-parallel`), batch 32 on the converted weights, f32 and bf16, the
+     same requests in every run (mesh_requests: one /classify, a 5-image
+     /classify_batch and a 40-image ?stream=1, PNGs of make_image), each
+     held against a one-process server on the same tree: (a) a world of one
+     over NCCL (`make_mesh()`): max |dprob| 0 and class_id equal, buckets
+     [1, 2, ..., 32], 10/10/3/1 launches per device call; (b) two ranks
+     spawned on the one card over gloo (mesh_serve_rank; rank 0 serves and
+     drives itself from a client thread): buckets [2, 4, 8, 16, 32], the
+     lone request padded to 2 and both ranks making the same calls, f32
+     probabilities within 1e-5 and class_id equal (bf16: class_id equal, as
+     phase 8), 10/10/3/1 launches per rank per call; /reload of a second
+     seeded tree (step 12) swaps both ranks and then answers as a
+     one-process server on that tree; a NaN tree (step 13) answers 409 and
+     both ranks keep step 12; SIGTERM with a 2 s drain ends both ranks with
+     0; (c) `torchrun --nproc-per-node 1 -m roomnet_tpu_torch serve
+     --data-parallel` as a subprocess: /readyz 200, one /classify, exit 0
+     on SIGTERM to the rank; (d) only where torch.cuda.device_count() >= 2:
+     (b) over NCCL across two cards; (e) times, bf16, nothing claimed:
+     sequential keep-alive /classify p50 and a 64-way burst, without the
+     mesh and with the world of one, in the turns MESH_TURNS. The kernels
+     line's server_mesh_launches are (b)'s per rank per device call.
+
+Then the JSON line of serving, directory, training, server, trainer,
+scale-out and mesh-server numbers, the script's wall time, one JSON line of
+per-kernel results and, last, the device line.
 f32 parity needs TF32 off; the script turns it off for everything it runs.
 """
 
@@ -179,6 +202,7 @@ import json
 import math
 import os
 import pathlib
+import shutil
 import statistics
 import struct
 import subprocess
@@ -697,12 +721,16 @@ def main() -> None:
     dp_per_step = {"f32": scale_out["two_ranks_gloo"]["replicated"]["launches_per_rank_step"],
                    "bf16": scale_out["step_ms"]["per_step_launches"]}
 
+    # -- phase 11: the server on a mesh -------------------------------------------
+    server_mesh = phase11(variables, cfgs, counts, zero_counts, per_forward, dev, smi)
+    server_mesh.pop("launches")
+
     for dt in cfgs:
         log(f"max |d| against plain [{dt}]: " + ", ".join(
             f"{n} {max_err[(n, dt, 8)]:.3g} (batch 8) {max_err[(n, dt, 256)]:.3g} (batch 256)"
             for n in kernels))
     log(json.dumps({"card": smi, "serving": serving, "directory": directory, "training": training,
-                    "server": server, "trainer": trainer, "scale_out": scale_out}))
+                    "server": server, "trainer": trainer, "scale_out": scale_out, "server_mesh": server_mesh}))
     log(f"wall: {time.perf_counter() - wall0:.1f} s from start to the result lines")
     rows = []
     for dt in cfgs:
@@ -723,6 +751,7 @@ def main() -> None:
                 "trainer_launches": trainer_launches[dt][name],
                 "dp_launches": dp_launches[dt][name],
                 "dp_rank_step_launches": {m: c[name] for m, c in dp_per_step[dt].items()},
+                "server_mesh_launches": server_mesh["two_ranks_gloo"][dt]["launches_per_rank_call"][name],
             })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1739,23 +1768,23 @@ def dp_rank(rank: int, world: int, backend: str, devices: list, store: str, jobs
         pickle.dump(results, f)
 
 
-def spawn_ranks(backend: str, devices: list, jobs: list, root: str) -> list:
-    """Run `jobs` on len(devices) spawned ranks (dp_rank); each rank's
-    results, by rank. Raises if a rank fails or the join outlasts
-    DP_JOIN_S; every rank is stopped before it returns."""
+def spawn_ranks(backend: str, devices: list, jobs: list, root: str, fn=None, join_s: float = DP_JOIN_S) -> list:
+    """Run `jobs` on len(devices) spawned ranks (`fn`, default dp_rank);
+    each rank's results, by rank. Raises if a rank fails or the join
+    outlasts join_s; every rank is stopped before it returns."""
     import pickle
 
     import torch.multiprocessing as mp
 
     out_dir = tempfile.mkdtemp(prefix="ranks_", dir=root)
     store = os.path.join(out_dir, "pg_store")
-    ctx = mp.start_processes(dp_rank, args=(len(devices), backend, devices, store, jobs, out_dir),
+    ctx = mp.start_processes(fn or dp_rank, args=(len(devices), backend, devices, store, jobs, out_dir),
                              nprocs=len(devices), join=False, start_method="spawn")
-    deadline = time.perf_counter() + DP_JOIN_S
+    deadline = time.perf_counter() + join_s
     try:
         while not ctx.join(timeout=5.0):
             if time.perf_counter() > deadline:
-                raise AssertionError(f"scale-out: the {len(devices)} ranks did not finish in {DP_JOIN_S} s")
+                raise AssertionError(f"the {len(devices)} spawned ranks did not finish in {join_s} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -2370,6 +2399,461 @@ def span_cost(clf, x1) -> dict:
         classify.trace = real
     return {k: statistics.median(v) for k, v in lat.items()}
 
+
+
+# -- phase 11: the server on a mesh ----------------------------------------------
+MESH_BATCH = 32  # the serve CLI's default batch size
+MESH_DRAIN_S = 2.0  # (b): the ranks' drain window at SIGTERM
+MESH_RELOAD_STEPS = (12, 13)  # (b): a second seeded tree, then a NaN tree
+MESH_SEQ = 50  # (e): sequential /classify requests a turn
+MESH_TURNS = ("plain", "mesh", "mesh", "plain")  # (e): turns
+MESH_JOIN_S = 420.0  # (b), (d): the spawned ranks' join limit
+
+
+def mesh_requests(seed: int = 11, n_batch: int = 5, n_stream: int = 40) -> dict:
+    """The requests of phase 11, the same in every run: {"single": a body,
+    "batch": n_batch bodies, "stream": n_stream bodies}, PNGs of 240x320
+    tools/make_synth_dataset.make_image images (class i mod 6) drawn from
+    RandomState(seed)."""
+    from tools.make_synth_dataset import make_image
+
+    rng = np.random.RandomState(seed)
+    bodies = [png_bytes(make_image(i % 6, rng, 240, 320)[:, :, ::-1]) for i in range(1 + n_batch + n_stream)]
+    return {"single": bodies[0], "batch": bodies[1:1 + n_batch], "stream": bodies[1 + n_batch:]}
+
+
+def classify_requests(port: int, requests: dict) -> dict:
+    """One /classify, one /classify_batch and one /classify_batch?stream=1
+    of `requests`: {name: (status, the result, the results or the NDJSON
+    lines)}; a request that cannot connect gives (None, the error)."""
+    import base64
+
+    def batch(bodies) -> bytes:
+        return json.dumps({"images": [base64.b64encode(b).decode() for b in bodies]}).encode()
+
+    out = {}
+    for name, path, body in (("single", "/classify", requests["single"]),
+                             ("batch", "/classify_batch", batch(requests["batch"])),
+                             ("stream", "/classify_batch?stream=1", batch(requests["stream"]))):
+        try:
+            status, data = http_request(port, "POST", path, body)
+        except OSError as e:
+            out[name] = (None, repr(e))
+            continue
+        if status == 200 and name == "stream":
+            got = [json.loads(line) for line in data.splitlines()]
+        else:
+            got = json.loads(data) if data else None
+            if status == 200 and name == "batch":
+                got = got["results"]
+        out[name] = (status, got)
+    return out
+
+
+def answers_gap(got: dict, want: dict, where: str) -> tuple[float, bool]:
+    """(max |dprob|, every class_id equal) of two classify_requests results
+    over every image; raises unless every request of both answered 200 with
+    one result per image."""
+    err, same = 0.0, True
+    for name in ("single", "batch", "stream"):
+        (gs, g), (ws, w) = got[name], want[name]
+        if gs != 200 or ws != 200:
+            raise AssertionError(f"{where} {name}: status {gs} against {ws}: {str(g)[:300]}")
+        g, w = ([g], [w]) if name == "single" else (g, w)
+        if len(g) != len(w) or any("probs" not in r for r in g + w):
+            raise AssertionError(f"{where} {name}: {len(g)} results against {len(w)}, or one without probs")
+        for a, b in zip(g, w):
+            err = max(err, float(np.abs(np.asarray(a["probs"]) - np.asarray(b["probs"])).max()))
+            same &= a["class_id"] == b["class_id"]
+    return err, bool(same)
+
+
+def count_predicts(clf) -> list:
+    """Wraps the classifier's `_predict`: the batch size of each call is
+    appended to the returned list."""
+    sizes, predict = [], clf._predict
+
+    def counted(variables, x):
+        sizes.append(int(x.shape[0]))
+        return predict(variables, x)
+
+    clf._predict = counted
+    return sizes
+
+
+def mesh_serve(clf, requests: dict, *, model_dir: str | None = None, reloads=(), drain_s: float = MESH_DRAIN_S,
+               ready_s: float = 300.0) -> dict:
+    """One rank of a mesh server, as each rank of `serve --data-parallel`
+    runs it: `ClassifierServer(clf, port=0, warmup=True, model_dir=...,
+    drain_s=...).serve_forever()`. Rank 0 drives it from a client thread:
+    /readyz until 200, `requests` (classify_requests), then for each
+    (step, variables) of `reloads` a save into model_dir at that step (the
+    port's CheckpointStore), POST /reload, /version and the requests again;
+    then SIGTERM to its own process, which drains and stops every rank.
+    Returns {"rc" or "error", "sizes": the batch size of each `_predict`
+    call, "launches": the kernels' over them, "buckets", "model_version",
+    "variables": the serving tree as numpy, "serve_s", and on rank 0
+    "client"}."""
+    import signal
+    import threading
+
+    from roomnet_tpu_torch.infer.server import ClassifierServer
+    from roomnet_tpu_torch.params.checkpoint import CheckpointStore
+    from roomnet_tpu_torch.params.schema import flatten_variables
+
+    kernels = kernel_counters()
+    before = {n: k.launches for n, k in kernels.items()}
+    sizes = count_predicts(clf)
+    srv = ClassifierServer(clf, port=0, warmup=True, max_inflight=64, model_dir=model_dir, drain_s=drain_s)
+    client: dict = {}
+
+    def drive():
+        try:
+            deadline = time.perf_counter() + ready_s
+            while srv.port == 0 or http_json(srv.port, "GET", "/readyz")[0] != 200:
+                if time.perf_counter() > deadline:
+                    raise AssertionError("the mesh server never became ready")
+                time.sleep(0.05)
+            client["initial"] = classify_requests(srv.port, requests)
+            client["reloads"] = []
+            for step, variables in reloads:
+                CheckpointStore(model_dir).save(variables, step, suffix="mesh")
+                status, reply = http_json(srv.port, "POST", "/reload")
+                client["reloads"].append({"step": step, "status": status, "reply": reply,
+                                          "version": http_json(srv.port, "GET", "/version")[1],
+                                          "answers": classify_requests(srv.port, requests)})
+        except Exception as e:  # noqa: BLE001 — the record says what failed
+            client["error"] = f"{type(e).__name__}: {e}"
+        finally:
+            if not srv._stop.is_set():  # a failed mesh stops by itself
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    thread = threading.Thread(target=drive, daemon=True) if srv.rank == 0 else None
+    if thread is not None:
+        thread.start()
+    out = {"rank": srv.rank, "buckets": srv._bucket_sizes}
+    t0 = time.perf_counter()
+    try:
+        out["rc"] = srv.serve_forever()
+    except RuntimeError as e:
+        out["error"] = f"{e}: {e.__cause__!r}"
+    out["serve_s"] = time.perf_counter() - t0
+    if thread is not None:
+        thread.join(60.0)
+        out["client"] = client
+    out.update(sizes=list(sizes), launches={n: k.launches - before[n] for n, k in kernels.items()},
+               model_version=dict(srv.model_version), variables=flatten_variables(clf.variables))
+    return out
+
+
+def mesh_serve_rank(rank: int, world: int, backend: str, devices: list, store: str, jobs: list,
+                    out_dir: str) -> None:
+    """One spawned rank of phase 11 (b) and (d): each job (name, config, flat
+    weights, requests, model dir, reloads as (step, flat)) as `mesh_serve`
+    of a batch-MESH_BATCH classifier on a mesh over the world; writes {name:
+    result} to out_dir/rank{rank}.pkl."""
+    import pickle
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from roomnet_tpu_torch.infer.classify import RoomNetClassifier
+    from roomnet_tpu_torch.parallel import distributed
+    from roomnet_tpu_torch.parallel.mesh import make_mesh
+    from roomnet_tpu_torch.params.schema import variables_from_numpy
+
+    distributed.initialize(f"file://{store}", world, rank, backend=backend, device=devices[rank], timeout_s=120.0)
+    results = {}
+    try:
+        for name, cfg, flat, requests, model_dir, reloads in jobs:
+            clf = RoomNetClassifier(variables_from_numpy(flat, cfg, devices[rank]), cfg, batch_size=MESH_BATCH,
+                                    mesh=make_mesh())
+            try:
+                results[name] = mesh_serve(clf, requests, model_dir=model_dir, reloads=[
+                    (step, variables_from_numpy(f, cfg, "cpu")) for step, f in reloads])
+            finally:
+                clf.close()
+    finally:
+        distributed.shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+
+
+def descendants(pid: int) -> list:
+    """The pids of every process below `pid`, from /proc (a launcher may
+    start its workers from any thread, in sessions of their own)."""
+    children = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                stat = pathlib.Path(f"/proc/{d}/stat").read_text()
+            except OSError:
+                continue
+            children.setdefault(int(stat.rsplit(")", 1)[1].split()[1]), []).append(int(d))
+    out, todo = [], [pid]
+    while todo:
+        for c in children.get(todo.pop(), []):
+            out.append(c)
+            todo.append(c)
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase11(variables, cfgs, counts, zero_counts, per_forward, dev, smi) -> dict:
+    """The server on a mesh (docstring phase 11). Returns its numbers, and
+    under "launches" the counts of (a)'s world-of-one requests by dtype."""
+    import signal
+    import urllib.request
+
+    import torch.distributed as dist
+
+    from roomnet_tpu_torch.infer.classify import RoomNetClassifier
+    from roomnet_tpu_torch.infer.server import ClassifierServer
+    from roomnet_tpu_torch.models.roomnet import init_variables
+    from roomnet_tpu_torch.parallel import distributed
+    from roomnet_tpu_torch.parallel.mesh import make_mesh
+    from roomnet_tpu_torch.params import schema
+
+    t_phase = time.perf_counter()
+    result = {"card": smi, "launches": {}}
+    requests = mesh_requests()
+    n_images = 1 + len(requests["batch"]) + len(requests["stream"])
+    flat = schema.flatten_variables(variables)
+    second = schema.flatten_variables(init_variables(torch.Generator().manual_seed(12), cfgs["f32"]))
+    nan = dict(flat, **{"dense/0/kernel": np.full_like(flat["dense/0/kernel"], np.nan)})
+
+    def server(dt: str, tree, mesh=None):
+        clf = RoomNetClassifier(tree, cfgs[dt], batch_size=MESH_BATCH, device=dev, mesh=mesh)
+        return ClassifierServer(clf, port=0, warmup=True, max_inflight=64).start()
+
+    def close(srv):
+        srv.stop()
+        srv.classifier.close()
+
+    # The one-process server's answers: the reference of (a), (b) and (d).
+    plain = {}
+    trees = {"converted": variables, "second": schema.variables_from_numpy(second, cfgs["f32"], dev)}
+    for dt in cfgs:
+        for tree_name, tree in trees.items():
+            srv = server(dt, tree)
+            try:
+                plain[(dt, tree_name)] = classify_requests(srv.port, requests)
+            finally:
+                close(srv)
+
+    # (a) A world of one over NCCL: the mesh server against no mesh.
+    distributed.start_single(dev)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"mesh server (a): the world of one runs {dist.get_backend()}, not nccl")
+    mesh = make_mesh()
+    result["world_of_one"] = {}
+    for dt in cfgs:
+        srv = server(dt, variables, mesh)
+        try:
+            sizes = count_predicts(srv.classifier)
+            zero_counts()
+            got = classify_requests(srv.port, requests)
+            launches = counts()
+        finally:
+            close(srv)
+        gap, same = answers_gap(got, plain[(dt, "converted")], f"mesh server (a) [{dt}]")
+        want = {n: c * len(sizes) for n, c in per_forward.items()}
+        if gap != 0.0 or not same or srv._bucket_sizes != [1, 2, 4, 8, 16, 32] or launches != want:
+            raise AssertionError(f"mesh server (a) [{dt}]: max |dprob| {gap:.3g} (gate 0), class_id equal {same}, "
+                                 f"buckets {srv._bucket_sizes}, launches {launches} != {want}")
+        result["launches"][dt] = launches
+        result["world_of_one"][dt] = {"max_abs_dprob": gap, "buckets": srv._bucket_sizes, "calls": sizes,
+                                      "launches": launches}
+        log(f"mesh server (a) world of one over NCCL [{dt}], batch {MESH_BATCH}: {n_images} images through /classify, "
+            f"/classify_batch and ?stream=1 against the one-process server: max |dprob| {gap:.3g} (gate 0), class_id "
+            f"equal; buckets {srv._bucket_sizes}; device calls {sizes}, launches {launches} (10/10/3/1 each)")
+
+    # (e) Times, bf16, nothing claimed: the one-process server against the
+    # world-of-one mesh server, in turns.
+    servers = {"plain": server("bf16", variables), "mesh": server("bf16", variables, mesh)}
+    try:
+        import http.client
+
+        seq = {k: [] for k in servers}
+        burst = {k: [] for k in servers}
+        pool = ThreadPoolExecutor(BURST)
+        try:
+            for k in MESH_TURNS:
+                port = servers[k].port
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+                for _ in range(MESH_SEQ):
+                    t0 = time.perf_counter()
+                    status, _ = http_request(port, "POST", "/classify", requests["single"], conn)
+                    seq[k].append((time.perf_counter() - t0) * 1e3)
+                    if status != 200:
+                        raise AssertionError(f"mesh server (e) [{k}]: /classify {status}")
+                conn.close()
+                t0 = time.perf_counter()
+                statuses = list(pool.map(lambda _: http_request(port, "POST", "/classify", requests["single"])[0],
+                                         range(BURST)))
+                burst[k].append(BURST / (time.perf_counter() - t0))
+                if set(statuses) != {200}:
+                    raise AssertionError(f"mesh server (e) [{k}]: burst statuses {set(statuses)}")
+        finally:
+            pool.shutdown()
+    finally:
+        for srv in servers.values():
+            close(srv)
+    distributed.shutdown()
+    result["times"] = {"card": smi, "dtype": "bf16", "batch": MESH_BATCH, "turns": list(MESH_TURNS),
+                       "sequential_p50_ms": {k: float(np.percentile(v, 50)) for k, v in seq.items()},
+                       "burst_req_per_s": burst}
+    log(f"mesh server (e) [bf16, batch {MESH_BATCH}, {smi}]: sequential /classify p50 (keep-alive, {MESH_SEQ} a "
+        f"turn, turns {' '.join(MESH_TURNS)}) no mesh {result['times']['sequential_p50_ms']['plain']:.3f} ms, world "
+        f"of one {result['times']['sequential_p50_ms']['mesh']:.3f} ms; {BURST}-way burst req/s no mesh "
+        + " / ".join(f"{v:.1f}" for v in burst["plain"]) + ", world of one "
+        + " / ".join(f"{v:.1f}" for v in burst["mesh"]))
+
+    # (b) Two ranks spawned on the one card over gloo; (d) only with two
+    # cards, NCCL across them.
+    def mesh_runs(backend: str, devices: list, root: str, what: str) -> dict:
+        jobs = []
+        for dt in cfgs:
+            mdir = os.path.join(root, f"models_{what}_{dt}")
+            os.makedirs(mdir)
+            jobs.append((dt, cfgs[dt], flat, requests, mdir,
+                         [(MESH_RELOAD_STEPS[0], second), (MESH_RELOAD_STEPS[1], nan)]))
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(backend, devices, jobs, root, fn=mesh_serve_rank, join_s=MESH_JOIN_S)
+        out = {"spawn_s": time.perf_counter() - t0}
+        n_data = len(devices)
+        for dt in cfgs:
+            r0, r1 = ranks[0][dt], ranks[1][dt]
+            c = r0["client"]
+            where = f"mesh server {what} [{dt}]"
+            if "error" in c or r0.get("rc") != 0 or r1.get("rc") != 0:
+                raise AssertionError(f"{where}: client {c.get('error')}, rank 0 {r0.get('rc', r0.get('error'))}, "
+                                     f"rank 1 {r1.get('rc', r1.get('error'))}")
+            buckets = [n_data * 2 ** i for i in range(6) if n_data * 2 ** i < MESH_BATCH] + [MESH_BATCH]
+            if r0["buckets"] != buckets or r0["sizes"] != r1["sizes"] or r0["sizes"][len(buckets)] != n_data:
+                raise AssertionError(f"{where}: buckets {r0['buckets']} != {buckets}, or the ranks' calls differ "
+                                     f"({r0['sizes']} / {r1['sizes']}), or the lone request did not pad to {n_data}")
+            for r in (r0, r1):
+                want = {n: k * len(r["sizes"]) for n, k in per_forward.items()}
+                if r["launches"] != want:
+                    raise AssertionError(f"{where}: rank {r['rank']} launches {r['launches']} != {want} for "
+                                         f"{len(r['sizes'])} device calls")
+            gap, same = answers_gap(c["initial"], plain[(dt, "converted")], where)
+            good, bad = c["reloads"]
+            if good["status"] != 200 or good["reply"] != {"status": "reloaded", "step": MESH_RELOAD_STEPS[0]}:
+                raise AssertionError(f"{where}: /reload of the second tree: {good['status']} {good['reply']}")
+            gap2, same2 = answers_gap(good["answers"], plain[(dt, "second")], where + " after /reload")
+            if bad["status"] != 409 or "non-finite" not in bad["reply"]["error"]:
+                raise AssertionError(f"{where}: /reload of a NaN tree: {bad['status']} {bad['reply']}")
+            kept, _ = answers_gap(bad["answers"], good["answers"], where + " after the NaN /reload")
+            for r in (r0, r1):
+                if r["model_version"]["step"] != MESH_RELOAD_STEPS[0] or any(
+                        not np.array_equal(r["variables"][k], second[k]) for k in second):
+                    raise AssertionError(f"{where}: rank {r['rank']} serves step {r['model_version']['step']}, or "
+                                         "not the second tree, after the NaN reload")
+            f32 = dt == "f32"
+            if not (same and same2) or (f32 and max(gap, gap2) > 1e-5) or kept > 1e-6:
+                raise AssertionError(f"{where}: class_id equal {same} / {same2}, max |dprob| {gap:.3g} / {gap2:.3g} "
+                                     f"(f32 gate 1e-5), {kept:.3g} after the NaN reload")
+            per_call = {n: k // len(r0["sizes"]) for n, k in r0["launches"].items()}
+            out[dt] = {"max_abs_dprob": gap, "after_reload_max_abs_dprob": gap2, "after_nan_max_abs_dprob": kept,
+                       "buckets": r0["buckets"], "calls": r0["sizes"], "launches_per_rank_call": per_call,
+                       "nan_reload": bad["reply"]["error"][:120], "serve_s": [r0["serve_s"], r1["serve_s"]]}
+            log(f"{where}, batch {MESH_BATCH}: buckets {r0['buckets']}, the lone request padded to {n_data}; "
+                f"{n_images} images against the one-process server: max |dprob| {gap:.3g}, class_id equal; /reload "
+                f"step {MESH_RELOAD_STEPS[0]} on both ranks, then {gap2:.3g} from a one-process server on that tree; "
+                f"NaN tree 409, both ranks kept step {MESH_RELOAD_STEPS[0]} (answers moved {kept:.3g}); SIGTERM with "
+                f"--drain {MESH_DRAIN_S:g}: both ranks 0; {len(r0['sizes'])} device calls a rank, launches per rank "
+                f"per call {per_call}")
+        return out
+
+    nccl_cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as root:
+        result["two_ranks_gloo"] = mesh_runs("gloo", ["cuda:0", "cuda:0"], root, "(b)")
+        if nccl_cards >= 2:
+            result["two_cards_nccl"] = mesh_runs("nccl", ["cuda:0", "cuda:1"], root, "(d)")
+
+    # (c) The CLI, as a user launches it.
+    port, profile_port = free_port(), free_port()
+    repo = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (str(repo), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1", "-m",
+                             "roomnet_tpu_torch", "serve", "--data-parallel", "--port", str(port), "--profile-port",
+                             str(profile_port)],
+                            cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def kill_all():  # torchrun and every process below it
+        for pid in descendants(proc.pid) + [proc.pid]:
+            with contextlib.suppress(OSError):
+                os.kill(pid, signal.SIGKILL)
+
+    try:
+        deadline = time.perf_counter() + 300
+        while True:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/readyz", timeout=10) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                pass
+            if proc.poll() is not None or time.perf_counter() > deadline:
+                kill_all()
+                raise AssertionError(f"serve --data-parallel never answered /readyz 200 in "
+                                     f"{time.perf_counter() - t0:.1f} s (exit {proc.poll()}):\n"
+                                     f"{proc.communicate()[0][-2000:]}")
+            time.sleep(0.2)
+        ready_s = time.perf_counter() - t0
+        status, answer = http_json(port, "POST", "/classify", requests["single"])
+        if status != 200 or answer["class_id"] != plain[("bf16", "converted")]["single"][1]["class_id"]:
+            raise AssertionError(f"serve --data-parallel /classify: {status} {answer}")
+        # --profile-port: a one-second capture of the live daemon, requests
+        # sent until it returns, holds the worker thread's spans and the
+        # card's kernels.
+        with ThreadPoolExecutor(1) as ex:
+            capture = ex.submit(lambda: json.loads(urllib.request.urlopen(
+                f"http://127.0.0.1:{profile_port}/capture?seconds=1", timeout=120).read()))
+            sent = 0
+            while not capture.done():
+                http_request(port, "POST", "/classify", requests["single"])
+                sent += 1
+            trace_path = capture.result()["trace"]
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        shutil.rmtree(os.path.dirname(os.path.dirname(trace_path)), ignore_errors=True)
+        captured = {"requests": sent, "serve/device_call": sum(e.get("name") == "serve/device_call" for e in events),
+                    "kernel": sum(e.get("cat") == "kernel" for e in events)}
+        if not (captured["serve/device_call"] and captured["kernel"]):
+            cats = sorted({str(e.get("cat")) for e in events})
+            raise AssertionError(f"serve --profile-port: the capture holds {captured} ({len(events)} events, "
+                                 f"categories {cats})")
+        # torchrun exits 1 on a signal of its own; the serve rank is below it.
+        ranks = descendants(proc.pid)
+        for pid in ranks:
+            os.kill(pid, signal.SIGTERM)
+        out_text = proc.communicate(timeout=120)[0]
+    finally:
+        if proc.poll() is None or descendants(proc.pid):
+            kill_all()
+            out_text = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise AssertionError(f"serve --data-parallel: exit {proc.returncode}\n{out_text[-2000:]}")
+    result["cli"] = {"ready_s": ready_s, "wall_s": time.perf_counter() - t0, "exit": proc.returncode,
+                     "capture_events": captured}
+    log(f"mesh server (c) torchrun --nproc-per-node 1 -m roomnet_tpu_torch serve --data-parallel --profile-port: "
+        f"/readyz 200 after {ready_s:.1f} s (interpreter, build and warmup), /classify 200, a 1 s capture under "
+        f"{captured['requests']} requests holds {captured['serve/device_call']} serve/device_call spans and "
+        f"{captured['kernel']} kernels, "
+        "SIGTERM to the rank: exit 0")
+    result["wall_s"] = time.perf_counter() - t_phase
+    log(f"mesh server: phase 11 took {result['wall_s']:.1f} s")
+    return result
 
 if __name__ == "__main__":
     main()

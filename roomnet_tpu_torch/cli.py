@@ -1,27 +1,37 @@
-"""The port's CLI (port of roomnet_tpu/cli.py): the subcommands whose
-modules the port has.
+"""The port's CLI (port of roomnet_tpu/cli.py).
 
     python -m roomnet_tpu_torch train      --data-dir ./data/REI-Dataset [--curriculum]
     python -m roomnet_tpu_torch infer      --images-dir ./test_images [--no-overlay]
     python -m roomnet_tpu_torch validate   --list-file val_list.txt
     python -m roomnet_tpu_torch eval-ckpts --model-dir all_trained_models/... --list-file val_list.txt
     python -m roomnet_tpu_torch serve      [--model-dir ...] [--port 8000]
+    python -m roomnet_tpu_torch convert    --tf-ckpt /path/to/final_model/roomnet
+    python -m roomnet_tpu_torch convert-to-tf --params artifacts/roomnet_params.npz
+    python -m roomnet_tpu_torch export     --out roomnet.tflite
+    python -m roomnet_tpu_torch plot       [--stats all_train_stats.json]
+    python -m roomnet_tpu_torch plot-checkpoints --model-dir all_trained_models/...
+    python -m roomnet_tpu_torch label      --in-dir ./unlabeled
     python -m roomnet_tpu_torch doctor
 
-Flags and defaults are the JAX package's, with two deliberate differences:
-  * --device (default: the CUDA card) picks the device; `--device cpu` runs
-    the kernels' plain PyTorch versions on the CPU. With no GPU and no
-    --device the commands raise.
-  * --profile-port and eval-ckpts --plot are left out until their modules
-    are ported (ROADMAP.md), as are the subcommands convert, convert-to-tf,
-    plot, plot-checkpoints, label, export and bench; `serve --data-parallel`
-    is refused as it is parsed (the server's mesh, ROADMAP.md).
+Flags and defaults are the JAX package's, with these differences:
+  * --device (default: the CUDA card) picks the device of the commands that
+    run the model; `--device cpu` runs the kernels' plain PyTorch versions
+    on the CPU. With no GPU and no --device those commands raise.
+  * convert, convert-to-tf and export need TensorFlow, plot, plot-checkpoints
+    and eval-ckpts --plot matplotlib: they run on a host that has them (the
+    card's host has neither), and export builds its TF graph from weights
+    on the CPU, with no GPU.
+  * serve --profile-port serves on-demand torch.profiler captures
+    (`GET /capture?seconds=S`, utils/profiling.start_server) in place of
+    jax.profiler's gRPC server.
+  * bench is not ported: the benchmark of the port is its own issue
+    (ROADMAP.md).
 
---data-parallel (train, infer, validate, eval-ckpts) runs the command on a
-mesh over every rank of the launch, one process per card, rank 0 writing
-the outputs:
+--data-parallel runs the command on a mesh over every rank of the launch,
+one process per card, rank 0 writing the outputs; for serve, rank 0 serves
+HTTP and every rank computes its rows of each device call:
 
-    torchrun --nproc-per-node N -m roomnet_tpu_torch train --data-parallel ...
+    torchrun --nproc-per-node N -m roomnet_tpu_torch serve --data-parallel ...
 
 Without torchrun it is a world of one on this process's device.
 """
@@ -72,18 +82,6 @@ def _device(args):
     from . import default_device
 
     return default_device(args.device)
-
-
-class _NotPorted(argparse.Action):
-    """An option that needs a module not ported yet: the parser errors on
-    any use of it, with `why`."""
-
-    def __init__(self, option_strings, dest, why="", **kwargs):
-        self.why = why
-        super().__init__(option_strings, dest, **kwargs)
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported yet ({self.why})")
 
 
 def _maybe_mesh(args):
@@ -183,6 +181,10 @@ def cmd_eval_ckpts(args):
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=2)
+    if args.plot:
+        from .plotting.plotter import plot_eval_sweep
+
+        print("plot:", plot_eval_sweep(out, args.plot))
     for e in out["checkpoints"]:
         name_acc = "-" if e["name_accuracy"] is None else f"{e['name_accuracy']:.4f}"
         print(f"step {e['step']:>8}  name-acc {name_acc:>6}  "
@@ -195,12 +197,20 @@ def cmd_serve(args):
     from .infer.classify import RoomNetClassifier
     from .infer.server import ClassifierServer
 
-    dev = _device(args)
+    mesh = _maybe_mesh(args)
+    dev = mesh.device if mesh is not None else _device(args)
     cfg = _model_cfg(args.img_side, bf16=not args.exact)
     clf = RoomNetClassifier(_load_variables(args.params, args.model_dir, dev, cfg), cfg,
-                            batch_size=args.batch_size, device=dev)
-    print(f"serving on http://{args.host}:{args.port}  (POST /classify, /classify_batch)")
-    ClassifierServer(clf, host=args.host, port=args.port,
+                            batch_size=args.batch_size, device=dev, mesh=mesh)
+    if _is_rank0(mesh):
+        if args.profile_port:
+            from .utils.profiling import start_server
+
+            start_server(args.profile_port)
+            print(f"torch.profiler capture server on :{args.profile_port} (GET /capture?seconds=S)")
+        print(f"serving on http://{args.host}:{args.port}  (POST /classify, /classify_batch)")
+    # Every rank of a mesh builds the same server; rank 0 serves, the others follow.
+    return ClassifierServer(clf, host=args.host, port=args.port,
                      warmup=not args.no_warmup,
                      max_inflight=args.max_inflight,
                      request_timeout_s=args.request_timeout,
@@ -210,6 +220,61 @@ def cmd_serve(args):
                      auto_reload_s=args.auto_reload,
                      access_log=args.access_log,
                      drain_s=args.drain).serve_forever()
+
+
+def cmd_convert(args):
+    from .params.checkpoint import save_flat
+    from .params.convert_tf import convert_tf_checkpoint
+
+    flat = convert_tf_checkpoint(args.tf_ckpt)
+    save_flat(flat, args.out, meta={"source_tf_ckpt": args.tf_ckpt})
+    print(f"converted {len(flat)} tensors -> {args.out}")
+
+
+def cmd_convert_to_tf(args):
+    from .params.export_tf import export_params_file
+
+    path, n = export_params_file(args.params, args.out)
+    print(f"exported {n} tensors -> {path} (pair with the reference roomnet.meta)")
+
+
+def cmd_export(args):
+    if args.format == "saved-model" and args.quantize:
+        raise SystemExit("--quantize applies to TFLite only")
+    # A SavedModel is a directory: its default is not the .tflite path.
+    out_path = args.out or ("artifacts/roomnet_saved_model" if args.format == "saved-model"
+                            else "artifacts/roomnet.tflite")
+    # Both formats are float32 artifacts of a TF graph: the f32 config, and
+    # the weights on the CPU (export needs no GPU).
+    cfg = _model_cfg(args.img_side, bf16=False)
+    variables = _load_variables(args.params, args.model_dir, "cpu", cfg)
+    if args.format == "saved-model":
+        from .params.export import export_saved_model
+
+        out = export_saved_model(variables, out_path, cfg=cfg)
+    else:
+        from .params.export import export_tflite
+
+        out = export_tflite(variables, out_path, cfg=cfg, quantize=args.quantize)
+    print("exported:", out)
+
+
+def cmd_plot(args):
+    from .plotting.plotter import plot_training_stats
+
+    print("\n".join(plot_training_stats(args.stats, args.out_dir)))
+
+
+def cmd_plot_checkpoints(args):
+    from .plotting.plotter import plot_checkpoint_accuracies
+
+    print(plot_checkpoint_accuracies(args.model_dir))
+
+
+def cmd_label(args):
+    from .data.labeler import ImageLabeler
+
+    ImageLabeler(args.in_dir).run_labeller(resume=not args.no_resume)
 
 
 def cmd_doctor(args):
@@ -293,6 +358,20 @@ def cmd_doctor(args):
         return f"{len(need)} fixtures present"
 
     check("golden parity fixtures", _golden, warn_only=True)
+
+    def _tf():
+        import tensorflow as tf
+
+        return f"tensorflow {tf.__version__} (convert/export available)"
+
+    check("tensorflow (offline convert/export only)", _tf, warn_only=True)
+
+    def _matplotlib():
+        import matplotlib
+
+        return f"matplotlib {matplotlib.__version__} (plot, plot-checkpoints, eval-ckpts --plot available)"
+
+    check("matplotlib (offline plots only)", _matplotlib, warn_only=True)
 
     width = max(len(n) for _, n, _ in checks)
     failed = False
@@ -398,9 +477,55 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--ckpt-backend", choices=["auto", "npz", "orbax"], default="auto",
                     help="checkpoint store format in --model-dir (auto: npz files win if present; orbax = "
                          "the port's DCP directories)")
+    ev.add_argument("--plot", default=None, metavar="PNG",
+                    help="also render measured-vs-filename accuracy by step (needs matplotlib)")
     ev.add_argument("--data-parallel", action="store_true", help=DP_HELP)
     _add_device(ev)
     ev.set_defaults(fn=cmd_eval_ckpts)
+
+    c = sub.add_parser("convert", help="TF checkpoint -> native params (needs TensorFlow)")
+    c.add_argument("--tf-ckpt", default="/root/reference/final_model/roomnet")
+    c.add_argument("--out", default="artifacts/roomnet_params.npz")
+    c.set_defaults(fn=cmd_convert)
+
+    c2 = sub.add_parser("convert-to-tf",
+                        help="native params -> TF1 checkpoint the reference graph restores by name (needs "
+                             "TensorFlow)")
+    c2.add_argument("--params", default="artifacts/roomnet_params.npz")
+    c2.add_argument("--out", default="exported_tf/roomnet", help="TF checkpoint prefix to write")
+    c2.set_defaults(fn=cmd_convert_to_tf)
+
+    pl = sub.add_parser("plot", help="stats JSON -> 4 PNGs (reference plotter.py; needs matplotlib)")
+    pl.add_argument("--stats", default="all_train_stats.json")
+    pl.add_argument("--out-dir", default="performance_plots")
+    pl.set_defaults(fn=cmd_plot)
+
+    lp = sub.add_parser("plot-checkpoints", help="accuracy from ckpt names (legacy_plotter.py; needs matplotlib)")
+    lp.add_argument("--model-dir", required=True)
+    lp.set_defaults(fn=cmd_plot_checkpoints)
+
+    lb = sub.add_parser("label", help="manual labeling tool (manual_classifier.py)")
+    lb.add_argument("--in-dir", required=True)
+    lb.add_argument("--no-resume", action="store_true")
+    lb.set_defaults(fn=cmd_label)
+
+    e = sub.add_parser("export",
+                       help="export to TFLite (pure builtins, stock-interpreter loadable) or a TF SavedModel "
+                            "(TF-Serving containers); needs TensorFlow, no GPU")
+    e.add_argument("--params", default="artifacts/roomnet_params.npz")
+    e.add_argument("--model-dir", default=None, help="resume-latest from a training checkpoint dir")
+    e.add_argument("--out", default=None,
+                   help="output path (default: artifacts/roomnet.tflite, or artifacts/roomnet_saved_model "
+                        "for saved-model)")
+    e.add_argument("--format", choices=["tflite", "saved-model"], default="tflite",
+                   help="saved-model: SavedModel dir with an unknown batch (forward+softmax+argmax) for "
+                        "TF-Serving")
+    e.add_argument("--quantize", choices=["dynamic", "int8"], default=None,
+                   help="quantized variant (mobile/README.md for measured flip rates; dynamic is the "
+                        "shipped one)")
+    e.add_argument("--img-side", type=int, default=224,
+                   help="model input geometry; must match the loaded weights' dense head")
+    e.set_defaults(fn=cmd_export)
 
     s = sub.add_parser("serve", help="HTTP classification daemon")
     s.add_argument("--params", default="artifacts/roomnet_params.npz")
@@ -424,6 +549,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--auto-reload", type=float, default=None, metavar="S",
                    help="poll --model-dir every S seconds and hot-swap when a newer checkpoint "
                         "lands")
+    s.add_argument("--profile-port", type=int, default=None,
+                   help="serve on-demand torch.profiler captures of the live daemon on this port "
+                        "(GET /capture?seconds=S answers the chrome trace's path)")
     s.add_argument("--drain", type=float, default=0.0, metavar="S",
                    help="graceful-drain window on SIGTERM/Ctrl-C: /readyz goes 503, new classify "
                         "work is shed with 503, and admitted requests get up to S seconds to "
@@ -431,8 +559,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--request-timeout", type=float, default=30.0,
                    help="per-request budget cap (s), stamped at admission; clients may lower it "
                         "per request with the X-Timeout-Seconds header")
-    s.add_argument("--data-parallel", action=_NotPorted, nargs=0, default=False,
-                   why="the server's mesh, ROADMAP.md §1", help="not ported yet (the server's mesh)")
+    s.add_argument("--data-parallel", action="store_true",
+                   help=DP_HELP + "; rank 0 serves HTTP, the other ranks follow its device calls")
     _add_device(s)
     s.set_defaults(fn=cmd_serve)
 

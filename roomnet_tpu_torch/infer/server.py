@@ -53,6 +53,23 @@ copies into pinned host tensors behind a recorded event, which the round's
 finalize waits on a pipelined round later: the worker never synchronizes
 in its dispatch, and a device fault surfaces at that wait, inside the
 handler that turns it into a 503 `device_error`.
+
+On a mesh (a classifier built with `mesh=`, `parallel/mesh.py`) the ranks
+run in lockstep, one process per card. Rank 0 runs the whole server: HTTP,
+admission, the worker. Every other rank is a follower that binds no socket
+(`serve_forever` picks the role by rank). Before each collective step rank
+0's worker broadcasts a header over the world group (`_Lockstep`: a device
+call and its bucket size, a reload and its checkpoint step, the stop, or a
+heartbeat when idle), then the bucket of images, and every rank makes the
+same `_predict` call: each computes its rows of the bucket and the
+probabilities of every rank are gathered on every rank. Buckets start at
+the data axis, so each rank gets whole rows. /reload and auto-reload run
+as jobs on the worker thread, so their collectives never interleave with
+a device call's: every rank loads the step that rank 0 chose from its own
+store, the ranks agree that each loaded and gated it, the probe call is
+collective, and all ranks swap or none does. A collective that fails (a
+rank died; the group's timeout) fails its requests with 503 and ends rank
+0's `serve_forever` with an error; nothing waits for the lost rank.
 """
 
 from __future__ import annotations
@@ -68,7 +85,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel import collectives as C
 from ..params import schema
 from ..params.checkpoint import open_store
 from ..utils.logging import EventLog, get_logger
@@ -76,6 +95,11 @@ from ..utils.profiling import SPANS, trace
 
 # The worker's start-up (set the device, one small CUDA call) on a busy host.
 WORKER_START_S = 60.0
+# A mesh server's headers: the op, the bucket size, the checkpoint step.
+_NOOP, _PREDICT, _RELOAD, _STOP = range(4)
+# An idle rank 0 sends a NOOP header this often, so that a follower's wait
+# for the next header never reaches the process group's timeout.
+HEARTBEAT_S = 5.0
 
 
 class _Job:
@@ -83,10 +107,14 @@ class _Job:
     row). Single requests carry 1 image; /classify_batch carries N. The
     worker fills `results` (per-image dict or None) and sets `event`."""
 
-    __slots__ = ("images", "event", "results", "error", "abandoned", "deadline")
+    __slots__ = ("images", "event", "results", "error", "abandoned", "deadline", "reload", "reply")
 
-    def __init__(self, images, deadline: float = float("inf")):
+    def __init__(self, images, deadline: float = float("inf"), reload: bool = False):
         self.images = images
+        # A mesh server's /reload: no images; the worker runs it and sets
+        # `reply` to its (status, payload).
+        self.reload = reload
+        self.reply = None
         self.event = threading.Event()
         self.results = [None] * len(images)
         self.error = None  # "device_error" when the batch's device call failed
@@ -102,6 +130,35 @@ def _to_host_async(t: torch.Tensor) -> torch.Tensor:
     out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     out.copy_(t, non_blocking=True)
     return out
+
+
+class _Lockstep:
+    """The headers of a mesh server, over the world group: rank 0 sends one
+    before each collective step and every follower receives it, so that
+    every rank makes the same calls in the same order."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.group = dist.group.WORLD
+        self.sent = time.monotonic()
+
+    def send(self, op: int, bucket: int = 0, step: int = 0, *, wait: bool = False):
+        """Rank 0: broadcast a header; with `wait`, return once every rank
+        has taken part (a header is otherwise asynchronous on NCCL)."""
+        hdr = torch.tensor([op, bucket, step], dtype=torch.int64, device=self.device)
+        C.broadcast_(hdr, self.group)
+        if wait:
+            hdr.tolist()
+        self.sent = time.monotonic()
+
+    def receive(self) -> list:
+        """A follower: the next header, [op, bucket, step]."""
+        hdr = torch.zeros(3, dtype=torch.int64, device=self.device)
+        return C.broadcast_(hdr, self.group).tolist()
+
+    def share(self, x: torch.Tensor):
+        """Rank 0's bucket of images into `x` on every rank, in place."""
+        C.broadcast_(x, self.group)
 
 
 class ClassifierServer:
@@ -129,8 +186,17 @@ class ClassifierServer:
 
         warmup: run every bucket once before the socket binds. On the card
         the first device call also builds the CUDA kernels (nvcc); without
-        warmup the first request pays that against its budget."""
+        warmup the first request pays that against its budget.
+
+        A classifier on a mesh makes this a mesh server (module docstring):
+        every rank constructs it with the same arguments and calls
+        `serve_forever`; rank 0 serves, the others follow."""
         self.classifier = classifier
+        mesh = getattr(classifier, "mesh", None)
+        self.rank = 0 if mesh is None else mesh.rank
+        self._lockstep = None if mesh is None else _Lockstep(classifier.device)
+        # The failure of a mesh collective: rank 0 stops, serve_forever raises.
+        self._mesh_error: BaseException | None = None
         self.host = host
         self.port = port
         self.model_dir = model_dir
@@ -185,10 +251,16 @@ class ClassifierServer:
 
     # -- device worker: micro-batches pending requests ----------------------
     def _compute_buckets(self):
-        """Device-call batch sizes: powers of 2 from 1 up to the
-        classifier's batch size (and it). A lone request ships one image,
-        not a full batch of padding; a call pads at most 2x."""
-        b, out = 1, []
+        """Device-call batch sizes: powers of 2 times the smallest legal
+        batch up to the classifier's batch size (and it). A lone request
+        ships one image, not a full batch of padding; a call pads at most 2x.
+        On a mesh the smallest is the data axis, so every rank gets whole
+        rows of each bucket."""
+        base = 1
+        mesh = getattr(self.classifier, "mesh", None)
+        if mesh is not None:
+            base = int(mesh.shape["data"])
+        b, out = base, []
         while b < self.classifier.batch_size:
             out.append(b)
             b *= 2
@@ -209,20 +281,45 @@ class ClassifierServer:
     def _warmup(self):
         """Run every bucket once, the kernels' build included, and fetch a
         result of each, so no request pays either."""
-        clf = self.classifier
         for b in self._bucket_sizes:
-            ids, _ = clf._predict(clf.variables, self._zeros(b))
+            ids, _ = self._device_call(self._zeros(b))
             int(ids[0])  # a fetch: the call has completed
+
+    def _device_call(self, x: torch.Tensor):
+        """(ids, probs) of the serving weights on the device batch x. On a
+        mesh rank 0 first sends the header and x, and every rank makes the
+        call."""
+        if self._lockstep is not None:
+            self._lockstep.send(_PREDICT, x.shape[0])
+            self._lockstep.share(x)
+        clf = self.classifier
+        return clf._predict(clf.variables, x)
 
     def _worker_start(self):
         """Make the classifier's device this thread's current device and
         touch it once: a thread's first CUDA call costs milliseconds, which
-        the first request would otherwise pay."""
+        the first request would otherwise pay. Rank 0 of a mesh then waits
+        until every follower takes part in a header, so that a ready
+        worker means ready ranks."""
         # The weights' device has an index where classifier.device may not.
         dev = next(iter(schema.flatten_tensors(self.classifier.variables).values())).device
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
             torch.zeros(1, device=dev).add_(1).item()
+        if self._lockstep is not None and self.rank == 0:
+            self._lockstep.send(_NOOP, wait=True)
+
+    def _mesh_failed(self, exc: BaseException):
+        """A collective of a mesh server failed: the ranks are out of
+        lockstep, so rank 0 stops serving and its serve_forever raises. A
+        no-op without a mesh."""
+        if self._lockstep is None:
+            return
+        get_logger("server").error("mesh collective failed, stopping: %s: %s", type(exc).__name__, exc)
+        self._mesh_error = exc
+        self._stop.set()
+        if self._httpd is not None:
+            threading.Thread(target=self._httpd.shutdown, daemon=True).start()
 
     def _worker(self):
         try:
@@ -261,7 +358,7 @@ class ClassifierServer:
                     host[len(chunk):] = 0
                     with trace("serve/device_call"):
                         x = staged.to(clf.device, non_blocking=True)
-                        ids, probs = clf._predict(clf.variables, x)
+                        ids, probs = self._device_call(x)
                         fetched = None
                         if cuda:
                             ids, probs = _to_host_async(ids), _to_host_async(probs)
@@ -271,7 +368,8 @@ class ClassifierServer:
                     # bytes that really went to the device.
                     SPANS.count("serve/device_call_bytes", host.nbytes)
                     chunks.append((chunk, ids, probs, fetched))
-            except Exception:
+            except Exception as exc:
+                self._mesh_failed(exc)
                 return batch_jobs, chunks, True
             return batch_jobs, chunks, False
 
@@ -321,6 +419,15 @@ class ClassifierServer:
                 if pending is not None:
                     finalize(pending)
                     pending = None
+                if self._lockstep is not None and time.monotonic() - self._lockstep.sent > HEARTBEAT_S:
+                    try:
+                        self._lockstep.send(_NOOP)
+                    except Exception as exc:
+                        self._mesh_failed(exc)
+                continue
+            if first.reload:
+                first.reply = self._mesh_reload()
+                first.event.set()
                 continue
             # Coalesce whole jobs until the device batch is full; a large
             # /classify_batch job is chunked over several device calls.
@@ -330,6 +437,9 @@ class ClassifierServer:
                 try:
                     j = self._jobs.get_nowait()
                 except queue.Empty:
+                    break
+                if j.reload:  # runs on a later turn, after this batch
+                    self._jobs.put(j)
                     break
                 if dead(j):
                     continue
@@ -343,6 +453,11 @@ class ClassifierServer:
             pending = new_round
         if pending is not None:
             finalize(pending)
+        if self._lockstep is not None and self._mesh_error is None:
+            try:
+                self._lockstep.send(_STOP, wait=True)  # the followers return
+            except Exception as exc:
+                self._mesh_failed(exc)
 
     def _preprocess(self, body: bytes):
         import cv2
@@ -452,9 +567,16 @@ class ClassifierServer:
 
     def _reload_latest(self):
         """Load the max-step checkpoint from model_dir and swap it in.
-        Returns (status_code, payload)."""
+        Returns (status_code, payload). On a mesh it runs as a job on the
+        worker thread (module docstring)."""
         if self.model_dir is None:
             return 403, {"error": "server started without --model-dir; reload disabled"}
+        if self._lockstep is not None:
+            job = _Job([], reload=True)
+            if not self._stop.is_set():
+                self._jobs.put(job)
+                job.event.wait()
+            return job.reply or (503, {"error": f"reload not run: {job.error or 'shutting_down'}"})
         with self._reload_lock:
             return self._reload_latest_locked()
 
@@ -476,34 +598,88 @@ class ClassifierServer:
             return 404, {"error": f"no checkpoint found in {self.model_dir}"}
         var_flat, step = loaded
         try:
-            variables = schema.variables_from_numpy(var_flat, clf.cfg, clf.device)
-            # Structural gate before the swap: the new tree must match the
-            # serving one path for path and shape for shape (a checkpoint
-            # with another num_classes would otherwise serve silently wrong
-            # answers against this server's labels).
-            old_flat = schema.flatten_tensors(clf.variables)
-            new_flat = schema.flatten_tensors(variables)
-            if set(old_flat) != set(new_flat):
-                raise ValueError(
-                    f"variable set differs: only-old={sorted(set(old_flat) - set(new_flat))[:3]} "
-                    f"only-new={sorted(set(new_flat) - set(old_flat))[:3]}")
-            for k in old_flat:
-                if tuple(new_flat[k].shape) != tuple(old_flat[k].shape):
-                    raise ValueError(f"{k}: shape {tuple(new_flat[k].shape)} != serving "
-                                     f"{tuple(old_flat[k].shape)}")
-            # Probe device call: one smallest-bucket forward on the new
-            # weights must give finite probabilities before the swap (NaN or
-            # Inf weights pass the gate above). It runs on this request
-            # thread, beside the worker serving the old weights, and holds
-            # no lock the worker takes.
-            _, probs = clf._predict(variables, self._zeros(self._bucket_sizes[0]))
-            if not bool(torch.isfinite(probs).all()):
-                raise ValueError("probe device call produced non-finite probabilities")
+            variables = self._gated(var_flat)
+            # It runs on this request thread, beside the worker serving the
+            # old weights, and holds no lock the worker takes.
+            self._probe(variables)
         except Exception as exc:  # noqa: BLE001
             return 409, {"error": f"checkpoint rejected: {type(exc).__name__}: {exc}"}
-        clf.variables = variables
+        return self._swap(variables, step)
+
+    def _gated(self, var_flat: dict):
+        """The serving tree of a checkpoint's flat dict, on the device.
+        Structural gate before any swap: it must match the serving tree
+        path for path and shape for shape (a checkpoint with another
+        num_classes would otherwise serve silently wrong answers against
+        this server's labels); raises ValueError."""
+        clf = self.classifier
+        variables = schema.variables_from_numpy(var_flat, clf.cfg, clf.device)
+        old_flat = schema.flatten_tensors(clf.variables)
+        new_flat = schema.flatten_tensors(variables)
+        if set(old_flat) != set(new_flat):
+            raise ValueError(
+                f"variable set differs: only-old={sorted(set(old_flat) - set(new_flat))[:3]} "
+                f"only-new={sorted(set(new_flat) - set(old_flat))[:3]}")
+        for k in old_flat:
+            if tuple(new_flat[k].shape) != tuple(old_flat[k].shape):
+                raise ValueError(f"{k}: shape {tuple(new_flat[k].shape)} != serving "
+                                 f"{tuple(old_flat[k].shape)}")
+        return variables
+
+    def _probe(self, variables):
+        """Probe device call: one smallest-bucket forward on the new weights
+        must give finite probabilities before the swap (NaN or Inf weights
+        pass the structural gate); raises ValueError."""
+        _, probs = self.classifier._predict(variables, self._zeros(self._bucket_sizes[0]))
+        if not bool(torch.isfinite(probs).all()):
+            raise ValueError("probe device call produced non-finite probabilities")
+
+    def _swap(self, variables, step: int):
+        self.classifier.variables = variables
         self.model_version = {"step": int(step), "path": self.model_dir}
         return 200, {"status": "reloaded", "step": int(step)}
+
+    def _mesh_reload(self):
+        """Rank 0's worker: choose the max-step checkpoint, send its step
+        and reload it on every rank (`_reload_step`). (status, payload)."""
+        try:
+            ckpts = self._open_store().list_checkpoints()
+        except Exception as exc:  # noqa: BLE001
+            return 409, {"error": f"checkpoint rejected: {type(exc).__name__}: {exc}"}
+        if not ckpts:
+            return 404, {"error": f"no checkpoint found in {self.model_dir}"}
+        step = max(c[0] for c in ckpts)
+        try:
+            self._lockstep.send(_RELOAD, step=step)
+            return self._reload_step(step)
+        except Exception as exc:  # a collective failed
+            self._mesh_failed(exc)
+            return 503, {"error": f"inference backend: device_error ({type(exc).__name__}: {exc})"}
+
+    def _reload_step(self, step: int):
+        """Every rank of a mesh: load the checkpoint at `step` from this
+        rank's own store and gate it; if every rank did, probe it (a
+        collective call, whose gathered probabilities every rank judges
+        alike) and swap it in. All ranks swap or none does. (status,
+        payload); a failed collective raises."""
+        clf = self.classifier
+        error = None
+        try:
+            store = self._open_store()
+            path = next(p for s, _, p in store.list_checkpoints() if s == step)
+            variables = self._gated(store.load(path, cfg=clf.cfg)[0])
+        except Exception as exc:  # noqa: BLE001
+            error = f"{type(exc).__name__}: {exc}"
+        flag = torch.tensor([float(error is not None)], device=clf.device)
+        refused = int(C.all_reduce_sum(flag, self._lockstep.group).item())
+        if refused:
+            return 409, {"error": f"checkpoint rejected on {refused} of {dist.get_world_size()} ranks: "
+                                  f"{error or 'see the rejecting ranks'}"}
+        try:
+            self._probe(variables)
+        except ValueError as exc:
+            return 409, {"error": f"checkpoint rejected: {type(exc).__name__}: {exc}"}
+        return self._swap(variables, step)
 
     # -- http ---------------------------------------------------------------
     def _make_handler(server_self):
@@ -848,6 +1024,9 @@ class ClassifierServer:
             self._httpd.shutdown()
             self._httpd.server_close()
         self._decode_pool.shutdown(wait=False, cancel_futures=True)
+        worker = self._threads[0] if self._threads else None
+        if self._lockstep is not None and worker is not None and worker is not threading.current_thread():
+            worker.join(WORKER_START_S)  # its last act is the followers' STOP
         # Fail queued jobs fast: their handlers would otherwise sit out
         # their budgets. Swept three times: a handler that raced past the
         # _stop check in _run_job may enqueue just after a sweep.
@@ -866,8 +1045,13 @@ class ClassifierServer:
         """Run until interrupted. SIGTERM gets the same clean shutdown as
         Ctrl-C: with drain_s > 0 the server drains first (/readyz 503, new
         classify work shed, admitted requests answered for up to drain_s),
-        then stop() fails whatever remains."""
+        then stop() fails whatever remains. Returns 0. On a mesh, rank 0
+        then sends STOP, and a failed collective makes it raise; a follower
+        runs `follow`."""
         import signal
+
+        if self.rank != 0:
+            return self.follow()
 
         def _sigterm(*_):
             raise KeyboardInterrupt
@@ -885,7 +1069,7 @@ class ClassifierServer:
             pass
         finally:
             try:
-                if self.drain_s > 0:
+                if self.drain_s > 0 and self._mesh_error is None:
                     self.begin_drain()
                     self.wait_drained(self.drain_s)
             except KeyboardInterrupt:
@@ -894,3 +1078,36 @@ class ClassifierServer:
                 self.stop()
                 if prev is not None:
                     signal.signal(signal.SIGTERM, prev)
+        if self._mesh_error is not None:
+            self.wait_drained(5.0)  # the failed requests' 503s go out first
+            raise RuntimeError("a collective of the mesh failed; the ranks are out of lockstep") \
+                from self._mesh_error
+        return 0
+
+    def follow(self) -> int:
+        """A follower's serve_forever (mesh rank > 0): bind no socket, make
+        rank 0's collective calls in its order, and return 0 at its STOP.
+        SIGTERM is ignored here (a launcher sends it to every rank): the
+        rank ends when rank 0, drained, sends STOP. If rank 0 is lost, the
+        next collective raises after the group's timeout."""
+        import signal
+
+        self._worker_start()
+        prev = None
+        if threading.current_thread() is threading.main_thread():
+            prev = signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        try:
+            clf = self.classifier
+            while True:
+                op, bucket, step = self._lockstep.receive()
+                if op == _STOP:
+                    return 0
+                if op == _PREDICT:
+                    x = self._zeros(bucket)
+                    self._lockstep.share(x)
+                    clf._predict(clf.variables, x)
+                elif op == _RELOAD:
+                    self._reload_step(step)
+        finally:
+            if prev is not None:
+                signal.signal(signal.SIGTERM, prev)

@@ -1,8 +1,9 @@
-"""The collectives of the data-parallel step, over a mesh's data group.
+"""The collectives of the data-parallel step and the mesh server.
 
 Only `all_reduce` (SUM) is used, so the same code runs on NCCL and on gloo
 with CUDA tensors (two ranks that share one card go over gloo: NCCL
-refuses two ranks on one device). A gather is a zero-padded all-reduce.
+refuses two ranks on one device). A gather is a zero-padded all-reduce, and
+a broadcast an all-reduce to which every rank but the source adds zeros.
 Every function takes `group=None` as "no group": the local value, so one
 code path serves a single process and a mesh, and a world of one computes
 the same bits as no mesh.
@@ -51,6 +52,18 @@ def all_reduce_sum(x: torch.Tensor, group, *, differentiable: bool = False) -> t
     y = x.detach().clone()
     dist.all_reduce(y, group=group)
     return y
+
+
+def broadcast_(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """x of the group's rank `src` on every rank, in place: every other rank
+    zeroes x and the group sums it. Every rank must pass the same shape and
+    dtype."""
+    if group is None:
+        return x
+    if index(group) != src:
+        x.zero_()
+    dist.all_reduce(x, group=group)
+    return x
 
 
 def gather_rows(x: torch.Tensor, group) -> torch.Tensor:

@@ -11,6 +11,10 @@ The on-disk format is the JAX package's flat `.npz`, unchanged:
 
 The port keeps the same layouts in memory (HWIO kernels, NHWC activations),
 so loading is a copy of each array and saving is bit-identical.
+
+`tf_name_map` is the bijection to the reference TF1 checkpoint's variable
+names (graph-construction order), which `params/convert_tf.py` and
+`params/export_tf.py` use.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from ..models.roomnet import DEFAULT_CONFIG, RoomNetConfig, Variables
 
 _BN_FIELDS = ("scale", "bias", "mean", "var")
+_TF_BN_FIELDS = {"scale": "gamma", "bias": "beta", "mean": "moving_mean", "var": "moving_variance"}
 
 
 def flatten_tensors(variables: Variables) -> dict[str, Any]:
@@ -110,3 +115,37 @@ def variables_from_numpy(flat: dict[str, np.ndarray], cfg: RoomNetConfig = DEFAU
 def load_npz(path, cfg: RoomNetConfig = DEFAULT_CONFIG, device=None) -> Variables:
     with np.load(path) as data:
         return variables_from_numpy(dict(data), cfg, device)
+
+
+def tf_name_map(cfg: RoomNetConfig = DEFAULT_CONFIG) -> dict[str, str]:
+    """Our flat path -> the reference TF1 variable name: convs, BNs and
+    denses numbered in the order the reference graph builds them
+    (``conv2d``, ``conv2d_1``, ...; a block's residual BN after its convs'
+    BNs; the dense head's BNs after every block's)."""
+    mapping: dict[str, str] = {}
+    conv_i = bn_i = 0
+
+    def tf_suffix(i):
+        return "" if i == 0 else f"_{i}"
+
+    def bn_names(prefix: str, i: int):
+        for ours, tf in _TF_BN_FIELDS.items():
+            mapping[f"{prefix}/{ours}"] = f"batch_normalization{tf_suffix(i)}/{tf}"
+
+    for bi, depth in enumerate(cfg.block_depths):
+        for d in range(depth):
+            mapping[f"blocks/{bi}/conv/{d}"] = f"conv2d{tf_suffix(conv_i)}/kernel"
+            conv_i += 1
+            bn_names(f"blocks/{bi}/bn/{d}", bn_i)
+            bn_i += 1
+        if depth > 1:
+            bn_names(f"blocks/{bi}/res_bn", bn_i)
+            bn_i += 1
+    n_dense = len(cfg.dense_units) + 1
+    for di in range(n_dense):
+        mapping[f"dense/{di}/kernel"] = f"dense{tf_suffix(di)}/kernel"
+        if di < n_dense - 1:
+            bn_names(f"dense/{di}/bn", bn_i)
+            bn_i += 1
+    mapping[f"dense/{n_dense - 1}/bias"] = f"dense{tf_suffix(n_dense - 1)}/bias"
+    return mapping

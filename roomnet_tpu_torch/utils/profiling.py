@@ -5,16 +5,17 @@
     and adds its wall time to the process-wide registry `SPANS`;
   * `SPANS.count(name, value)`: accumulates a value (bytes shipped, ...);
   * `StepTimer`: steps/s and images/s with an exponential moving average;
-  * `trace_to(log_dir)`: a `torch.profiler` capture, written as a chrome trace.
-
-The JAX package's `start_server` (jax.profiler's gRPC capture server) has
-no PyTorch counterpart and is not ported.
+  * `trace_to(log_dir)`: a `torch.profiler` capture, written as a chrome trace;
+  * `start_server(port)`: on-demand captures of a live process over HTTP
+    (the counterpart of the JAX package's jax.profiler gRPC server).
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import tempfile
 import threading
 import time
 from collections import defaultdict
@@ -93,6 +94,11 @@ class _Registry:
 SPANS = _Registry()
 
 
+# Set while a capture of every thread runs (`trace_to(all_threads=True)`):
+# the profiler's own flag is set only in the thread that started it.
+_ALL_THREADS = threading.Event()
+
+
 @contextlib.contextmanager
 def trace(name: str):
     """Wall-time span in `SPANS`, and a range of the same name while a
@@ -100,7 +106,7 @@ def trace(name: str):
     add host time to every span)."""
     t0 = time.perf_counter()
     try:
-        if torch.autograd._profiler_enabled():
+        if _ALL_THREADS.is_set() or torch.autograd._profiler_enabled():
             with record_function(name):
                 yield
         else:
@@ -110,18 +116,91 @@ def trace(name: str):
 
 
 @contextlib.contextmanager
-def trace_to(log_dir: str):
+def trace_to(log_dir: str, *, all_threads: bool = False):
     """Capture the block with `torch.profiler` (CPU, and CUDA where there is
-    a card) into ``<log_dir>/trace.json``, a chrome trace."""
+    a card) into ``<log_dir>/trace.json``, a chrome trace. all_threads: the
+    host ops and `trace` spans of every thread of the process, not only of
+    the calling one (device activity is always the whole process's)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    kw = {}
+    if all_threads:
+        kw["experimental_config"] = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield log_dir
+    with profile(activities=activities, **kw) as prof:
+        if all_threads:
+            _ALL_THREADS.set()
+        try:
+            yield log_dir
+        finally:
+            _ALL_THREADS.clear()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+CAPTURE_MAX_S = 60.0
+
+
+def start_server(port: int = 9999, log_dir: str | None = None):
+    """On-demand trace capture of a live process (the counterpart of
+    `jax.profiler.start_server`): a daemon thread serving HTTP on `port`.
+    ``GET /capture?seconds=S`` (default 2, at most CAPTURE_MAX_S) records
+    every thread of the process with `trace_to(..., all_threads=True)` for
+    S seconds into a new directory under `log_dir` (fixed here, never
+    taken from the request; default a directory under the temp dir) and
+    answers ``{"trace": path to trace.json}``; a capture asked for while
+    another runs answers 409. It listens on 127.0.0.1 only. Returns the
+    HTTP server (`server_address[1]` is its port; `shutdown()` ends it)."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    from urllib.parse import parse_qs, urlparse
+
+    log_dir = log_dir or os.path.join(tempfile.gettempdir(), f"roomnet_profile_{os.getpid()}")
+    busy = threading.Lock()
+    taken = [0]
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):  # quiet
+            pass
+
+        def _send(self, code: int, payload: dict):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            url = urlparse(self.path)
+            if url.path != "/capture":
+                self._send(404, {"error": "not found; GET /capture?seconds=S"})
+                return
+            try:
+                seconds = float(parse_qs(url.query).get("seconds", ["2"])[0])
+            except ValueError:
+                self._send(400, {"error": "seconds must be a number"})
+                return
+            if not 0 < seconds <= CAPTURE_MAX_S:
+                self._send(400, {"error": f"seconds must be in (0, {CAPTURE_MAX_S}]"})
+                return
+            if not busy.acquire(blocking=False):
+                self._send(409, {"error": "a capture is running"})
+                return
+            try:
+                taken[0] += 1
+                out = os.path.join(log_dir, f"capture_{taken[0]:04d}")
+                with trace_to(out, all_threads=True):
+                    time.sleep(seconds)
+            finally:
+                busy.release()
+            self._send(200, {"trace": os.path.join(out, "trace.json"), "seconds": seconds})
+
+    server = ThreadingHTTPServer(("127.0.0.1", port), Handler)
+    server.daemon_threads = True
+    threading.Thread(target=server.serve_forever, daemon=True, name="roomnet-profile-server").start()
+    return server
 
 
 class StepTimer:

@@ -10,6 +10,7 @@ answer. `doctor` without a GPU exits 1 with a FAIL line. The spans that
 `predict_stream` records are the JAX pipeline's names, with its counts.
 """
 
+import argparse
 import ast
 import csv
 import dataclasses
@@ -19,6 +20,7 @@ import os
 import shutil
 import subprocess
 import sys
+import urllib.request
 
 import jax
 import numpy as np
@@ -53,9 +55,21 @@ SUBCOMMANDS = {
     "infer": ["infer", "--images-dir", "/x"],
     "validate": ["validate", "--list-file", "/x"],
     "eval-ckpts": ["eval-ckpts", "--model-dir", "/m", "--list-file", "/x"],
+    "convert": ["convert"],
+    "convert-to-tf": ["convert-to-tf"],
+    "plot": ["plot"],
+    "plot-checkpoints": ["plot-checkpoints", "--model-dir", "/m"],
+    "label": ["label", "--in-dir", "/x"],
+    "export": ["export"],
     "serve": ["serve"],
     "doctor": ["doctor"],
 }
+# The port's new modules, which must import on a host without JAX,
+# roomnet_tpu, TensorFlow or matplotlib (the card's).
+OFFLINE_MODULES = ("roomnet_tpu_torch.params.convert_tf", "roomnet_tpu_torch.params.export_tf",
+                   "roomnet_tpu_torch.params.export", "roomnet_tpu_torch.plotting.plotter",
+                   "roomnet_tpu_torch.data.labeler", "roomnet_tpu_torch.utils.profiling",
+                   "roomnet_tpu_torch.infer.server", "roomnet_tpu_torch.cli")
 
 
 @pytest.fixture
@@ -109,19 +123,33 @@ def read_csv(path):
 
 
 def test_cli_parses_the_ported_subcommands_only():
+    """Every subcommand of the JAX CLI but bench, with the JAX CLI's flags
+    (and --device where the command runs the model)."""
     p = tcli.build_parser()
     for argv in [*SUBCOMMANDS.values(),
                  ["infer", "--images-dir", "/x", "--no-overlay", "--exact", "--device", "cpu"],
                  ["serve", "--port", "0", "--drain", "10", "--auto-reload", "1", "--model-dir", "/m"],
+                 ["serve", "--data-parallel", "--drain", "10"], ["serve", "--profile-port", "9999"],
                  ["eval-ckpts", "--model-dir", "/m", "--list-file", "/x", "--ckpt-backend", "npz"],
                  ["eval-ckpts", "--model-dir", "/m", "--list-file", "/x", "--ckpt-backend", "orbax", "--data-parallel"],
+                 ["eval-ckpts", "--model-dir", "/m", "--list-file", "/x", "--plot", "/x.png"],
                  ["infer", "--images-dir", "/x", "--data-parallel"], ["validate", "--list-file", "/x", "--data-parallel"],
-                 ["train", "--data-parallel"], ["train", "--ckpt-backend", "orbax"], ["train", "--feed-mode", "sharded"]]:
+                 ["train", "--data-parallel"], ["train", "--ckpt-backend", "orbax"],
+                 ["train", "--feed-mode", "sharded"], ["export", "--quantize", "dynamic"], ["export", "--format", "saved-model", "--out", "/tmp/sm"],
+                 ["label", "--in-dir", "/x", "--no-resume"]]:
         assert callable(p.parse_args(argv).fn)
-    for argv in (["convert"], ["convert-to-tf"], ["plot"], ["plot-checkpoints"], ["label"],
-                 ["export"], ["bench"], ["serve", "--profile-port", "1"], ["serve", "--data-parallel"]):
-        with pytest.raises(SystemExit):
-            p.parse_args(argv)
+    with pytest.raises(SystemExit):
+        p.parse_args(["bench"])
+
+    def flags(parser) -> dict:
+        sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
+        return {name: {o for a in sp._actions for o in a.option_strings} for name, sp in sub.choices.items()}
+
+    port, ref = flags(p), flags(jcli.build_parser())
+    assert set(port) == set(ref) - {"bench"}
+    for name in port:
+        assert port[name] - ref[name] <= {"--device"}, name
+        assert ref[name] - port[name] == set(), name
 
 
 def test_defaults_are_the_jax_clis():
@@ -278,6 +306,8 @@ def test_doctor_without_a_gpu_fails(monkeypatch, capsys):
     assert "[FAIL] torch + CUDA device" in out
     assert "[PASS] converted reference params" in out and "178,062 params" in out
     assert "[PASS] golden parity fixtures" in out and "[PASS] cv2" in out
+    assert "[PASS] tensorflow (offline convert/export only)" in out
+    assert "[PASS] matplotlib (offline plots only)" in out
     # a missing params file is a WARN, never a crash
     with pytest.raises(SystemExit):
         tcli.main(["doctor", "--params", "/nonexistent/params.npz"])
@@ -371,3 +401,147 @@ def test_predict_stream_records_the_jax_pipelines_spans(tmp_path):
     assert got["e2e/decode"]["count"] == 3 and got["e2e/fetch"]["count"] == 1
     assert "e2e/device_put" not in got and "e2e/wait_put" not in got
     assert want["e2e/device_put"]["count"] == 3
+
+
+# -- this slice's subcommands and flags -------------------------------------------
+
+
+def test_eval_ckpts_plot_writes_the_png(tiny_clis, tmp_path, capsys):
+    pytest.importorskip("matplotlib")
+    npz, flat = tiny_clis
+    paths = write_images(str(tmp_path / "imgs"), n=3)[:-1]
+    store = jckpt.CheckpointStore(str(tmp_path / "ckpts"))
+    store.save(jschema.unflatten_variables(flat, TINY6), 10, suffix="0.5000")
+    store.save(jschema.unflatten_variables(flat, TINY6), 20, suffix="interrupt")
+    lst = tmp_path / "list.txt"
+    lst.write_text("".join(f"{p} 0\n" for p in paths))
+    png = str(tmp_path / "sweep.png")
+    tcli.main(["eval-ckpts", "--model-dir", str(tmp_path / "ckpts"), "--list-file", str(lst), "--exact",
+               "--batch-size", "4", "--device", "cpu", "--plot", png])
+    assert f"plot: {png}" in capsys.readouterr().out
+    assert cv2.imread(png) is not None and os.path.getsize(png) > 1000
+
+
+def test_plot_and_label_subcommands(tmp_path, capsys, monkeypatch):
+    pytest.importorskip("matplotlib")
+    stats = [{"step": s, "accuracy": 0.5 + s / 100, "precisions": [0.5] * 6, "recalls": [0.4] * 6,
+              "f-scores": [0.3] * 6} for s in (20, 10)]
+    (tmp_path / "stats.json").write_text(json.dumps(stats))
+    tcli.main(["plot", "--stats", str(tmp_path / "stats.json"), "--out-dir", str(tmp_path / "plots")])
+    assert sorted(os.listdir(tmp_path / "plots")) == ["accuracy_plot.png", "fscore_plot.png", "precision_plot.png",
+                                                      "recall_plot.png"]
+    (tmp_path / "models").mkdir()
+    (tmp_path / "models" / "roomnet--0.5--10.npz").write_bytes(b"x")
+    tcli.main(["plot-checkpoints", "--model-dir", str(tmp_path / "models")])
+    assert os.path.exists(str(tmp_path / "models") + "_accuracy_plot.png")
+    write_images(str(tmp_path / "unlabeled"), n=2)
+    keys = iter(["a", "b", "q"])
+    monkeypatch.setattr("builtins.input", lambda *_: next(keys))
+    monkeypatch.delenv("DISPLAY", raising=False)
+    tcli.main(["label", "--in-dir", str(tmp_path / "unlabeled")])
+    assert "Aborted by user" in capsys.readouterr().out
+    assert (tmp_path / "unlabeled-labelled" / "labels.csv").read_text().splitlines() == ["corrupt.jpg,97",
+                                                                                         "photo 0.png,98"]
+
+
+def test_export_subcommand_writes_a_tflite_on_the_cpu(tiny_clis, tmp_path, capsys, monkeypatch):
+    """export loads the weights on the CPU (no GPU needed) in the f32 config,
+    as the JAX CLI does; --quantize is refused for a SavedModel."""
+    tf = pytest.importorskip("tensorflow")
+    npz, _ = tiny_clis
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = str(tmp_path / "tiny.tflite")
+    tcli.main(["export", "--params", npz, "--out", out])
+    assert f"exported: {out}" in capsys.readouterr().out
+    interp = tf.lite.Interpreter(model_path=out)
+    assert list(interp.get_input_details()[0]["shape"]) == [1, 32, 32, 3]
+    with pytest.raises(SystemExit, match="TFLite only"):
+        tcli.main(["export", "--format", "saved-model", "--quantize", "dynamic"])
+
+
+def test_serve_data_parallel_and_profile_port_are_served(tiny_clis, monkeypatch, capsys):
+    """serve --data-parallel on one process: a world of one, buckets from
+    the data axis (1), answers as without the mesh; --profile-port starts
+    the capture server; main ends the process group after the server."""
+    import torch.distributed as dist
+
+    from chip_smoke import free_port
+
+    npz, flat = tiny_clis
+    port, seen = free_port(), {}
+
+    def serve(self):  # the server's life, with requests in place of a signal
+        self.start()
+        try:
+            seen["buckets"], seen["mesh"] = self._bucket_sizes, self.classifier.mesh
+            seen["answer"] = post(self, "/classify", img_bytes(0))
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/capture?seconds=0.2", timeout=60) as r:
+                seen["trace"] = json.loads(r.read())["trace"]
+        finally:
+            self.stop()
+        return 0
+
+    monkeypatch.setattr(ClassifierServer, "serve_forever", serve)
+    assert tcli.main(["serve", "--params", npz, "--exact", "--port", "0", "--batch-size", "4", "--device", "cpu",
+                      "--data-parallel", "--profile-port", str(port)]) == 0
+    assert not dist.is_initialized()
+    out = capsys.readouterr().out
+    assert f"capture server on :{port}" in out and "serving on" in out
+    assert seen["mesh"] is not None and seen["mesh"].shape == {"data": 1, "model": 1}
+    assert seen["buckets"] == [1, 2, 4] and os.path.getsize(seen["trace"]) > 0
+    clf = TC.RoomNetClassifier(tschema.variables_from_numpy(flat, CFG6, "cpu"), CFG6, batch_size=4, device="cpu")
+    im = clf.prep_decoded(cv2.imdecode(np.frombuffer(img_bytes(0), np.uint8), cv2.IMREAD_COLOR))
+    _, probs = clf._predict(clf.variables, torch.from_numpy(im[None]))
+    status, answer = seen["answer"]
+    assert status == 200
+    np.testing.assert_array_equal(np.asarray(answer["probs"], np.float32), probs[0].numpy())
+
+
+def test_profiling_start_server_captures_every_thread(tmp_path):
+    """GET /capture?seconds=S records the spans of another thread into a
+    chrome trace under the server's directory; bad requests are refused."""
+    import threading
+    import urllib.error
+
+    stop = threading.Event()
+
+    def work():
+        while not stop.is_set():
+            with tprof.trace("worker_thread_span"):
+                torch.ones(16, 16).matmul(torch.ones(16, 16))
+            stop.wait(0.005)
+
+    t = threading.Thread(target=work)
+    t.start()
+    srv = tprof.start_server(0, str(tmp_path / "prof"))
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with urllib.request.urlopen(base + "/capture?seconds=0.3", timeout=60) as r:
+            got = json.loads(r.read())
+        assert got["trace"] == str(tmp_path / "prof" / "capture_0001" / "trace.json")
+        events = json.load(open(got["trace"]))["traceEvents"]
+        assert any(e.get("name") == "worker_thread_span" for e in events)
+        for q in ("seconds=0", "seconds=x", "seconds=1000"):
+            with pytest.raises(urllib.error.HTTPError) as e:
+                urllib.request.urlopen(f"{base}/capture?{q}", timeout=10)
+            assert e.value.code == 400
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(base + "/other", timeout=10)
+        assert e.value.code == 404
+    finally:
+        stop.set()
+        t.join(10)
+        srv.shutdown()
+    assert not t.is_alive()
+
+
+def test_new_modules_import_without_jax_tensorflow_or_matplotlib():
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'roomnet_tpu', 'tensorflow', 'matplotlib'):\n"
+            "    sys.modules[m] = None\n"
+            + "".join(f"import {m}\n" for m in OFFLINE_MODULES)
+            + "import roomnet_tpu_torch.cli as c\n"
+            "c.build_parser().parse_args(['export'])\n"
+            "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]

@@ -7,7 +7,8 @@ the launches of one training step; the training loop against hand-driven
 steps, its staging under slow steps and slow copies, its stall checkpoint
 while steps are in flight, and `device_prefetch` under a slow consumer;
 two ranks on the one card over gloo against one rank, and the DCP store
-with tensors on the card.
+with tensors on the card; the mesh server (a world of one over NCCL, and
+two ranks on the card over gloo) against the server without a mesh.
 
 Every test here is marked `cuda` and skips where no GPU is present. The file
 imports neither JAX nor roomnet_tpu, so it runs on a machine without them:
@@ -925,3 +926,89 @@ def test_cuda_dcp_store_on_the_card(cuda_device, tmp_path):
     for k, v in flat.items():
         np.testing.assert_array_equal(var_flat[k], v, err_msg=k)
     assert int(opt["count"]) == 0
+
+
+def _mesh_flat() -> dict:
+    from roomnet_tpu_torch.params import schema
+
+    cfg = chip_smoke.tiny_config()
+    return schema.flatten_variables(M.init_variables(torch.Generator().manual_seed(3), cfg))
+
+
+def _one_process_answers(flat: dict, requests: dict, device) -> dict:
+    from roomnet_tpu_torch.infer.server import ClassifierServer
+    from roomnet_tpu_torch.params import schema
+
+    cfg = chip_smoke.tiny_config()
+    clf = RoomNetClassifier(schema.variables_from_numpy(flat, cfg, device), cfg, batch_size=8,
+                            class_labels=["A", "B", "C", "D"], device=device)
+    srv = ClassifierServer(clf, port=0, warmup=True).start()
+    try:
+        return chip_smoke.classify_requests(srv.port, requests)
+    finally:
+        srv.stop()
+
+
+@pytest.mark.cuda
+def test_cuda_world_of_one_mesh_server_equals_no_mesh(cuda_device):
+    """make_mesh() without a group on the card: a world of one over NCCL.
+    Its server answers as the server without a mesh, bit for bit, with
+    buckets from 1 and 3/3/1/1 launches per tiny device call."""
+    import torch.distributed as dist
+
+    from roomnet_tpu_torch.infer.server import ClassifierServer
+    from roomnet_tpu_torch.parallel import distributed
+    from roomnet_tpu_torch.parallel.mesh import make_mesh
+    from roomnet_tpu_torch.params import schema
+
+    flat, requests = _mesh_flat(), chip_smoke.mesh_requests(n_stream=20)
+    want = _one_process_answers(flat, requests, cuda_device)
+    cfg = chip_smoke.tiny_config()
+    try:
+        mesh = make_mesh()
+        assert dist.get_backend() == "nccl"
+        clf = RoomNetClassifier(schema.variables_from_numpy(flat, cfg, cuda_device), cfg, batch_size=8,
+                                class_labels=["A", "B", "C", "D"], mesh=mesh)
+        srv = ClassifierServer(clf, port=0, warmup=True).start()
+        try:
+            sizes = chip_smoke.count_predicts(clf)
+            kernels = (conv3x3, relu6_pool_bn, residual_bn, dense_head)
+            before = [k.launches for k in kernels]
+            got = chip_smoke.classify_requests(srv.port, requests)
+            launches = [k.launches - b for k, b in zip(kernels, before)]
+        finally:
+            srv.stop()
+        assert srv._bucket_sizes == [1, 2, 4, 8]
+        assert chip_smoke.answers_gap(got, want, "world of one") == (0.0, True)
+        assert launches == [3 * len(sizes), 3 * len(sizes), len(sizes), len(sizes)]
+    finally:
+        distributed.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_two_rank_mesh_server_on_one_card(cuda_device, tmp_path):
+    """Two ranks on the one card over gloo (tests/torch_dp_worker.py:
+    mesh_server): buckets [2, 4, 8], both ranks make the same calls, the
+    answers within 1e-5 of the server without a mesh with class_id equal,
+    3/3/1/1 launches per rank per tiny call, /reload of a second tree on
+    both ranks, and both ranks end with 0."""
+    import torch_dp_worker as W
+
+    flat, requests = _mesh_flat(), chip_smoke.mesh_requests(n_stream=20)
+    second = dict(flat, **{"dense/2/kernel": np.roll(flat["dense/2/kernel"], 1, axis=1)})
+    ranks = W.spawn("mesh_server", 2, tmp_path, flat=flat, requests=requests,
+                    runs={"serve": {"reloads": [(12, second)]}}, device="cuda")
+    r0, r1 = (r["serve"] for r in ranks)
+    assert r0["rc"] == r1["rc"] == 0 and "error" not in r0["client"], r0["client"]
+    assert r0["buckets"] == [2, 4, 8] and r0["sizes"] == r1["sizes"]
+    gap, same = chip_smoke.answers_gap(r0["client"]["initial"], _one_process_answers(flat, requests, cuda_device),
+                                       "two ranks")
+    assert same and gap <= 1e-5, gap
+    reload = r0["client"]["reloads"][0]
+    assert reload["status"] == 200 and r1["model_version"]["step"] == 12
+    gap, same = chip_smoke.answers_gap(reload["answers"], _one_process_answers(second, requests, cuda_device),
+                                       "two ranks after /reload")
+    assert same and gap <= 1e-5, gap
+    for r in (r0, r1):
+        n = len(r["sizes"])
+        assert r["launches"] == {"conv3x3": 3 * n, "relu6_pool_bn": 3 * n, "residual_bn": n, "dense_head": n}

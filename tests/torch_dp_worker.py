@@ -115,6 +115,15 @@ FAULTS = {
                         "count = local * world"),
     # The L2 term counted once per rank.
     "l2_on_every_rank": ("roomnet_tpu_torch.train.step", "+ l2 / world, (logits", "+ l2, (logits"),
+    # The mesh server's buckets from 1, not from the data axis.
+    "bucket_base_1": ("roomnet_tpu_torch.infer.server", 'base = int(mesh.shape["data"])', "base = 1"),
+    # A mesh reload that swaps rank 0 alone.
+    "reload_rank0_only": ("roomnet_tpu_torch.infer.server",
+                          "except ValueError as exc:\n            return 409, {\"error\": f\"checkpoint rejected: "
+                          "{type(exc).__name__}: {exc}\"}\n        return self._swap(variables, step)\n",
+                          "except ValueError as exc:\n            return 409, {\"error\": f\"checkpoint rejected: "
+                          "{type(exc).__name__}: {exc}\"}\n        return self._swap(variables, step) "
+                          "if self.rank == 0 else (200, {})\n"),
 }
 
 
@@ -278,6 +287,52 @@ def dp_checkpoint(rank, world, workdir, flat, x, y, ckpt_dir):
     store.save(state.variables(cfg), 2, suffix="async", opt_state_flat=opt)
     store.wait()
     return numpy_state(state)
+
+
+def mesh_server(rank, world, workdir, flat, requests, runs, kill_after=None, device="cpu"):
+    """Each run of `runs` ({name: dict(reloads=[(step, flat)], fault=None
+    or a FAULTS key, own_dirs=False)}), in order, as chip_smoke.mesh_serve
+    of a batch-8 classifier of `flat` (tiny geometry, labels A-D) on
+    `device` on a mesh over the world, with a model dir of its own under
+    workdir (with own_dirs, one for each rank: rank 0's client saves into
+    its own alone). With kill_after,
+    rank 1 makes that many device calls, then writes its result and exits
+    at once (os._exit: no shutdown, no STOP), as a lost rank does."""
+    import importlib
+
+    from chip_smoke import mesh_serve
+    from roomnet_tpu_torch.infer.classify import RoomNetClassifier
+    from roomnet_tpu_torch.parallel.mesh import make_mesh
+    from roomnet_tpu_torch.params.schema import variables_from_numpy
+
+    cfg = tiny(4)
+    out = {}
+    for name, run in runs.items():
+        clf = RoomNetClassifier(variables_from_numpy(flat, cfg, device), cfg, batch_size=8,
+                                class_labels=["A", "B", "C", "D"], device=device, mesh=make_mesh(devices=device))
+        if kill_after is not None and rank == 1:
+            predict, calls = clf._predict, [0]
+
+            def dying(variables, x):
+                calls[0] += 1
+                if calls[0] > kill_after:
+                    with open(os.path.join(workdir, f"result_{rank}.pkl"), "wb") as f:
+                        pickle.dump({"killed_at_call": calls[0]}, f)
+                    os._exit(0)
+                return predict(variables, x)
+
+            clf._predict = dying
+        model_dir = os.path.join(workdir, f"models_{name}" + (f"_rank{rank}" if run.get("own_dirs") else ""))
+        os.makedirs(model_dir, exist_ok=True)
+        reloads = [(step, variables_from_numpy(f, cfg, "cpu")) for step, f in run.get("reloads", ())]
+        fault = run.get("fault")
+        with contextlib.ExitStack() as stack:
+            if fault is not None:
+                mod, old, new = FAULTS[fault]
+                stack.enter_context(mutated(importlib.import_module(mod), old, new))
+            out[name] = mesh_serve(clf, requests, model_dir=model_dir, reloads=reloads, ready_s=120.0)
+        clf.close()
+    return out
 
 
 if __name__ == "__main__":

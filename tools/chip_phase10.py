@@ -15,7 +15,12 @@ import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-if __name__ == "__main__":
+
+def setup(script: str):
+    """What chip_smoke.main hands a phase, after building the kernels: the
+    converted weights on the card, the f32 and bf16 configs, the launch
+    counters' read and reset, the device and the card's name and power
+    limit. Exits where there is no CUDA device."""
     import torch
 
     import chip_smoke as C
@@ -24,7 +29,7 @@ if __name__ == "__main__":
     from roomnet_tpu_torch.params.schema import load_npz
 
     if not torch.cuda.is_available():
-        sys.exit("chip_phase10: no CUDA device")
+        sys.exit(f"{script}: no CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
@@ -45,5 +50,11 @@ if __name__ == "__main__":
         for k in kernels.values():
             k.launches = 0
 
-    out = C.phase10(variables, {"f32": M.DEFAULT_CONFIG, "bf16": M.FAST_CONFIG}, counts, zero_counts, dev, smi)
-    print(json.dumps(out, default=str))
+    return variables, {"f32": M.DEFAULT_CONFIG, "bf16": M.FAST_CONFIG}, counts, zero_counts, dev, smi
+
+
+if __name__ == "__main__":
+    import chip_smoke as C
+
+    variables, cfgs, counts, zero_counts, dev, smi = setup("chip_phase10")
+    print(json.dumps(C.phase10(variables, cfgs, counts, zero_counts, dev, smi), default=str))
