@@ -187,9 +187,39 @@ kernels, in phases; any failure raises and the script exits non-zero:
      mesh and with the world of one, in the turns MESH_TURNS. The kernels
      line's server_mesh_launches are (b)'s per rank per device call.
 
+ 12. Tensor parallelism over the mesh's 'model' axis in the training step
+     (parallel/tensor.py, `make_train_step(..., tp=...)`): the converted
+     weights, f32, TrainHParams(learn_rate=1e-3) with inference BN and with
+     batch statistics and the moving update, TP_STEPS steps on the same
+     TP_BATCH rows, each against the single-process step on the card, under
+     cuDNN's deterministic algorithms. Each run's launches per step are
+     10/10/3/1 (10/10/3/0 with batch statistics) and its conv3x3 kernel
+     launches take Cout 8, 32 x3, 64 x2, 128 / n_model (block 4, split over
+     'model'), 16 x3. (a) A world of one over NCCL
+     (`make_mesh()`, tensor_parallel=True): max |d| 0. (b) A (1, 2) mesh, two
+     ranks on the one card over gloo; (c) a (2, 2) mesh, four ranks over
+     gloo, 8 rows a data rank: the ranks' gathered states equal, each rank
+     holding half of every split leaf and of its Adam moments, the state
+     within the larger of TP_TOL and TP_FLOOR_TIMES the floor of one process
+     and, with batch statistics, the Adam moments within the larger of
+     TP_MOMENT_SHARE and TP_FLOOR_TIMES the floor of their largest
+     (tests/test_torch_parallel.py's rule, with phase 10 (b)'s floor). The
+     floor of another summation order is the larger of one process on the
+     rows reversed and the data-parallel (2, 1) mesh on (b)'s two ranks, no
+     leaf split, against one process. (d) Only where
+     torch.cuda.device_count() >= 2: (b) over NCCL across two cards. (e)
+     Times, bf16 at batch 45, nothing claimed: ms per step without a mesh,
+     with the world-of-one mesh (its data group and the TP placements) and
+     with the TP placements alone (no data group: the TP code path's own
+     cost), TP_TIMED_STEPS steps a window in the turns TP_WINDOWS, host
+     clock. The kernels line's tp_rank_step_launches are (b)'s per rank per
+     step (f32) and (e)'s per mesh step (bf16).
+
+Phase 5 also prints utils/roofline.py's summary of the batch-256 device
+forward, bf16 (2 bytes, the bf16 peak) and f32 (4 bytes, the f32 peak).
 Then the JSON line of serving, directory, training, server, trainer,
-scale-out and mesh-server numbers, the script's wall time, one JSON line of
-per-kernel results and, last, the device line.
+scale-out, mesh-server and tensor-parallel numbers, the script's wall
+time, one JSON line of per-kernel results and, last, the device line.
 f32 parity needs TF32 off; the script turns it off for everything it runs.
 """
 
@@ -216,10 +246,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-HBM_BYTES_PER_S = 3.35e12
+from roomnet_tpu_torch.utils.roofline import H100_BF16_PEAK_FLOPS as PEAK_BF16_TENSOR
+from roomnet_tpu_torch.utils.roofline import H100_F32_PEAK_FLOPS as PEAK_F32
+from roomnet_tpu_torch.utils.roofline import H100_HBM_BYTES_PER_S as HBM_BYTES_PER_S
+
 WINDOW_MS = 20.0  # device time of one timed window
-PEAK_F32 = 67e12
-PEAK_BF16_TENSOR = 989e12
 GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
 # bf16 |dlogit| against the TF graph. The card has no JAX, so the JAX
 # package's own bf16 distance on each golden batch is pinned here;
@@ -425,6 +456,7 @@ def main() -> None:
     from roomnet_tpu_torch.ops.kernels import pool as KP
     from roomnet_tpu_torch.ops.kernels import residual as KR
     from roomnet_tpu_torch.params.schema import load_npz
+    from roomnet_tpu_torch.utils.roofline import summarize
 
     kernels = {
         "conv3x3": (KC.conv3x3, KC.conv3x3_plain, "roomnet_tpu/ops/pallas/conv_b2.py:70"),
@@ -687,12 +719,19 @@ def main() -> None:
         if got != want:
             raise AssertionError(f"serving[{dt}]: launches {got} != {want} for {forwards} forwards")
         launches[dt] = got
+        # The analytic roofline of the whole forward (utils/roofline.py) at
+        # this dtype's bytes and peak, against the device forward's time.
+        dtype_bytes, peak = (2, PEAK_BF16_TENSOR) if dt == "bf16" else (4, PEAK_F32)
+        roofline = summarize(cfg, 256, dtype_bytes=dtype_bytes, peak_flops=peak, measured_s=fwd_ms / 1e3)
         serving[dt] = {"img_per_s_batch256": thr, "device_forward_ms_batch256": fwd_ms,
-                       "p50_ms": {f"batch{n}": v for n, v in lat.items()}, "forwards": forwards}
+                       "p50_ms": {f"batch{n}": v for n, v in lat.items()}, "forwards": forwards,
+                       "roofline": roofline}
         log(f"serving[{dt}]: {thr:.1f} img/s at batch 256 (host clock, H2D included), device "
             f"forward {fwd_ms:.3f} ms; p50 latency " +
             ", ".join(f"batch {n} {v:.2f} ms" for n, v in lat.items()) +
             f"; launches {got} over {forwards} forwards")
+        log(f"roofline[{dt}] (utils/roofline.py summarize(cfg, 256, dtype_bytes={dtype_bytes}, peak_flops={peak:g}) "
+            f"of the device forward, {smi}): " + json.dumps(roofline))
         del clf, xb
         torch.cuda.empty_cache()
 
@@ -725,12 +764,17 @@ def main() -> None:
     server_mesh = phase11(variables, cfgs, counts, zero_counts, per_forward, dev, smi)
     server_mesh.pop("launches")
 
+    # -- phase 12: tensor parallelism ---------------------------------------------
+    tensor_parallel = phase12(variables, counts, zero_counts, dev, smi)
+    tp_per_step = tensor_parallel.pop("launches")
+
     for dt in cfgs:
         log(f"max |d| against plain [{dt}]: " + ", ".join(
             f"{n} {max_err[(n, dt, 8)]:.3g} (batch 8) {max_err[(n, dt, 256)]:.3g} (batch 256)"
             for n in kernels))
     log(json.dumps({"card": smi, "serving": serving, "directory": directory, "training": training,
-                    "server": server, "trainer": trainer, "scale_out": scale_out, "server_mesh": server_mesh}))
+                    "server": server, "trainer": trainer, "scale_out": scale_out, "server_mesh": server_mesh,
+                    "tensor_parallel": tensor_parallel}))
     log(f"wall: {time.perf_counter() - wall0:.1f} s from start to the result lines")
     rows = []
     for dt in cfgs:
@@ -752,6 +796,7 @@ def main() -> None:
                 "dp_launches": dp_launches[dt][name],
                 "dp_rank_step_launches": {m: c[name] for m, c in dp_per_step[dt].items()},
                 "server_mesh_launches": server_mesh["two_ranks_gloo"][dt]["launches_per_rank_call"][name],
+                "tp_rank_step_launches": {m: c[name] for m, c in tp_per_step[dt].items()},
             })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2854,6 +2899,325 @@ def phase11(variables, cfgs, counts, zero_counts, per_forward, dev, smi) -> dict
     result["wall_s"] = time.perf_counter() - t_phase
     log(f"mesh server: phase 11 took {result['wall_s']:.1f} s")
     return result
+
+
+# -- phase 12: tensor parallelism --------------------------------------------------
+TP_BATCH = 16  # (a)-(d): the global batch, the same 16 rows in every step
+TP_STEPS = 2
+# (b)-(d): the state within the larger of tests/test_torch_parallel.py's TOL (params, BN stats; with inference
+# BN the Adam moments too) and TP_FLOOR_TIMES the floor, and with batch statistics the Adam moments within the
+# larger of its MOMENT_SHARE and TP_FLOOR_TIMES the floor (phase 10 (b)'s rule). The floor, against one
+# process: the larger of one process on the same rows reversed and the data-parallel (2, 1) mesh, no leaf
+# split. On an H100 they were 6.4e-7 / 5.2e-6 and 1.23e-5 / 4.3e-5 (params / moments) with inference BN, and
+# 1.43e-4 / 0.0392 and 7.73e-4 / 0.0286 with batch statistics (PERF.md §6), where some CE gradients are
+# small differences of large sums and TF1 Adam's m / sqrt(v) turns their rounding into steps: no limit below
+# the floor holds there for any order of summation.
+TP_TOL = 1e-4
+TP_MOMENT_SHARE = 5e-3
+TP_FLOOR_TIMES = 2.0
+TP_HP = dict(learn_rate=1e-3)
+TP_MODES = {"infbn": {}, "trainbn": dict(compute_bn_mean_var=True, update_bn_moving=True)}
+TP_TIMED_STEPS = 20  # (e): steps per timed window
+TP_WINDOWS = ("plain", "mesh", "tp", "tp", "mesh", "plain")  # (e): windows in turns
+TP_JOIN_S = 420.0  # (b)-(d): the spawned ranks' join limit
+
+
+@contextlib.contextmanager
+def conv_couts(out: list):
+    """Appends to `out` the Cout that every conv3x3 CUDA launch in the block
+    passes to the kernel (csrc/conv3x3.cu:rn_conv3x3's ninth argument)."""
+    from roomnet_tpu_torch.ops.kernels import _build
+
+    real = _build.entry
+
+    def entry(name, symbol, argtypes):
+        fn = real(name, symbol, argtypes)
+        if symbol != "rn_conv3x3":
+            return fn
+
+        def launch(*args):
+            out.append(int(args[8]))
+            return fn(*args)
+        return launch
+
+    _build.entry = entry
+    try:
+        yield
+    finally:
+        _build.entry = real
+
+
+def tp_batch(dev) -> tuple:
+    """(a)-(d)'s batch: TP_BATCH uint8 BGR images at 224 and their labels."""
+    rng = np.random.RandomState(12)
+    return (torch.from_numpy(rng.randint(0, 256, (TP_BATCH, 224, 224, 3), dtype=np.uint8)).to(dev),
+            torch.from_numpy(rng.randint(0, 6, (TP_BATCH,)).astype(np.int32)).to(dev))
+
+
+def tp_steps(variables, mode: str, dev, mesh=None, *, reverse: bool = False) -> dict:
+    """TP_STEPS f32 steps of make_train_step(TrainHParams(**TP_HP, mode)) on
+    tp_batch, under cuDNN's deterministic algorithms. With a mesh: this
+    rank's rows, its slices of the leaves that variables_shardings(...,
+    tensor_parallel=True) splits (and of their Adam moments), the step's tp
+    over the mesh's 'model' axis. Returns the whole state as numpy (gathered
+    over 'model': a collective), this rank's local shapes, and each step's
+    launches and conv Couts. `reverse`: the batch's rows in reverse order."""
+    from roomnet_tpu_torch.models.roomnet import DEFAULT_CONFIG
+    from roomnet_tpu_torch.parallel import tensor as PT
+    from roomnet_tpu_torch.parallel.mesh import variables_shardings
+    from roomnet_tpu_torch.train.step import TrainHParams, init_train_state, make_train_step
+
+    hp = TrainHParams(**TP_HP, **TP_MODES[mode])
+    x, y = tp_batch(dev)
+    if reverse:
+        x, y = x.flip(0), y.flip(0)
+    state = init_train_state(variables, hp)
+    group = tp = None
+    if mesh is not None:
+        n = TP_BATCH // mesh.shape["data"]
+        x, y = x[mesh.coords[0] * n:(mesh.coords[0] + 1) * n], y[mesh.coords[0] * n:(mesh.coords[0] + 1) * n]
+        shardings = variables_shardings(list(state.train_vars), mesh, tensor_parallel=True)
+        state = PT.shard_train_state(state, shardings, mesh)
+        group, tp = mesh.group("data"), PT.tensor_parallel(shardings, mesh)
+    local = {k: tuple(v.shape) for k, v in state.train_vars.items()}
+    local.update({f"opt/mu/{k}": tuple(v.shape) for k, v in state.opt_state.mu.items()})
+    step = make_train_step(hp, DEFAULT_CONFIG, group=group, tp=tp)
+    kernels = kernel_counters()
+    launches, couts = [], []
+    with deterministic():
+        for _ in range(TP_STEPS):
+            before = {n: k.launches for n, k in kernels.items()}
+            c = []
+            with conv_couts(c):
+                state, metrics = step(state, x, y)
+            launches.append({n: k.launches - before[n] for n, k in kernels.items()})
+            couts.append(c)
+        loss = float(metrics["loss"])
+    if mesh is not None:
+        state = PT.unshard_train_state(state, shardings, mesh)
+    return {"state": {k: v.detach().cpu().numpy() for k, v in state_tensors(state).items()}, "local": local,
+            "launches": launches, "couts": couts, "loss": loss}
+
+
+def tp_rank(rank: int, world: int, backend: str, devices: list, store: str, jobs: list, out_dir: str) -> None:
+    """One spawned rank of phase 12 (b)-(d): each job (name, n_model, mode)
+    as tp_steps on an (world // n_model, n_model) mesh of the converted
+    weights; writes {name: tp_steps' result} to out_dir/rank{rank}.pkl."""
+    import pickle
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from roomnet_tpu_torch.parallel import distributed
+    from roomnet_tpu_torch.parallel.mesh import make_mesh
+    from roomnet_tpu_torch.params.schema import load_npz
+
+    distributed.initialize(f"file://{store}", world, rank, backend=backend, device=devices[rank], timeout_s=300.0)
+    results = {}
+    try:
+        dev = torch.device(devices[rank])
+        variables = load_npz(pathlib.Path(__file__).resolve().parent / "artifacts" / "roomnet_params.npz",
+                             device=dev)
+        for name, n_model, mode in jobs:
+            t0 = time.perf_counter()
+            results[name] = tp_steps(variables, mode, dev, make_mesh(world // n_model, n_model))
+            results[name]["wall_s"] = time.perf_counter() - t0
+    finally:
+        distributed.shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+
+
+def tp_gap(got: dict, want: dict, mode: str, gates: dict | None = None) -> dict:
+    """got's whole state against want's: the largest |d| / (1 + |want|) of
+    the params, BN stats, step and Adam count (param_gap) and the Adam
+    moments' largest share (moment_share). With `gates` ({"tol", "share"}),
+    "fault" says what lies beyond them (None where nothing does): state_gap
+    at gates["tol"] over everything but, with batch statistics, the Adam
+    moments, which are held to gates["share"] of each tensor's largest."""
+    gap, at = param_gap(got, want)
+    out = {"param_gap": gap, "at": at, "moment_share": moment_share(got, want), "fault": None}
+    if gates is None:
+        return out
+    moments = {k for k in want if k.startswith(("opt/mu/", "opt/nu/"))} if mode == "trainbn" else set()
+    try:
+        state_gap({k: got[k] for k in got if k not in moments}, {k: want[k] for k in want if k not in moments},
+                  gates["tol"])
+    except AssertionError as e:
+        out["fault"] = str(e)
+    if moments and out["moment_share"] > gates["share"]:
+        out["fault"] = f"Adam moments {out['moment_share']:.3g} of their largest (> {gates['share']:.3g})"
+    return out
+
+
+def phase12(variables, counts, zero_counts, dev, smi) -> dict:
+    """Tensor parallelism (docstring phase 12). Returns its numbers, and
+    under "launches" the per-rank-per-step counts: f32 from (b), bf16 from
+    (e)'s mesh windows."""
+    import torch.distributed as dist
+
+    from roomnet_tpu_torch.models.roomnet import FAST_CONFIG
+    from roomnet_tpu_torch.parallel import distributed
+    from roomnet_tpu_torch.parallel import tensor as PT
+    from roomnet_tpu_torch.parallel.mesh import make_mesh, variables_shardings
+    from roomnet_tpu_torch.train.step import TrainHParams, init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    result = {"card": smi, "launches": {}}
+    per_step = {"infbn": {"conv3x3": 10, "relu6_pool_bn": 10, "residual_bn": 3, "dense_head": 1},
+                "trainbn": {"conv3x3": 10, "relu6_pool_bn": 10, "residual_bn": 3, "dense_head": 0}}
+
+    def couts_for(n_model: int) -> list:
+        return [8, 32, 32, 32, 64, 64, 128 // n_model, 16, 16, 16]
+
+    def check_launches(run: dict, mode: str, n_model: int, what: str) -> None:
+        if run["launches"] != [per_step[mode]] * TP_STEPS:
+            raise AssertionError(f"tensor parallel {what} [{mode}]: launches per step {run['launches']} != "
+                                 f"{per_step[mode]}")
+        if run["couts"] != [couts_for(n_model)] * TP_STEPS:
+            raise AssertionError(f"tensor parallel {what} [{mode}]: conv3x3 launches with Cout {run['couts']} != "
+                                 f"{couts_for(n_model)} a step")
+
+    one = {mode: tp_steps(variables, mode, dev) for mode in TP_MODES}
+    # (a) A world of one over NCCL with tensor_parallel=True: the same bits as no mesh.
+    zero_counts()
+    distributed.start_single(dev)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"tensor parallel (a): the world of one runs {dist.get_backend()}, not nccl")
+    mesh = make_mesh()
+    result["world_of_one"] = {}
+    for mode in TP_MODES:
+        run = tp_steps(variables, mode, dev, mesh)
+        gap = state_gap(run["state"], one[mode]["state"], 0.0)
+        check_launches(run, mode, 1, "(a)")
+        result["world_of_one"][mode] = {"max_abs_d": gap, "launches_per_step": run["launches"][0],
+                                        "loss": run["loss"], "loss_no_mesh": one[mode]["loss"]}
+        log(f"tensor parallel (a) world of one over NCCL, tensor_parallel=True, f32 batch {TP_BATCH}, {TP_STEPS} "
+            f"steps [{mode}]: vs no mesh max |d| {gap:.3g} (params, BN stats, Adam; gate 0), loss {run['loss']!r} "
+            f"vs {one[mode]['loss']!r}; launches per step {run['launches'][0]}, conv Couts {run['couts'][0]}")
+
+    # (e) bf16 ms per step at batch 45 in turns, nothing claimed: no mesh;
+    # the world-of-one mesh, its data group and the TP placements; the TP
+    # placements alone (no data group), the TP code path's own cost.
+    x45 = torch.from_numpy(np.random.RandomState(45).randint(0, 256, (45, 224, 224, 3), dtype=np.uint8)).to(dev)
+    y45 = torch.arange(45, device=dev, dtype=torch.int32) % 6
+    times, tp_per_step = {}, {}
+    zero_counts()
+    for mode, extra in TP_MODES.items():
+        hp = TrainHParams(**extra)
+        base = init_train_state(variables, hp)
+        shardings = variables_shardings(list(base.train_vars), mesh, tensor_parallel=True)
+        tp = PT.tensor_parallel(shardings, mesh)
+        steps = {"plain": make_train_step(hp, FAST_CONFIG),
+                 "mesh": make_train_step(hp, FAST_CONFIG, group=mesh.group("data"), tp=tp),
+                 "tp": make_train_step(hp, FAST_CONFIG, tp=tp)}
+        states = {k: base if k == "plain" else PT.shard_train_state(base, shardings, mesh) for k in steps}
+        for k in steps:  # warm-up
+            states[k], m = steps[k](states[k], x45, y45)
+        torch.cuda.synchronize()
+        times[mode] = {k: [] for k in steps}
+        for k in TP_WINDOWS:
+            before = counts()
+            t0 = time.perf_counter()
+            for _ in range(TP_TIMED_STEPS):
+                states[k], m = steps[k](states[k], x45, y45)
+            float(m["loss"])
+            times[mode][k].append((time.perf_counter() - t0) * 1e3 / TP_TIMED_STEPS)
+            if k == "mesh":
+                tp_per_step[mode] = {n: (c - before[n]) // TP_TIMED_STEPS for n, c in counts().items()}
+        if tp_per_step[mode] != per_step[mode]:
+            raise AssertionError(f"tensor parallel (e) [{mode}]: launches per step {tp_per_step[mode]} != "
+                                 f"{per_step[mode]}")
+        del states
+    distributed.shutdown()
+    result["launches"]["bf16"] = tp_per_step
+    result["step_ms"] = {"card": smi, "batch": 45, "dtype": "bf16", "windows": list(TP_WINDOWS),
+                         "steps_per_window": TP_TIMED_STEPS, "ms": times, "per_step_launches": tp_per_step}
+    for mode, t in times.items():
+        log(f"tensor parallel (e) bf16 batch 45 [{mode}, {smi}], ms per step (host clock, {TP_TIMED_STEPS} steps a "
+            f"window, windows {' '.join(TP_WINDOWS)}): no mesh " + " / ".join(f"{v:.3f}" for v in t["plain"])
+            + ", the world-of-one mesh with TP (NCCL) " + " / ".join(f"{v:.3f}" for v in t["mesh"])
+            + ", TP alone, no data group " + " / ".join(f"{v:.3f}" for v in t["tp"])
+            + f"; launches per mesh step {tp_per_step[mode]}")
+
+    # (b) (1, 2) on the one card over gloo (NCCL refuses two ranks on one
+    # device), (c) (2, 2), the JAX test's DP x TP shape, (d) (1, 2) over NCCL
+    # across two cards where there are two: each against one process. (b)'s
+    # two ranks also run the data-parallel (2, 1) mesh, no leaf split, for
+    # the floor.
+    n_model = 2
+    tp_jobs = [(mode, n_model, mode) for mode in TP_MODES]
+    runs = [("(b)", "two_ranks_gloo", "gloo", ["cuda:0"] * 2, tp_jobs + [(f"dp_{m}", 1, m) for m in TP_MODES]),
+            ("(c)", "four_ranks_gloo", "gloo", ["cuda:0"] * 4, tp_jobs)]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("(d)", "two_cards_nccl", "nccl", ["cuda:0", "cuda:1"], tp_jobs))
+    spawned = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as root:
+        for what, key, backend, devices, jobs in runs:
+            t0 = time.perf_counter()
+            spawned[what] = spawn_ranks(backend, devices, jobs, root, fn=tp_rank, join_s=TP_JOIN_S)
+            result[key] = {"spawn_s": time.perf_counter() - t0, "mesh": [len(devices) // n_model, n_model],
+                           "backend": backend}
+            log(f"tensor parallel {what}: spawning and running the ranks took {result[key]['spawn_s']:.1f} s")
+
+    # The floor of another order of summation, the larger of two: one
+    # process on the rows reversed, which changes only the order of every
+    # sum over rows, and the data-parallel (2, 1) mesh (phase 10's path, no leaf
+    # split) on the rows, which splits the sums over the ranks as (c) does.
+    result["floor"], gates = {}, {}
+    for mode in TP_MODES:
+        rev = tp_gap(tp_steps(variables, mode, dev, reverse=True)["state"], one[mode]["state"], mode)
+        dp = tp_gap(spawned["(b)"][0][f"dp_{mode}"]["state"], one[mode]["state"], mode)
+        gates[mode] = {"tol": max(TP_TOL, TP_FLOOR_TIMES * max(rev["param_gap"], dp["param_gap"])),
+                       "share": max(TP_MOMENT_SHARE, TP_FLOOR_TIMES * max(rev["moment_share"], dp["moment_share"]))}
+        result["floor"][mode] = {"rows_reversed": rev, "data_parallel_2x1": dp, "gates": gates[mode]}
+        log(f"tensor parallel floor [{mode}]: vs one process, params and BN stats (|d| / (1 + |want|)) and Adam "
+            f"moments (of their largest): one process on the rows reversed {rev['param_gap']:.3g} (at {rev['at']}) "
+            f"and {rev['moment_share']:.3g}; the data-parallel (2, 1) mesh, no leaf split, {dp['param_gap']:.3g} "
+            f"(at {dp['at']}) and {dp['moment_share']:.3g}; gates {gates[mode]['tol']:.3g} and, with batch "
+            f"statistics, {gates[mode]['share']:.3g} of the moments' largest")
+
+    for what, key, backend, devices, jobs in runs:
+        ranks, out, n_data = spawned[what], result[key], len(devices) // n_model
+        for mode in TP_MODES:
+            r0 = ranks[0][mode]
+            for r, other in enumerate(ranks[1:], start=1):
+                if any(not np.array_equal(other[mode]["state"][k], v) for k, v in r0["state"].items()):
+                    raise AssertionError(f"tensor parallel {what} [{mode}]: rank {r}'s state differs from rank 0's")
+            for r, rk in enumerate(ranks):
+                check_launches(rk[mode], mode, n_model, f"{what} rank {r}")
+                for k, shape in rk[mode]["local"].items():
+                    path = k.split("/", 2)[2] if k.startswith("opt/") else k
+                    whole = one[mode]["state"][path].shape
+                    split = path == "blocks/3/conv/0" or (path.startswith("dense/") and path.endswith("/kernel"))
+                    want = whole[:-1] + (whole[-1] // n_model,) if split else whole
+                    if shape != want:
+                        raise AssertionError(f"tensor parallel {what} rank {r}: {k} holds {shape}, not {want}")
+            gaps = tp_gap(r0["state"], one[mode]["state"], mode, gates[mode])
+            out[mode] = {**gaps, "launches_per_rank_step": r0["launches"][0], "b4_cout": r0["couts"][0][6],
+                         "loss": r0["loss"], "loss_one": one[mode]["loss"], "wall_s": r0["wall_s"]}
+            dp_note = ""
+            if n_data == 2:
+                own = tp_gap(r0["state"], spawned["(b)"][0][f"dp_{mode}"]["state"], mode)
+                out[mode]["vs_data_parallel_2x1"] = own
+                dp_note = (f"; vs the data-parallel (2, 1) mesh on the same rows {own['param_gap']:.3g} and "
+                           f"{own['moment_share']:.3g}")
+            log(f"tensor parallel {what} {n_data}x{n_model} mesh, {len(devices)} ranks over {backend}, f32 batch "
+                f"{TP_BATCH} ({TP_BATCH // n_data} rows a data rank), {TP_STEPS} steps [{mode}]: vs one process "
+                f"params and BN stats {gaps['param_gap']:.3g} (|d| / (1 + |want|), at {gaps['at']}; gate "
+                f"{gates[mode]['tol']:.3g}), Adam moments {gaps['moment_share']:.3g} of their largest (gate "
+                f"{gates[mode]['share'] if mode == 'trainbn' else gates[mode]['tol']:.3g}){dp_note}; loss "
+                f"{r0['loss']!r} vs {one[mode]['loss']!r}; each rank holds 1/{n_model} of the split leaves and "
+                f"their moments; launches per rank per step {r0['launches'][0]}, B4 conv Cout {r0['couts'][0][6]}; "
+                f"{r0['wall_s']:.1f} s on rank 0")
+            if gaps["fault"]:
+                raise AssertionError(f"tensor parallel {what} [{mode}]: against one process: {gaps['fault']}")
+    if torch.cuda.device_count() < 2:
+        log("tensor parallel (d): not run (one card: NCCL across two cards needs two)")
+    result["launches"]["f32"] = {mode: result["two_ranks_gloo"][mode]["launches_per_rank_step"] for mode in TP_MODES}
+    result["wall_s"] = time.perf_counter() - t_phase
+    log(f"tensor parallel: phase 12 took {result['wall_s']:.1f} s")
+    return result
+
 
 if __name__ == "__main__":
     main()

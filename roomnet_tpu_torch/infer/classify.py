@@ -192,7 +192,7 @@ class RoomNetClassifier:
             # Back to uint8, as cv2's resize would give (to one level).
             x_uint8_bgr = xr.round().clamp(0, 255).to(torch.uint8)
         _, probs = forward_folded(folded, normalize_bgr_uint8(x_uint8_bgr), self.cfg)
-        probs = C.gather_rows(probs, group)[:n]
+        probs = C.gather(probs, group)[:n]
         return probs.argmax(dim=-1), probs
 
     # -- host preprocess ----------------------------------------------------

@@ -47,6 +47,7 @@ from ..ops.kernels.conv3x3 import conv3x3, conv3x3_autograd
 from ..ops.kernels.dense_head import dense_head, dense_head_autograd, pack_head
 from ..ops.kernels.pool import relu6_pool_bn, relu6_pool_bn_autograd
 from ..ops.kernels.residual import residual_bn, residual_bn_autograd
+from ..parallel.tensor import copy_to_model, gather_model
 
 Variables = dict
 
@@ -185,7 +186,7 @@ def init_variables(generator: torch.Generator, cfg: RoomNetConfig = DEFAULT_CONF
 def forward(variables: Variables, x: torch.Tensor, cfg: RoomNetConfig = DEFAULT_CONFIG, *,
             use_batch_stats: bool = False, collect_batch_stats: bool = False,
             dropout_rate: float | None = None, generator: torch.Generator | None = None,
-            batch_row_mask: torch.Tensor | None = None, group=None):
+            batch_row_mask: torch.Tensor | None = None, group=None, tp=None):
     """Logits (B, num_classes) f32, ReLU6-clipped like the reference, under
     autograd.
 
@@ -207,6 +208,15 @@ def forward(variables: Variables, x: torch.Tensor, cfg: RoomNetConfig = DEFAULT_
       of the global batch's masks (`blocks.batch_norm_train`,
       `blocks.dropout`): every rank's logits are then its rows of the
       single-device forward of the global batch. The kernels run as without.
+    tp: the placements over the mesh's 'model' axis
+      (`parallel/tensor.py:TensorParallel`), whose split leaves `variables`
+      holds as this rank's slices. A conv kernel split on its output
+      channels runs column-parallel: the conv kernel launches on this
+      rank's channels, every rank's are gathered, and the pool and BN run on
+      all of them (conv 0 may not be split: the uint8 fold derives its bias
+      from the whole kernel). Split dense kernels are gathered whole before
+      the head, which stays one launch. Every rank of the row then returns
+      the same logits, those of the unsplit variables.
 
     Returns logits, or (logits, stats) with `collect_batch_stats`.
     """
@@ -225,6 +235,17 @@ def forward(variables: Variables, x: torch.Tensor, cfg: RoomNetConfig = DEFAULT_
     def identity(c):
         return torch.ones(c, device=x.device), torch.zeros(c, device=x.device)
 
+    split = {} if tp is None else tp.axes
+    tp_group = None if tp is None else tp.group
+    for path, axis in split.items():
+        conv = path.startswith("blocks/") and "/conv/" in path
+        if not ((conv and axis == 3) or (path.startswith("dense/") and path.endswith("/kernel"))):
+            raise ValueError(f"tensor parallelism splits conv kernels on their output axis and dense kernels; "
+                             f"not {path} on axis {axis}")
+        if path == "blocks/0/conv/0":
+            raise ValueError("blocks/0/conv/0 may not be split over 'model': the uint8 fold derives its bias from "
+                             "the whole kernel")
+
     uint8_input = x.dtype == torch.uint8
     x = x.to(cfg.compute_dtype).contiguous()
     for bi, blk in enumerate(variables["blocks"]):
@@ -234,7 +255,10 @@ def forward(variables: Variables, x: torch.Tensor, cfg: RoomNetConfig = DEFAULT_
             bias = None
             if bi == 0 and d == 0 and uint8_input:
                 kern, bias = _fold_preprocess_into_first_conv(kern)
-            x = conv3x3_autograd(x, kern, bias)
+            if f"blocks/{bi}/conv/{d}" in split:  # column-parallel
+                x = gather_model(conv3x3_autograd(copy_to_model(x, tp_group), kern, bias), -1, tp_group)
+            else:
+                x = conv3x3_autograd(x, kern, bias)
             if use_batch_stats:
                 x = batch_bn(relu6_pool_bn_autograd(x, *identity(x.shape[-1]), ksize=k, stride=s),
                              bn, f"blocks/{bi}/bn/{d}")
@@ -251,10 +275,12 @@ def forward(variables: Variables, x: torch.Tensor, cfg: RoomNetConfig = DEFAULT_
         x = maybe_dropout(x)
 
     x = x.reshape(x.shape[0], -1)  # NHWC row-major flatten (network.py:234)
+    dense = [{**layer, "kernel": gather_model(layer["kernel"], split[f"dense/{di}/kernel"], tp_group)}
+             if f"dense/{di}/kernel" in split else layer for di, layer in enumerate(variables["dense"])]
     if not (use_batch_stats or drop):
-        logits = dense_head_autograd(x, *pack_head(variables["dense"], cfg.bn_eps))[0]
+        logits = dense_head_autograd(x, *pack_head(dense, cfg.bn_eps))[0]
     else:
-        for di, layer in enumerate(variables["dense"]):
+        for di, layer in enumerate(dense):
             x = B.relu6(B.dense(x, layer["kernel"], layer["bias"]))
             if layer["bn"] is not None:
                 x = (batch_bn(x, layer["bn"], f"dense/{di}/bn") if use_batch_stats

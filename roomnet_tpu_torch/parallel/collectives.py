@@ -66,14 +66,16 @@ def broadcast_(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
     return x
 
 
-def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """The rows of every rank in rank order, on every rank: each rank's
-    (B, ...) placed in zeros of (size * B, ...) and summed over the group.
-    Every rank must pass the same shape."""
+def gather(x: torch.Tensor, group, axis: int = 0) -> torch.Tensor:
+    """Every rank's x concatenated along `axis` in rank order, on every rank:
+    each rank's x placed in zeros of `size` times its extent there and summed
+    over the group (x itself without a group). Every rank must pass the same
+    shape."""
     if group is None:
         return x
-    n, i = x.shape[0], index(group)
-    out = x.new_zeros((size(group) * n,) + tuple(x.shape[1:]))
-    out[i * n:(i + 1) * n] = x
+    axis = axis % x.dim()
+    n, c = size(group), x.shape[axis]
+    out = x.new_zeros(x.shape[:axis] + (n * c,) + x.shape[axis + 1:])
+    out.narrow(axis, index(group) * c, c).copy_(x)
     dist.all_reduce(out, group=group)
     return out

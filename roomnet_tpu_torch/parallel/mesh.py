@@ -6,14 +6,16 @@ Axes, as in the JAX package:
     rows of every global batch; the port's step computes the single-device
     function of the global batch (BN moments, loss and accuracy over every
     real row), as XLA does under `P("data")` shardings.
-  * 'model' — tensor parallelism. The mesh has the axis and
-    `variables_shardings` describes its placements, but nothing applies
-    them: ranks along 'model' hold the same rows and compute the same
-    values, as the JAX Trainer does (it never applies `variables_shardings`).
+  * 'model' — tensor parallelism. `variables_shardings(...,
+    tensor_parallel=True)` splits the dense kernels and block 4's conv on
+    their output axis over it; `parallel/tensor.py` applies those placements
+    in the training step (`make_train_step(..., tp=...)`), as GSPMD applies
+    them to the JAX step. The Trainer, like the JAX Trainer, applies none:
+    its ranks along 'model' hold the same rows and compute the same values.
 
 A JAX mesh is an array of devices in one program; here it is an array of
 ranks, one process each, with this rank's coordinates, its device, and the
-process group along its data axis for the collectives.
+process groups along its two axes for the collectives.
 """
 
 from __future__ import annotations
@@ -34,7 +36,9 @@ class Mesh:
 
     devices: the rank grid (the JAX mesh's device array); axis_names
     ("data", "model"); shape {"data": n_data, "model": n_model}; rank and
-    coords (this rank's (d, m)); device (this rank's device)."""
+    coords (this rank's (d, m)); device (this rank's device). Its groups:
+    the column `devices[:, m]` along 'data' and the row `devices[d, :]`
+    along 'model'; an axis that spans the world is the world's group."""
 
     axis_names = ("data", "model")
 
@@ -48,23 +52,23 @@ class Mesh:
         self.rank = rank
         self.coords = divmod(rank, n_model)
         self.device = torch.device(device)
-        # dist.new_group is collective: every rank makes every data group,
-        # in one order, and keeps its own.
-        if n_model == 1:
-            self._data_group = dist.group.WORLD
-        else:
-            for m in range(n_model):
-                group = dist.new_group([int(r) for r in self.devices[:, m]])
-                if m == self.coords[1]:
-                    self._data_group = group
+        # dist.new_group is collective: every rank makes every group, in
+        # one order (the data columns, then the model rows), and keeps its
+        # own. An axis of size 1 makes groups of one rank, whose collectives
+        # are copies: a world of one computes the same bits as no mesh.
+        self._groups = {"data": self._axis_group([self.devices[:, m] for m in range(n_model)], self.coords[1]),
+                        "model": self._axis_group([self.devices[d, :] for d in range(n_data)], self.coords[0])}
+
+    @staticmethod
+    def _axis_group(lines: list, mine: int):
+        if len(lines) == 1:
+            return dist.group.WORLD
+        groups = [dist.new_group([int(r) for r in line]) for line in lines]
+        return groups[mine]
 
     def group(self, axis: str = "data"):
-        """The process group along this rank's `axis` (only 'data' runs
-        collectives)."""
-        if axis != "data":
-            raise NotImplementedError(f"no collectives run over {axis!r}: tensor parallelism is not ported "
-                                      "(ROADMAP.md)")
-        return self._data_group
+        """The process group along this rank's `axis` ('data' or 'model')."""
+        return self._groups[axis]
 
     @property
     def size(self) -> int:

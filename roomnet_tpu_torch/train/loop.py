@@ -335,7 +335,7 @@ class Trainer:
                 with torch.no_grad(), B.full_f32():
                     logits = forward(variables, normalize_bgr_uint8(x_uint8), cfg,
                                      use_batch_stats=use_batch_stats, group=group)
-                return C.gather_rows(logits.argmax(dim=-1), group)
+                return C.gather(logits.argmax(dim=-1), group)
 
             self._infer_fns[use_batch_stats] = _infer
         return self._infer_fns[use_batch_stats]

@@ -73,7 +73,7 @@ def init_train_state(variables, hp: TrainHParams = TrainHParams()) -> TrainState
 
 
 def loss_fn(train_vars, frozen_vars, x_norm, y, hp: TrainHParams, cfg: RoomNetConfig,
-            generator: torch.Generator | None = None, row_mask: torch.Tensor | None = None, group=None):
+            generator: torch.Generator | None = None, row_mask: torch.Tensor | None = None, group=None, tp=None):
     """(loss, (logits, bn_stats or None, count)).
 
     row_mask: optional float (B,) of 1.0 (real row) / 0.0 (padding). Masked
@@ -86,6 +86,13 @@ def loss_fn(train_vars, frozen_vars, x_norm, y, hp: TrainHParams, cfg: RoomNetCo
     L2 / world, so that the shares summed over the ranks are the
     single-device loss, and so are their gradients summed (`make_train_step`).
     `count` is that global count of real rows, before the clamp to one.
+
+    tp: the placements over the mesh's 'model' axis
+    (`parallel/tensor.py:TensorParallel`); `train_vars` then holds this
+    rank's slices of the split leaves, and the forward applies them. The L2
+    that is differentiated takes each split leaf's slice, so its gradient
+    stays this rank's; the loss's value adds, detached, the L2 of the other
+    ranks' slices (summed over 'model'), so that it is the whole model's.
     """
     variables = schema.unflatten_variables({**train_vars, **frozen_vars}, cfg)
     out = forward(
@@ -96,11 +103,19 @@ def loss_fn(train_vars, frozen_vars, x_norm, y, hp: TrainHParams, cfg: RoomNetCo
         generator=generator if hp.dropout_enabled else None,
         batch_row_mask=row_mask,
         group=group,
+        tp=tp,
     )
     logits, bn_stats = out if isinstance(out, tuple) else (out, None)
     ce = F.cross_entropy(logits, y.long(), reduction="none")
-    l2 = hp.l2_coeff * 0.5 * torch.stack([v.float().square().sum() for v in train_vars.values()]).sum()
+    sq = {k: v.float().square().sum() for k, v in train_vars.items()}
+    l2 = hp.l2_coeff * 0.5 * torch.stack(list(sq.values())).sum()
     world = C.size(group)
+    if tp is not None and tp.axes:
+        # The other 'model' ranks' slices: a value without a gradient (a
+        # differentiable all-reduce would multiply the slices' L2 gradient
+        # by the row's size).
+        mine = torch.stack([sq[k] for k in tp.axes]).sum().detach()
+        l2 = l2 + hp.l2_coeff * 0.5 * (C.all_reduce_sum(mine, tp.group) - mine)
     # One formula with and without a mask (and the same bits for a mask of
     # ones): the count of real rows is a device tensor either way.
     if row_mask is None:
@@ -113,7 +128,7 @@ def loss_fn(train_vars, frozen_vars, x_norm, y, hp: TrainHParams, cfg: RoomNetCo
 
 
 def make_train_step(hp: TrainHParams = TrainHParams(), cfg: RoomNetConfig = DEFAULT_CONFIG, *,
-                    group=None) -> Callable:
+                    group=None, tp=None) -> Callable:
     """step(state, x_bgr_uint8, y, generator=None, row_mask=None, *,
     mark=None) -> (state, metrics).
 
@@ -133,6 +148,15 @@ def make_train_step(hp: TrainHParams = TrainHParams(), cfg: RoomNetConfig = DEFA
     are the loss and the hits of the metrics. The update, the moving stats
     and the step then come out the same on every rank, with no broadcast.
     Every rank must pass the same shapes and a generator seeded alike.
+
+    `tp`, the placements over the mesh's 'model' axis
+    (`parallel/tensor.py:tensor_parallel`), with a state from
+    `shard_train_state`: each rank holds its slices of the split leaves and
+    of their Adam moments, and the step computes the single-device step of
+    the global batch, as the JAX step jitted with `variables_shardings(...,
+    tensor_parallel=True)` does. `group` stays the data group: each slice's
+    gradient is summed over the ranks that hold the same slice, and Adam,
+    the gate and the moving stats run unchanged on the local tensors.
     """
     opt = _optimizer(hp)
 
@@ -140,7 +164,7 @@ def make_train_step(hp: TrainHParams = TrainHParams(), cfg: RoomNetConfig = DEFA
         params = {k: v.detach().requires_grad_() for k, v in state.train_vars.items()}
         with B.full_f32():
             loss, (logits, bn_stats, count) = loss_fn(params, state.frozen_vars, normalize_bgr_uint8(x_bgr_uint8),
-                                                      y, hp, cfg, generator, row_mask, group)
+                                                      y, hp, cfg, generator, row_mask, group, tp)
             if mark is not None:
                 mark("forward")
             grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
@@ -197,12 +221,12 @@ def make_train_step(hp: TrainHParams = TrainHParams(), cfg: RoomNetConfig = DEFA
 
 
 def make_multi_train_step(hp: TrainHParams = TrainHParams(), cfg: RoomNetConfig = DEFAULT_CONFIG, *,
-                          group=None) -> Callable:
+                          group=None, tp=None) -> Callable:
     """multi_step(state, x[K,B,S,S,3] uint8, y[K,B], generator=None,
     row_mask[K,B]=None) -> (state, metrics): K train steps in one call, the
     same as K calls of `make_train_step`'s step with the same generator.
     The metrics are the last step's plus `mean_loss` over the K."""
-    step_fn = make_train_step(hp, cfg, group=group)
+    step_fn = make_train_step(hp, cfg, group=group, tp=tp)
 
     def multi_step_fn(state: TrainState, x_k, y_k, generator=None, row_mask_k=None):
         losses = []

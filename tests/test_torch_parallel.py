@@ -171,7 +171,10 @@ def test_mesh_shape(tmp_path):
 
 def test_data_only_mesh_without_model_axis(world_of_one):
     """Without a process group make_mesh starts a world of one: the
-    counterpart of a JAX mesh over one device, data-only."""
+    counterpart of a JAX mesh over one device, data-only. Its 'model' axis
+    has size 1, and its group is the world's, of one rank."""
+    import torch.distributed as dist
+
     mesh = tmesh.make_mesh(devices="cpu")
     jm = jmesh.make_mesh(1, 1)
     assert mesh.devices.shape == jm.devices.shape == (1, 1)
@@ -179,8 +182,8 @@ def test_data_only_mesh_without_model_axis(world_of_one):
     assert distributed.process_count() == 1
     with pytest.raises(ValueError, match="every rank"):
         tmesh.make_mesh(2, 1)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        mesh.group("model")
+    group = mesh.group("model")
+    assert group is dist.group.WORLD and dist.get_world_size(group) == 1 and dist.get_rank(group) == 0
 
 
 def test_tp_shardings_cover_dense_kernels(world_of_one):

@@ -445,8 +445,9 @@ def test_trainer_matches_hand_driven_steps(data_dir, steps_per_call):
 def test_trainer_refuses_what_waits_for_scale_out(tmp_path):
     """Scale-out is ported: a Trainer takes a mesh (its device and data
     group), the sharded feed (a no-op without a mesh, as in the JAX package)
-    and the orbax (DCP) store. What still waits refuses: collectives over
-    the 'model' axis (tensor parallelism, ROADMAP.md)."""
+    and the orbax (DCP) store. The mesh's 'model' group exists (tensor
+    parallelism runs in the step, `make_train_step(..., tp=...)`), and the
+    Trainer, like the JAX Trainer, runs no collective over it."""
     from roomnet_tpu_torch.parallel import distributed
     from roomnet_tpu_torch.parallel.mesh import make_mesh
     from roomnet_tpu_torch.params.orbax_io import OrbaxCheckpointStore
@@ -459,8 +460,7 @@ def test_trainer_refuses_what_waits_for_scale_out(tmp_path):
         assert Trainer(_tc(tmp_path, feed_mode="sharded"), CFG2, device="cpu")._feed_rows(4) is None
         store = Trainer(_tc(tmp_path, ckpt_backend="orbax"), CFG2, device="cpu").store
         assert isinstance(store, OrbaxCheckpointStore)
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            mesh.group("model")
+        assert torch.distributed.get_world_size(mesh.group("model")) == 1
     finally:
         distributed.shutdown()
 

@@ -443,8 +443,9 @@ def test_orbax_checkpoints_resume_across_topologies(port, data):
 
 def test_model_axis_replicates_rows(port):
     """A (1, 2) mesh: both ranks on one data coordinate hold the whole batch
-    and compute the same step, as the JAX Trainer does without applying
-    variables_shardings."""
+    and compute the same step. The Trainer still replicates along 'model',
+    as the JAX Trainer does (it never applies variables_shardings); tensor
+    parallelism runs in the step (tests/test_torch_tensor_parallel.py)."""
     assert int(_same_on_both_ranks(port["model_axis"])["meta/step"]) == 2
 
 

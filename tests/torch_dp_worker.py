@@ -115,6 +115,23 @@ FAULTS = {
                         "count = local * world"),
     # The L2 term counted once per rank.
     "l2_on_every_rank": ("roomnet_tpu_torch.train.step", "+ l2 / world, (logits", "+ l2, (logits"),
+    # Tensor parallelism: the gather's backward sums over 'model' (the world
+    # is the row of a (1, 2) mesh) instead of taking this rank's slice.
+    "gather_backward_sums": ("roomnet_tpu_torch.parallel.tensor",
+                             "return grad.narrow(ctx.axis, ctx.index * ctx.width, ctx.width).contiguous(), None, None",
+                             "return (C.all_reduce_sum(grad.narrow(ctx.axis, ctx.index * ctx.width, ctx.width)"
+                             ".contiguous(), dist.group.WORLD), None, None)"),
+    # No dgrad all-reduce: copy_to_model's backward left out.
+    "no_copy_to_model": ("roomnet_tpu_torch.parallel.tensor",
+                         "        g = grad.contiguous().clone()\n        dist.all_reduce(g, group=ctx.group)\n"
+                         "        return g, None\n", "        return grad, None\n"),
+    # The gradient all-reduce over the world instead of the data group.
+    "grads_over_world": ("roomnet_tpu_torch.train.step", "+ [loss.reshape(1), hit_sum.reshape(1)]), group)",
+                         "+ [loss.reshape(1), hit_sum.reshape(1)]), torch.distributed.group.WORLD)"),
+    # The loss metric with the L2 of this rank's slices alone.
+    "l2_metric_local_slices": ("roomnet_tpu_torch.train.step",
+                               "        l2 = l2 + hp.l2_coeff * 0.5 * (C.all_reduce_sum(mine, tp.group) - mine)",
+                               "        l2 = l2"),
     # The mesh server's buckets from 1, not from the data axis.
     "bucket_base_1": ("roomnet_tpu_torch.infer.server", 'base = int(mesh.shape["data"])', "base = 1"),
     # A mesh reload that swaps rank 0 alone.
@@ -230,6 +247,85 @@ def dp_steps(rank, world, workdir, flat, x, y, cases, faults=(), device="cpu"):
             out[(fault, case)] = _steps(flat, x, y, c["hp"], c["steps"], mask=c.get("mask"),
                                         group=dist.group.WORLD, rank=rank, world=world)
     return out
+
+
+def tp_run(flat, x, y, cfg_kw, hp_kw, steps, *, mask=None, mesh=None, seed=7, device="cpu"):
+    """`steps` steps of make_train_step from `flat` on the same batch (x, y[,
+    mask]) at the port's RoomNetConfig(**cfg_kw): with a mesh, this rank's
+    rows and tensor parallelism over its 'model' axis (`variables_shardings(
+    ..., tensor_parallel=True)`), without one the whole batch in this
+    process. Returns the whole state (gathered over 'model'), this rank's
+    local shapes of the trainable leaves and Adam moments, and the metrics."""
+    import torch
+
+    from roomnet_tpu_torch.models import roomnet as M
+    from roomnet_tpu_torch.parallel import mesh as PM
+    from roomnet_tpu_torch.parallel import tensor as PT
+    from roomnet_tpu_torch.params.schema import variables_from_numpy
+    from roomnet_tpu_torch.train import step as TS
+
+    cfg = M.RoomNetConfig(**cfg_kw)
+    hp = TS.TrainHParams(**hp_kw)
+    state = TS.init_train_state(variables_from_numpy(flat, cfg, device), hp)
+    rows, group, tp = slice(None), None, None
+    if mesh is not None:
+        n = x.shape[0] // mesh.shape["data"]
+        rows = slice(mesh.coords[0] * n, (mesh.coords[0] + 1) * n)
+        shardings = PM.variables_shardings(list(state.train_vars), mesh, tensor_parallel=True)
+        state = PT.shard_train_state(state, shardings, mesh)
+        group, tp = mesh.group("data"), PT.tensor_parallel(shardings, mesh)
+    local = {**{k: tuple(v.shape) for k, v in state.train_vars.items()},
+             **{f"opt/mu/{k}": tuple(v.shape) for k, v in state.opt_state.mu.items()},
+             **{f"opt/nu/{k}": tuple(v.shape) for k, v in state.opt_state.nu.items()}}
+    step = TS.make_train_step(hp, cfg, group=group, tp=tp)
+    gen = torch.Generator(device).manual_seed(seed)
+    xt, yt = torch.from_numpy(x[rows]).to(device), torch.from_numpy(y[rows]).to(device)
+    mt = None if mask is None else torch.from_numpy(mask[rows]).to(device)
+    metrics = []
+    for _ in range(steps):
+        state, m = step(state, xt, yt, gen, mt)
+        metrics.append({k: float(v) for k, v in m.items()})
+    if mesh is not None:
+        state = PT.unshard_train_state(state, shardings, mesh)
+    return {"state": numpy_state(state), "local_shapes": local, "metrics": metrics}
+
+
+def tp_steps(rank, world, workdir, n_model, runs, faults=(), grads=None, device="cpu"):
+    """Each run of `runs` ({name: tp_run's arguments}) on an (world //
+    n_model, n_model) mesh; then each fault of `faults` ((fault, run) pairs,
+    FAULTS keys) planted and the run again; with `grads`, `tp_grads`."""
+    import importlib
+
+    from roomnet_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(world // n_model, n_model, devices=device)
+    out = {name: tp_run(**r, mesh=mesh, device=device) for name, r in runs.items()}
+    for fault, name in faults:
+        mod, old, new = FAULTS[fault]
+        with mutated(importlib.import_module(mod), old, new):
+            out[(fault, name)] = tp_run(**runs[name], mesh=mesh, device=device)
+    if grads is not None:
+        out["grads"] = tp_grads(mesh, **grads)
+    return out
+
+
+def tp_grads(mesh, x, w, axis, v, k):
+    """On this rank of the mesh's 'model' row: the gradient for this rank's
+    slice of x (split along `axis`) of sum(gather_model(x_local) * w), and
+    the gradient for v of sum((copy_to_model(v) @ k_local) ** 2), k_local
+    this rank's columns of k."""
+    import torch
+
+    from roomnet_tpu_torch.parallel.tensor import copy_to_model, gather_model
+
+    group, (n, i) = mesh.group("model"), (mesh.shape["model"], mesh.coords[1])
+    c = x.shape[axis] // n
+    xl = torch.from_numpy(x).narrow(axis, i * c, c).clone().requires_grad_()
+    (gather_model(xl, axis, group) * torch.from_numpy(w)).sum().backward()
+    cols = k.shape[1] // n
+    vt = torch.from_numpy(v).requires_grad_()
+    (copy_to_model(vt, group) @ torch.from_numpy(k[:, i * cols:(i + 1) * cols])).square().sum().backward()
+    return {"gather": xl.grad.numpy(), "copy": vt.grad.numpy()}
 
 
 def trainers(rank, world, workdir, runs):
