@@ -215,10 +215,38 @@ kernels, in phases; any failure raises and the script exits non-zero:
      clock. The kernels line's tp_rank_step_launches are (b)'s per rank per
      step (f32) and (e)'s per mesh step (bf16).
 
+ 13. From scratch through the curriculum (train/loop.py's Trainer from its
+     own init_variables, TrainConfig.reference_curriculum's four phases:
+     batch 8 with batch statistics and the moving update, 32 and 40 with
+     dropout 0.3, then 45 with the BN freeze), on 600 JPEGs
+     (make_synth_dataset, split 540 / 60): (a) f32, CURRICULUM_STEPS steps a
+     phase, no validation, under cuDNN's deterministic algorithms: the
+     Trainer against the same steps driven by hand through make_train_step
+     (`hand_driven`: each phase's hparams, a new feeder at each batch size,
+     one dropout generator), max |d| 0 in params, BN moving stats and Adam
+     state and in the losses, across the three boundaries; launches per step
+     10/10/3/0 in the first three phases and 10/10/3/1 in the last; (b) bf16,
+     reference_curriculum(CURRICULUM_TOTAL), phases of 100 steps, save_freq
+     CURRICULUM_SAVE, the loss read every CURRICULUM_LOG_EVERY steps as
+     tools/train_synth_torch.py reads it: every loss finite, stats entries in
+     the reference schema at steps 50-350, acc-named checkpoints, the
+     validations before the freeze with batch statistics and those after with
+     the moving ones (each validation's launches: 10/10/3/0 per forward
+     before, 10/10/3/1 after), the launches per step of each phase as in (a);
+     the freeze step's checkpoint validated again with moving statistics
+     (equal to the run's entry) and with batch statistics (a record); a new
+     Trainer resumes the step-CURRICULUM_RESUME checkpoint (batch 40, dropout)
+     and runs across the freeze to the end; (c) times from (b), nothing
+     claimed: each phase's img/s and host ms per step p50 (host clock, gaps
+     between step calls without a validation), and the device's busy share
+     over its step calls CURRICULUM_WINDOW (torch.profiler). The kernels
+     line's curriculum_launches are (a)'s counts for f32 and (b)'s for bf16,
+     curriculum_step_launches their launches per step by phase.
+
 Phase 5 also prints utils/roofline.py's summary of the batch-256 device
 forward, bf16 (2 bytes, the bf16 peak) and f32 (4 bytes, the f32 peak).
 Then the JSON line of serving, directory, training, server, trainer,
-scale-out, mesh-server and tensor-parallel numbers, the script's wall
+scale-out, mesh-server, tensor-parallel and curriculum numbers, the script's wall
 time, one JSON line of per-kernel results and, last, the device line.
 f32 parity needs TF32 off; the script turns it off for everything it runs.
 """
@@ -251,6 +279,7 @@ from roomnet_tpu_torch.utils.roofline import H100_F32_PEAK_FLOPS as PEAK_F32
 from roomnet_tpu_torch.utils.roofline import H100_HBM_BYTES_PER_S as HBM_BYTES_PER_S
 
 WINDOW_MS = 20.0  # device time of one timed window
+PER_FORWARD = {"conv3x3": 10, "relu6_pool_bn": 10, "residual_bn": 3, "dense_head": 1}  # launches per forward
 GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
 # bf16 |dlogit| against the TF graph. The card has no JAX, so the JAX
 # package's own bf16 distance on each golden batch is pinned here;
@@ -464,7 +493,7 @@ def main() -> None:
         "residual_bn": (KR.residual_bn, KR.residual_bn_plain, "roomnet_tpu/ops/pallas/residual.py:104"),
         "dense_head": (KD.dense_head, KD.dense_head_plain, "roomnet_tpu/ops/pallas/dense_head.py:53"),
     }
-    per_forward = {"conv3x3": 10, "relu6_pool_bn": 10, "residual_bn": 3, "dense_head": 1}
+    per_forward = PER_FORWARD
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
 
@@ -768,13 +797,17 @@ def main() -> None:
     tensor_parallel = phase12(variables, counts, zero_counts, dev, smi)
     tp_per_step = tensor_parallel.pop("launches")
 
+    # -- phase 13: from scratch through the curriculum -----------------------------
+    curriculum = phase13(cfgs, counts, zero_counts, per_forward, dev, smi)
+    curriculum_launches = curriculum.pop("launches")
+
     for dt in cfgs:
         log(f"max |d| against plain [{dt}]: " + ", ".join(
             f"{n} {max_err[(n, dt, 8)]:.3g} (batch 8) {max_err[(n, dt, 256)]:.3g} (batch 256)"
             for n in kernels))
     log(json.dumps({"card": smi, "serving": serving, "directory": directory, "training": training,
                     "server": server, "trainer": trainer, "scale_out": scale_out, "server_mesh": server_mesh,
-                    "tensor_parallel": tensor_parallel}))
+                    "tensor_parallel": tensor_parallel, "curriculum": curriculum}))
     log(f"wall: {time.perf_counter() - wall0:.1f} s from start to the result lines")
     rows = []
     for dt in cfgs:
@@ -797,6 +830,8 @@ def main() -> None:
                 "dp_rank_step_launches": {m: c[name] for m, c in dp_per_step[dt].items()},
                 "server_mesh_launches": server_mesh["two_ranks_gloo"][dt]["launches_per_rank_call"][name],
                 "tp_rank_step_launches": {m: c[name] for m, c in tp_per_step[dt].items()},
+                "curriculum_launches": curriculum_launches[dt]["run"][name],
+                "curriculum_step_launches": [c[name] for c in curriculum_launches[dt]["per_step"]],
             })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1643,28 +1678,43 @@ def read_orders(trainer, state) -> dict:
 def hand_driven(trainer, steps: int) -> tuple[list, list]:
     """(states, losses) after each of `steps` calls of make_train_step, from
     `trainer.init_state()` (call it before the Trainer's run writes a
-    checkpoint) and the batches of a fresh TrainFeeder over the trainer's
-    train list and seed, with one dropout generator seeded tc.seed + 1: what
-    `trainer.train(total_steps=steps)` computes when its first phase spans
-    the run, since validation and checkpoints change no state."""
+    checkpoint), each with the hparams of its step's phase (`phase_at` from
+    the restored step on), on the batches of a TrainFeeder over the
+    trainer's train list and seed, made anew where the batch size changes
+    as the Trainer makes it, with one dropout generator seeded tc.seed + 1:
+    what `trainer.train(total_steps=steps)` computes, since validation and
+    checkpoints change no state."""
     from roomnet_tpu_torch.data.loader import TrainFeeder
+    from roomnet_tpu_torch.train.loop import phase_at
     from roomnet_tpu_torch.train.step import make_train_step
 
     tc, dev = trainer.tc, trainer.device
-    ph = tc.phases[0]
     with open(tc.train_list_fpath) as f:
         lines = f.readlines()
-    step_fn = make_train_step(trainer._hp(ph), trainer.cfg)
     gen = torch.Generator(dev).manual_seed(tc.seed + 1)
     state = trainer.init_state()
-    states, losses = [], []
-    with TrainFeeder(lines, batch_size=ph.batch_size, batches_per_queue=tc.batches_per_queue, shuffle=True,
-                     im_side=tc.img_side, random_crop=True, preprocess=True, seed=tc.seed) as feeder:
-        for _ in range(steps):
+    start = int(state.step)
+    states, losses, step_fns = [], [], {}
+    feeder = batch = None
+    try:
+        for i in range(start, start + steps):
+            ph = phase_at(tc.phases, i)
+            if ph.batch_size != batch:
+                if feeder is not None:
+                    feeder.close()
+                batch = ph.batch_size
+                feeder = TrainFeeder(lines, batch_size=ph.batch_size, batches_per_queue=tc.batches_per_queue,
+                                     shuffle=True, im_side=tc.img_side, random_crop=True, preprocess=True,
+                                     seed=tc.seed)
+            if ph not in step_fns:
+                step_fns[ph] = make_train_step(trainer._hp(ph), trainer.cfg)
             x, y = feeder.dequeue()
-            state, metrics = step_fn(state, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev), gen)
+            state, metrics = step_fns[ph](state, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev), gen)
             states.append(state)
             losses.append(float(metrics["loss"]))
+    finally:
+        if feeder is not None:
+            feeder.close()
     return states, losses
 
 
@@ -3216,6 +3266,300 @@ def phase12(variables, counts, zero_counts, dev, smi) -> dict:
     result["launches"]["f32"] = {mode: result["two_ranks_gloo"][mode]["launches_per_rank_step"] for mode in TP_MODES}
     result["wall_s"] = time.perf_counter() - t_phase
     log(f"tensor parallel: phase 12 took {result['wall_s']:.1f} s")
+    return result
+
+
+# -- phase 13: from scratch through the curriculum -----------------------------------
+CURRICULUM_STEPS = 3  # (a): steps per phase
+CURRICULUM_TOTAL = 400  # (b): reference_curriculum(total_steps=CURRICULUM_TOTAL), phases of 100 steps
+CURRICULUM_SAVE = 50  # (b): save_freq
+CURRICULUM_RESUME = 250  # (b): the checkpoint a new Trainer resumes, inside the second dropout phase
+CURRICULUM_WINDOW = (60, 80)  # (c): each phase's step calls under torch.profiler
+CURRICULUM_LOG_EVERY = 25  # (b): tools/train_synth_torch.py's loss read
+
+
+class CurriculumProbe:
+    """Watches a Trainer's run from outside it: each step call's phase (its
+    index in tc.phases), host clock and kernel launches; each validation's
+    BN mode, step, span and launches; and, given `window`, each phase's
+    step calls [window[0], window[1]) under torch.profiler (device activity
+    alone), the device's busy share over them by CUDA events."""
+
+    def __init__(self, trainer, window=None):
+        kernels = kernel_counters()
+        self.steps, self.validations, self.busy, self.overhead = [], [], {}, []
+        self._window, self._calls = window, {}
+        real_step, real_val, phases = trainer._step_fn, trainer.run_validation, trainer.tc.phases
+
+        def counts():
+            return {n: k.launches for n, k in kernels.items()}
+
+        def step_fn(ph, **kw):
+            fn = real_step(ph, **kw)
+
+            def run(*args):
+                p = phases.index(ph)
+                i = self._calls[p] = self._calls.get(p, -1) + 1
+                if window and i in window:
+                    t0 = time.perf_counter()
+                    (self._start if i == window[0] else self._stop)(p)
+                    self.overhead.append((t0, time.perf_counter()))
+                before, t = counts(), time.perf_counter()
+                out = fn(*args)
+                self.steps.append((p, t, {n: c - before[n] for n, c in counts().items()}))
+                return out
+            return run
+
+        def validation(state, reader, use_batch_stats=False):
+            before, t0 = counts(), time.perf_counter()
+            out = real_val(state, reader, use_batch_stats=use_batch_stats)
+            self.validations.append({"step": int(state.step), "batch_stats": use_batch_stats, "t0": t0,
+                                     "t1": time.perf_counter(),
+                                     "launches": {n: c - before[n] for n, c in counts().items()}})
+            return out
+
+        trainer._step_fn, trainer.run_validation = step_fn, validation
+
+    def _start(self, p):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        self.ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        self.ev[0].record()
+
+    def _stop(self, p):
+        self.ev[1].record()
+        self.ev[1].synchronize()
+        self.prof.__exit__(None, None, None)
+        device_us = sum(e.self_device_time_total for e in self.prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        if device_us == 0:
+            raise AssertionError("torch.profiler recorded no device time in the curriculum run")
+        self.busy[p] = device_us / 1e3 / self.ev[0].elapsed_time(self.ev[1])
+
+    def per_step(self, phase_index: int) -> dict:
+        """The launches of one step of a phase; raises if its steps differ."""
+        got = [c for p, _, c in self.steps if p == phase_index]
+        if not got or any(c != got[0] for c in got):
+            raise AssertionError(f"phase {phase_index}: launches differ from step to step or no step ran: "
+                                 f"{got[:3]} ...")
+        return got[0]
+
+    def phase_times(self, phases) -> list:
+        """Per phase: img/s and host ms per step (p50) on the host clock,
+        from the gaps between consecutive step calls (the first five of a
+        phase left out, and any gap holding a validation or the probe's own
+        profiler work), and the profiled device busy share."""
+        out = []
+        for p, ph in enumerate(phases):
+            ts = [t for q, t, _ in self.steps if q == p]
+            spans = [(v["t0"], v["t1"]) for v in self.validations] + self.overhead
+            gaps = [b - a for a, b in zip(ts[4:], ts[5:]) if not any(s0 < b and s1 > a for s0, s1 in spans)]
+            out.append({"batch": ph.batch_size, "steps": len(ts), "timed_gaps": len(gaps),
+                        "img_per_s": ph.batch_size * len(gaps) / sum(gaps) if gaps else None,
+                        "host_ms_per_step_p50": float(np.median(gaps)) * 1e3 if gaps else None,
+                        "device_busy_share": self.busy.get(p)})
+        return out
+
+
+def phase13(cfgs, counts, zero_counts, per_forward, dev, smi) -> dict:
+    """From scratch through the curriculum (docstring phase 13). Returns its
+    numbers, and under "launches" each dtype's counts over its Trainer run
+    and per step of each phase ((a) f32, (b) bf16)."""
+    import dataclasses
+    import io
+
+    from roomnet_tpu_torch.data.dataset import extract_fpaths
+    from roomnet_tpu_torch.data.loader import TrainFeeder
+    from roomnet_tpu_torch.params.checkpoint import CheckpointStore
+    from roomnet_tpu_torch.train.loop import TrainConfig, Trainer
+    from roomnet_tpu_torch.train.metrics import make_stats_entry
+    from tools.make_synth_dataset import generate
+
+    t_phase = time.perf_counter()
+    schema_keys = {"step", "accuracy", "precisions", "recalls", "f-scores"}
+    trainbn = {**per_forward, "dense_head": 0}
+    want_step = [trainbn, trainbn, trainbn, per_forward]  # per step of each phase: batch statistics, then frozen
+    result = {"card": smi, "launches": {}}
+
+    def times(c: dict, n: int) -> dict:
+        return {k: v * n for k, v in c.items()}
+
+    def total(*parts: dict) -> dict:
+        return {k: sum(p[k] for p in parts) for k in per_forward}
+
+    def checkpoints(model_dir: str) -> list:
+        return [(s, sfx) for s, sfx, _ in CheckpointStore(model_dir).list_checkpoints()]
+
+    def step_launches(probe, what: str, phase_indices) -> list:
+        got = [probe.per_step(p) for p in phase_indices]
+        want = [want_step[p] for p in phase_indices]
+        if got != want:
+            raise AssertionError(f"curriculum {what}: launches per step by phase {got} != {want}")
+        return got
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_curriculum_") as root:
+        data = os.path.join(root, "data")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            generate(data, per_class=100, seed=0)
+        lists = {"train_list_fpath": os.path.join(root, "train_list.txt"),
+                 "val_list_fpath": os.path.join(root, "val_list.txt"),
+                 "label_mappings_fpath": os.path.join(root, "label_mappings.json")}
+        train_txt, val_txt = extract_fpaths(data, *lists.values(), seed=0)
+        if (len(train_txt), len(val_txt)) != (540, 60):
+            raise AssertionError(f"extract_fpaths split {len(train_txt)} / {len(val_txt)}, not 540 / 60")
+        result["data_s"] = time.perf_counter() - t0
+
+        def config(name: str, **kw) -> TrainConfig:
+            return TrainConfig(data_dir=data, stats_fpath=os.path.join(root, f"stats_{name}.json"),
+                               model_dir=os.path.join(root, f"models_{name}"), img_side=cfgs["bf16"].im_side,
+                               **lists, **kw)
+
+        # (a) f32, hand-driven across the three boundaries.
+        n_a = 4 * CURRICULUM_STEPS
+        tc = config("a", save_freq=0, phases=TrainConfig.reference_curriculum(n_a))
+        tr = Trainer(tc, cfgs["f32"], device=dev)
+        with deterministic():
+            states, want_losses = hand_driven(tr, n_a)
+            losses = record_losses(tr)
+            probe = CurriculumProbe(tr)
+            zero_counts()
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                state = tr.train(total_steps=n_a)
+        got = counts()
+        if "No model found to restore from" not in out.getvalue() or int(state.step) != n_a:
+            raise AssertionError(f"curriculum (a): not from scratch or ended at {int(state.step)}")
+        per_phase = step_launches(probe, "(a)", range(4))
+        if got != total(*(times(c, CURRICULUM_STEPS) for c in per_phase)):
+            raise AssertionError(f"curriculum (a): launches {got}")
+        gap = state_gap(state_tensors(state), state_tensors(states[-1]), 0.0)
+        d_loss = max(abs(float(a) - b) for a, b in zip(losses, want_losses))
+        if d_loss != 0.0 or len(losses) != n_a:
+            raise AssertionError(f"curriculum (a): losses {d_loss:.3g} from the hand-driven steps")
+        result["launches"]["f32"] = {"run": got, "per_step": per_phase}
+        result["hand_driven"] = {"max_abs_d_state": gap, "max_abs_d_loss": d_loss, "launches": got,
+                                 "losses": want_losses}
+        log(f"curriculum (a) f32 from the Trainer's own init, phases of {CURRICULUM_STEPS} steps at batch 8 "
+            f"(batch statistics), 32 and 40 (dropout 0.3), 45 (frozen BN), cuDNN deterministic: Trainer vs "
+            f"hand-driven make_train_step max |d| {gap:.3g} (params, BN moving stats, Adam; gate 0), losses "
+            f"{d_loss:.3g}; launches {got}, per step by phase {per_phase}")
+        del tr, states, state
+
+        # (b) bf16, the compressed curriculum, from scratch, then a resume inside a dropout phase.
+        tc = config("b", save_freq=CURRICULUM_SAVE, phases=TrainConfig.reference_curriculum(CURRICULUM_TOTAL),
+                    stall_timeout_s=900.0)
+        freeze = tc.phases[2].until_step
+        tr = Trainer(tc, cfgs["bf16"], device=dev)
+        losses = record_losses(tr)
+        probe = CurriculumProbe(tr, CURRICULUM_WINDOW)
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            state = tr.train(total_steps=CURRICULUM_TOTAL, log_every=CURRICULUM_LOG_EVERY)
+        wall_b = time.perf_counter() - t0
+        got = counts()
+        losses = [float(v) for v in losses]
+        if len(losses) != CURRICULUM_TOTAL or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"curriculum (b): {len(losses)} losses, non-finite at steps "
+                                 f"{[i for i, v in enumerate(losses) if not math.isfinite(v)][:10]}")
+        per_phase = step_launches(probe, "(b)", range(4))
+        with open(tc.stats_fpath) as f:
+            stats = json.load(f)
+        curve = {e["step"]: e["accuracy"] for e in stats}
+        steps = list(range(CURRICULUM_SAVE, CURRICULUM_TOTAL, CURRICULUM_SAVE))
+        if list(curve) != steps or any(set(e) != schema_keys for e in stats):
+            raise AssertionError(f"curriculum (b): stats {stats}")
+        if checkpoints(tc.model_dir) != [(s, str(curve[s])) for s in steps]:
+            raise AssertionError(f"curriculum (b): checkpoints {checkpoints(tc.model_dir)}")
+        modes = [(v["step"], v["batch_stats"]) for v in probe.validations]
+        if modes != [(s, s < freeze) for s in steps]:
+            raise AssertionError(f"curriculum (b): validation BN modes {modes}")
+        for v in probe.validations:
+            heads, convs = v["launches"]["dense_head"], v["launches"]["conv3x3"]
+            forwards = convs // per_forward["conv3x3"]
+            want = times(trainbn if v["batch_stats"] else per_forward, forwards)
+            if forwards < 1 or v["launches"] != want:
+                raise AssertionError(f"curriculum (b): validation at step {v['step']}: launches {v['launches']}")
+        val_launches = total(*(v["launches"] for v in probe.validations))
+        if got != total(val_launches, *(times(c, CURRICULUM_TOTAL // 4) for c in per_phase)):
+            raise AssertionError(f"curriculum (b): launches {got}")
+        result["launches"]["bf16"] = {"run": got, "per_step": per_phase}
+        result["compressed"] = {"accuracy": curve, "loss_first_last": [losses[0], losses[-1]],
+                                "validation_batch_stats": dict(modes), "launches": got, "wall_s": wall_b}
+        log(f"curriculum (b) bf16 reference_curriculum({CURRICULUM_TOTAL}) from scratch, save_freq "
+            f"{CURRICULUM_SAVE}: {CURRICULUM_TOTAL} finite losses ({losses[0]:.4f} -> {losses[-1]:.4f}), "
+            f"validation accuracy " + ", ".join(f"step {s} {a:.4f}" for s, a in curve.items())
+            + f"; batch statistics in the validations before the freeze (step {freeze}), moving ones after "
+            f"(dense_head launches " + ", ".join(str(v["launches"]["dense_head"]) for v in probe.validations)
+            + f"); launches per step by phase {per_phase}, {got} in all; {wall_b:.1f} s")
+
+        # The freeze step's weights validated both ways.
+        frozen_dir = os.path.join(root, "models_freeze")
+        os.makedirs(frozen_dir)
+        src = next(p for s, _, p in CheckpointStore(tc.model_dir).list_checkpoints() if s == freeze)
+        shutil.copy(src, frozen_dir)
+        tr_f = Trainer(dataclasses.replace(tc, model_dir=frozen_dir), cfgs["bf16"], device=dev)
+        with contextlib.redirect_stdout(io.StringIO()):
+            state_f = tr_f.init_state()
+        at_freeze = {}
+        for use_batch_stats in (False, True):
+            with TrainFeeder(val_txt, batch_size=tc.val_batch_size, batches_per_queue=10, shuffle=False,
+                             im_side=tc.img_side, random_crop=False, preprocess=False, seed=tc.seed) as reader:
+                y_true, y_pred = tr_f.run_validation(state_f, reader, use_batch_stats=use_batch_stats)
+            at_freeze["batch" if use_batch_stats else "moving"] = make_stats_entry(freeze, y_true, y_pred)["accuracy"]
+        if at_freeze["moving"] != curve[freeze]:
+            raise AssertionError(f"curriculum (b): step-{freeze} checkpoint validates at {at_freeze['moving']} "
+                                 f"with moving statistics, the run recorded {curve[freeze]}")
+        result["at_freeze"] = at_freeze
+        log(f"curriculum (b) step {freeze} (the freeze), the same weights: validation accuracy with moving "
+            f"statistics {at_freeze['moving']:.4f} (the run's entry), with batch statistics "
+            f"{at_freeze['batch']:.4f}; a record at {CURRICULUM_TOTAL} steps, not a gate")
+        del tr_f, state_f
+
+        resume_dir = os.path.join(root, "models_resume")
+        os.makedirs(resume_dir)
+        src = next(p for s, _, p in CheckpointStore(tc.model_dir).list_checkpoints() if s == CURRICULUM_RESUME)
+        shutil.copy(src, resume_dir)
+        tc_r = dataclasses.replace(tc, model_dir=resume_dir, stats_fpath=os.path.join(root, "stats_resume.json"))
+        tr_r = Trainer(tc_r, cfgs["bf16"], device=dev)
+        losses_r = record_losses(tr_r)
+        probe_r = CurriculumProbe(tr_r)
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            state_r = tr_r.train(total_steps=CURRICULUM_TOTAL - CURRICULUM_RESUME, log_every=CURRICULUM_LOG_EVERY)
+        losses_r = [float(v) for v in losses_r]
+        resumed = [s for s in steps if s > CURRICULUM_RESUME]
+        if (f"Model restored at step {CURRICULUM_RESUME}" not in out.getvalue()
+                or int(state_r.step) != CURRICULUM_TOTAL
+                or len(losses_r) != CURRICULUM_TOTAL - CURRICULUM_RESUME
+                or not all(math.isfinite(v) for v in losses_r)):
+            raise AssertionError(f"curriculum (b) resume: ended at step {int(state_r.step)}, "
+                                 f"{len(losses_r)} losses\n{out.getvalue()[:300]}")
+        with open(tc_r.stats_fpath) as f:
+            resumed_stats = [e["step"] for e in json.load(f)]
+        if resumed_stats != resumed or [s for s, _ in checkpoints(resume_dir)] != [CURRICULUM_RESUME] + resumed:
+            raise AssertionError(f"curriculum (b) resume: stats {resumed_stats}, checkpoints "
+                                 f"{checkpoints(resume_dir)}")
+        step_launches(probe_r, "(b) resume", (2, 3))
+        if [(v["step"], v["batch_stats"]) for v in probe_r.validations] != [(s, s < freeze) for s in resumed]:
+            raise AssertionError(f"curriculum (b) resume: validations {probe_r.validations}")
+        result["resume"] = {"from": CURRICULUM_RESUME, "to": int(state_r.step), "loss_last": losses_r[-1]}
+        log(f"curriculum (b) resume: a new Trainer restored step {CURRICULUM_RESUME} (dropout 0.3, batch 40) and "
+            f"ran across the freeze to step {int(state_r.step)}: finite losses, validations at {resumed} "
+            f"(moving statistics), launches per step by phase as in the run")
+        del tr, tr_r, state, state_r
+
+    # (c) times from (b), nothing claimed.
+    result["times"] = probe.phase_times(tc.phases)
+    log(f"curriculum times [bf16, {smi}], by phase: " + "; ".join(
+        f"batch {t['batch']}: {t['img_per_s']:.1f} img/s, host ms per step p50 {t['host_ms_per_step_p50']:.3f} "
+        f"({t['timed_gaps']} gaps), device busy {t['device_busy_share']:.3f} over steps "
+        f"{CURRICULUM_WINDOW[0]}-{CURRICULUM_WINDOW[1]} of the phase" for t in result["times"])
+        + "; validation s " + ", ".join(f"{v['t1'] - v['t0']:.2f}" for v in probe.validations))
+    result["validation_s"] = [v["t1"] - v["t0"] for v in probe.validations]
+    result["wall_s"] = time.perf_counter() - t_phase
+    log(f"curriculum: phase 13 took {result['wall_s']:.1f} s")
     return result
 
 

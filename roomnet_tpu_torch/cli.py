@@ -223,12 +223,9 @@ def cmd_serve(args):
 
 
 def cmd_convert(args):
-    from .params.checkpoint import save_flat
-    from .params.convert_tf import convert_tf_checkpoint
+    from .params.convert_tf import convert_file
 
-    flat = convert_tf_checkpoint(args.tf_ckpt)
-    save_flat(flat, args.out, meta={"source_tf_ckpt": args.tf_ckpt})
-    print(f"converted {len(flat)} tensors -> {args.out}")
+    print(f"converted {convert_file(args.tf_ckpt, args.out)} tensors -> {args.out}")
 
 
 def cmd_convert_to_tf(args):

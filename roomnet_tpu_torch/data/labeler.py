@@ -77,8 +77,11 @@ class ImageLabeler:
     def label2dirname(self, label: list[str]) -> str:  # override per use
         return str(label[0])
 
-    def run_labeller(self, resume: bool = True) -> int:
-        """Label every image not labeled yet; returns how many were labeled."""
+    def run_labeller(self, resume: bool = True, bin_files: bool = True) -> int:
+        """Label every image not labeled yet; returns how many were labeled.
+        bin_files: also copy each labeled image into
+        output_dir/binned_files/<label2dirname(label)>/; False writes the
+        label file alone."""
         if resume:
             self.processed_image_names = self.extract_existing_labels()
             self.pl(f"Resuming: {len(self.processed_image_names)} already labeled")
@@ -96,9 +99,10 @@ class ImageLabeler:
                 self.pl(f"unreadable/unlabeled: {img_fname}")
                 continue
             label = self.preprocess_label(key)
-            dst = os.path.join(self.output_dir, "binned_files", self.label2dirname(label))
-            os.makedirs(dst, exist_ok=True)
-            shutil.copy(img_path, dst)
+            if bin_files:
+                dst = os.path.join(self.output_dir, "binned_files", self.label2dirname(label))
+                os.makedirs(dst, exist_ok=True)
+                shutil.copy(img_path, dst)
             self.write_to_csv(img_fname, label)
             self.processed_image_names.append(img_fname)
             labeled += 1

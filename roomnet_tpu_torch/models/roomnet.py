@@ -325,10 +325,10 @@ def normalize_bgr_uint8(x_bgr: torch.Tensor) -> torch.Tensor:
     return (x_bgr.flip(-1).float() / 255.0) * 2.0 - 1.0
 
 
-def param_count(tree) -> int:
+def param_count(variables) -> int:
     """Number of scalars in a variables tree (dicts, lists, None, tensors)."""
-    if isinstance(tree, dict):
-        return sum(param_count(v) for v in tree.values())
-    if isinstance(tree, list):
-        return sum(param_count(v) for v in tree)
-    return 0 if tree is None else tree.numel()
+    if isinstance(variables, dict):
+        return sum(param_count(v) for v in variables.values())
+    if isinstance(variables, list):
+        return sum(param_count(v) for v in variables)
+    return 0 if variables is None else variables.numel()

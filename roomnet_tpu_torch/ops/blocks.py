@@ -63,10 +63,15 @@ def relu6(x: torch.Tensor) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_full((), 6.0))
 
 
-def conv2d_valid(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """NHWC x HWIO -> NHWC conv, VALID padding, no bias, output in x.dtype."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), kernel.to(x.dtype).permute(3, 2, 0, 1))
-    return y.permute(0, 2, 3, 1).contiguous()
+def conv2d_valid(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1, accum_dtype=None) -> torch.Tensor:
+    """NHWC x HWIO -> NHWC conv, VALID padding, no bias, output in x.dtype.
+    The kernel is rounded to x.dtype; the products are summed in
+    `accum_dtype`, default float32 for bf16 and f32 inputs (the promotion of
+    x.dtype with float32)."""
+    acc = accum_dtype or torch.promote_types(x.dtype, torch.float32)
+    k = kernel.to(x.dtype).to(acc).permute(3, 2, 0, 1)
+    y = F.conv2d(x.to(acc).permute(0, 3, 1, 2), k, stride=stride)
+    return y.to(x.dtype).permute(0, 2, 3, 1).contiguous()
 
 
 def avg_pool_valid(x: torch.Tensor, ksize: int, stride: int) -> torch.Tensor:

@@ -8,15 +8,22 @@ every other module imports without it. The names follow
 
     python -m roomnet_tpu_torch convert --tf-ckpt /path/to/final_model/roomnet \\
         --out artifacts/roomnet_params.npz
+    python -m roomnet_tpu_torch.params.convert_tf --tf_ckpt /path/to/final_model/roomnet \\
+        --out artifacts/roomnet_params.npz
 """
 
 from __future__ import annotations
+
+import argparse
 
 import numpy as np
 import torch
 
 from ..models.roomnet import DEFAULT_CONFIG, RoomNetConfig, init_variables, param_count
 from . import schema
+from .checkpoint import save_flat
+
+__all__ = ["convert_tf_checkpoint", "convert_file", "save_flat", "main"]
 
 # Training-state variables of a TF1 checkpoint that are not model tensors.
 _NOT_MODEL = ("train_step", "Adam", "power", "learn_rate")
@@ -45,3 +52,30 @@ def convert_tf_checkpoint(tf_ckpt_prefix: str, cfg: RoomNetConfig = DEFAULT_CONF
     if n_params != expected:
         raise ValueError(f"expected {expected} params for this config, got {n_params}")
     return flat
+
+
+def convert_file(tf_ckpt: str, out: str) -> int:
+    """Convert `tf_ckpt` and write it with `save_flat` (the npz and its json
+    manifest, the checkpoint's path under ``source_tf_ckpt``); returns the
+    number of tensors. The body of the CLI's `convert` and of `main`."""
+    flat = convert_tf_checkpoint(tf_ckpt)
+    save_flat(flat, out, meta={"source_tf_ckpt": tf_ckpt})
+    return len(flat)
+
+
+def main(argv=None):
+    """`python -m roomnet_tpu_torch.params.convert_tf`: the JAX module's
+    flags, with the defaults of the CLI's `convert`."""
+    from ..cli import build_parser
+
+    defaults = build_parser().parse_args(["convert"])
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--tf_ckpt", default=defaults.tf_ckpt)
+    p.add_argument("--out", default=defaults.out)
+    args = p.parse_args(argv)
+    n = convert_file(args.tf_ckpt, args.out)
+    print(f"converted {n} tensors -> {args.out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -84,12 +84,15 @@ def _representative_dataset(cfg, n: int = 96):
     return gen
 
 
-def export_tflite(variables, out_path: str, cfg=None, *, quantize: str | None = None) -> str:
+def export_tflite(variables, out_path: str, cfg=None, *, allow_flex: bool = False,
+                  quantize: str | None = None) -> str:
     """Forward + softmax as a .tflite flatbuffer of TFLITE_BUILTINS only
     (the stock interpreter loads it, no Flex delegate; reference
     Classifier.java:189). Input: (1, im_side, im_side, 3) float32 RGB in
     [-1, 1] (network.py:28).
 
+    allow_flex: also allow SELECT_TF_OPS, the escape hatch for a graph with
+    ops outside the builtins (the model's graph has none).
     quantize: None (float32), "dynamic" (int8 weights, float activations)
     or "int8" (full integer with a representative dataset, float32 I/O at
     the edges, so the float demo patch works unchanged)."""
@@ -110,6 +113,8 @@ def export_tflite(variables, out_path: str, cfg=None, *, quantize: str | None = 
     if quantize == "int8":
         converter.representative_dataset = _representative_dataset(cfg)
         converter.target_spec.supported_ops = [tf.lite.OpsSet.TFLITE_BUILTINS_INT8]
+    if allow_flex:
+        converter.target_spec.supported_ops.append(tf.lite.OpsSet.SELECT_TF_OPS)
     blob = converter.convert()
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "wb") as f:
@@ -117,11 +122,11 @@ def export_tflite(variables, out_path: str, cfg=None, *, quantize: str | None = 
     return out_path
 
 
-def export_saved_model(variables, out_dir: str, cfg=None) -> str:
+def export_saved_model(variables, out_dir: str, cfg=None, batch_size: int | None = None) -> str:
     """Forward + softmax + argmax as a TF SavedModel (TF-Serving), its
     function `f` returning {"class_id": int32 (B,), "probs": (B, classes)}
-    from (B, im_side, im_side, 3) float32 RGB in [-1, 1], B unknown in the
-    signature."""
+    from (B, im_side, im_side, 3) float32 RGB in [-1, 1]. batch_size=None
+    leaves B unknown in the signature (any batch); a number pins it."""
     import tensorflow as tf
 
     from ..models.roomnet import DEFAULT_CONFIG
@@ -134,6 +139,6 @@ def export_saved_model(variables, out_dir: str, cfg=None) -> str:
 
     module = tf.Module()
     module.f = tf.function(infer_fn, autograph=False,
-                           input_signature=[tf.TensorSpec((None, cfg.im_side, cfg.im_side, 3), tf.float32)])
+                           input_signature=[tf.TensorSpec((batch_size, cfg.im_side, cfg.im_side, 3), tf.float32)])
     tf.saved_model.save(module, out_dir)
     return out_dir

@@ -9,10 +9,13 @@ TensorFlow is imported only inside `export_tf_checkpoint` (offline tool).
 
     python -m roomnet_tpu_torch convert-to-tf --params artifacts/roomnet_params.npz \\
         --out exported_tf/roomnet
+    python -m roomnet_tpu_torch.params.export_tf --params artifacts/roomnet_params.npz \\
+        --out exported_tf/roomnet
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 
 import numpy as np
@@ -52,3 +55,18 @@ def export_params_file(params_path: str, out_prefix: str) -> tuple[str, int]:
     with np.load(params_path) as data:
         flat = {k: v for k, v in data.items() if not k.startswith(("opt/", "meta/"))}
     return export_tf_checkpoint(flat, out_prefix), len(flat)
+
+
+def main(argv=None):
+    """`python -m roomnet_tpu_torch.params.export_tf`: the JAX module's flags
+    and defaults (those of the CLI's `convert-to-tf`)."""
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--params", default="artifacts/roomnet_params.npz")
+    p.add_argument("--out", default="exported_tf/roomnet", help="TF checkpoint prefix to write")
+    args = p.parse_args(argv)
+    path, n = export_params_file(args.params, args.out)
+    print(f"exported {n} tensors -> {path} (pair with the reference roomnet.meta)")
+
+
+if __name__ == "__main__":
+    main()

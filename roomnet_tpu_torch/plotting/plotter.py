@@ -24,7 +24,6 @@ import numpy as np
 
 CLASS_COLORS = (np.array([(244, 35, 231), (69, 69, 69), (219, 219, 0), (0, 0, 142), (0, 79, 100), (119, 10, 32)])
                 .astype(np.float32) / 255.0)
-VAL_SIZE = 1839  # the reference's validation set, named in the plots' axis labels
 CKPT_NAME_RE = re.compile(r"--(?P<acc>[\d.eE+-]+)--(?P<step>\d+)\.(npz|meta)$")
 
 
@@ -47,11 +46,16 @@ def _accuracy_plot(plt, steps, accs, ylabel: str, out_path: str):
     plt.savefig(out_path, bbox_inches="tight", dpi=200)
 
 
-def plot_training_stats(stats_json: str = "all_train_stats.json", out_dir: str = "performance_plots") -> list[str]:
-    """The accuracy, fscore, recall and precision PNGs from the stats JSON."""
-    from .. import CLASS_LABELS as class_labels
+def plot_training_stats(stats_json: str = "all_train_stats.json", out_dir: str = "performance_plots",
+                        class_labels: list[str] | None = None, val_size: int | str = 1839) -> list[str]:
+    """The accuracy, fscore, recall and precision PNGs from the stats JSON.
+    `class_labels` name the per-class curves (default the reference's six);
+    `val_size`, the validation set's size, goes into the axis labels (default
+    the reference's 1839 images)."""
+    from .. import CLASS_LABELS
 
     plt = _plt()
+    class_labels = class_labels or CLASS_LABELS
     os.makedirs(out_dir, exist_ok=True)
     with open(stats_json) as f:
         stats = json.load(f)
@@ -71,7 +75,7 @@ def plot_training_stats(stats_json: str = "all_train_stats.json", out_dir: str =
 
     per_class = {"fscore": ragged("f-scores"), "recall": ragged("recalls"), "precision": ragged("precisions")}
     acc_path = os.path.join(out_dir, "accuracy_plot.png")
-    _accuracy_plot(plt, steps, accs, f"Validation Overall Accuracy over {VAL_SIZE} images", acc_path)
+    _accuracy_plot(plt, steps, accs, f"Validation Overall Accuracy over {val_size} images", acc_path)
     outputs = [acc_path]
     for name, arr in per_class.items():
         path = os.path.join(out_dir, f"{name}_plot.png")
@@ -85,7 +89,7 @@ def plot_training_stats(stats_json: str = "all_train_stats.json", out_dir: str =
         plt.title(title)
         plt.legend(loc="best")
         plt.xlabel("Train Step")
-        plt.ylabel(f"Validation Class {name} over {VAL_SIZE} images")
+        plt.ylabel(f"Validation Class {name} over {val_size} images")
         plt.savefig(path, bbox_inches="tight", dpi=200)
         plt.close("all")
         outputs.append(path)

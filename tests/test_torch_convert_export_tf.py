@@ -117,3 +117,92 @@ def test_convert_clis_write_the_jax_clis_files(flat, tmp_path, capsys):
     assert manifests[0].pop("source_tf_ckpt").startswith(str(tmp_path / "jax"))
     assert manifests[1].pop("source_tf_ckpt").startswith(str(tmp_path / "port"))
     assert manifests[0] == manifests[1] and manifests[1]["num_params"] == 178_062
+
+
+@pytest.mark.parametrize("writer,reader", [("port", "jax"), ("jax", "port")])
+def test_save_flat_files_read_back_in_the_other_package(flat, tmp_path, writer, reader):
+    """convert_tf.save_flat of either package: the same npz tensors and the
+    same json manifest, and the other package's CheckpointStore loads the
+    npz as step 0 with every tensor byte-exact."""
+    from roomnet_tpu.params.checkpoint import CheckpointStore as JStore
+    from roomnet_tpu_torch.params.checkpoint import CheckpointStore as TStore
+
+    save = {"port": tconvert.save_flat, "jax": jconvert.save_flat}
+    paths = {}
+    for name in ("jax", "port"):
+        paths[name] = str(tmp_path / name / "roomnet--0.5--7.npz")
+        save[name](flat, paths[name], meta={"source_tf_ckpt": "ckpt/roomnet"})
+    manifests = [open(os.path.splitext(paths[n])[0] + ".json").read() for n in ("jax", "port")]
+    assert manifests[0] == manifests[1]
+    assert json.loads(manifests[1])["format"] == "roomnet_tpu_flat_npz_v1"
+    store = {"port": TStore, "jax": JStore}[reader](os.path.dirname(paths[writer]))
+    var_flat, step = store.load(paths[writer])
+    assert step == 0
+    assert_same({k: np.asarray(v) for k, v in var_flat.items()}, flat)
+
+
+@pytest.mark.parametrize("module", ["convert_tf", "export_tf"])
+def test_module_entry_points_take_the_jax_modules_flags(module):
+    """`python -m roomnet_tpu_torch.params.<module> --help` exits 0 and lists
+    the flags of `python -m roomnet_tpu.params.<module> --help`."""
+    import re
+    import subprocess
+    import sys
+
+    def flags(pkg):
+        proc = subprocess.run([sys.executable, "-m", f"{pkg}.params.{module}", "--help"], cwd=REPO,
+                              capture_output=True, text=True, timeout=120,
+                              env=dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu"))
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        options = proc.stdout.split("options:", 1)[1]
+        return sorted(set(re.findall(r"(?m)^\s+(-[-\w]+)", options)))
+
+    got = flags("roomnet_tpu_torch")
+    assert got == flags("roomnet_tpu")
+    assert got == {"convert_tf": ["--out", "--tf_ckpt", "-h"], "export_tf": ["--out", "--params", "-h"]}[module]
+
+
+def test_module_mains_use_the_jax_modules_defaults(monkeypatch):
+    """Each main run with no flags hands its body the JAX main's defaults."""
+    import sys
+
+    seen = {}
+
+    def record(name, result):
+        def fn(*args, **kwargs):
+            seen[name] = args[:2]
+            return result
+        return fn
+
+    monkeypatch.setattr(sys, "argv", ["prog"])
+    monkeypatch.setattr(jconvert, "convert_tf_checkpoint", record("jax_convert", {}))
+    monkeypatch.setattr(jconvert, "save_flat", record("jax_save", None))
+    monkeypatch.setattr(tconvert, "convert_file", record("port_convert", 0))
+    jconvert.main()
+    tconvert.main([])
+    assert seen["port_convert"] == (seen["jax_convert"][0], seen["jax_save"][1])
+    for name, mod in (("jax_export", jexport), ("port_export", texport)):
+        monkeypatch.setattr(mod, "export_params_file", record(name, ("prefix", 0)))
+    jexport.main()
+    texport.main([])
+    assert seen["port_export"] == seen["jax_export"] == ("artifacts/roomnet_params.npz", "exported_tf/roomnet")
+
+
+def test_convert_tf_main_writes_the_jax_mains_files(flat, tmp_path):
+    """Both modules' mains on one TF checkpoint: the same npz and manifest."""
+    import sys
+
+    prefix = texport.export_tf_checkpoint(flat, str(tmp_path / "tf" / "roomnet"))
+    outs = {n: str(tmp_path / n / "params.npz") for n in ("jax", "port")}
+    argv = sys.argv
+    try:
+        sys.argv = ["convert_tf", "--tf_ckpt", prefix, "--out", outs["jax"]]
+        jconvert.main()
+    finally:
+        sys.argv = argv
+    tconvert.main(["--tf_ckpt", prefix, "--out", outs["port"]])
+    for out in outs.values():
+        with np.load(out) as data:
+            assert_same(dict(data), flat)
+    manifests = [json.load(open(os.path.splitext(outs[n])[0] + ".json")) for n in ("jax", "port")]
+    assert manifests[0] == manifests[1] and manifests[1]["source_tf_ckpt"] == prefix

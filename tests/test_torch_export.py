@@ -112,9 +112,11 @@ from roomnet_tpu_torch.params.export import export_saved_model
 from roomnet_tpu_torch.params.schema import variables_from_numpy
 
 work = sys.argv[1]
+batch_size = int(sys.argv[2]) if len(sys.argv) > 2 else None
 with np.load(work + "/flat.npz") as data:
     flat = dict(data)
-d = export_saved_model(variables_from_numpy(flat, tiny_config(), "cpu"), work + "/sm", tiny_config())
+d = export_saved_model(variables_from_numpy(flat, tiny_config(), "cpu"), work + "/sm", tiny_config(),
+                       batch_size=batch_size)
 f = tf.saved_model.load(d).f
 out = {"signature": np.array(f.concrete_functions[0].structured_input_signature[0][0].shape.as_list(), object)}
 with np.load(work + "/x.npz") as xs:
@@ -125,20 +127,25 @@ np.savez(work + "/out.npz", **out)
 """
 
 
-def test_saved_model_serves_any_batch(trees, tmp_path):
-    """The batch is unknown in the signature (the JAX package's jax2tf shape
-    polymorphism; here a reshape to (-1, flat_len)): batches 1 and 3."""
+def saved_model_run(trees, tmp_path, xs: dict, *args: str):
+    """SAVED_MODEL_RUN in a subprocess on `xs`; its outputs."""
     import subprocess
     import sys
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     np.savez(tmp_path / "flat.npz", **tschema.flatten_variables(trees[1]))
-    xs = {"b1": inputs(2, 1, 1)[0], "b3": inputs(3, 1, 3)[0]}
     np.savez(tmp_path / "x.npz", **xs)
-    proc = subprocess.run([sys.executable, "-c", SAVED_MODEL_RUN, str(tmp_path)], cwd=repo, capture_output=True,
-                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=repo))
+    proc = subprocess.run([sys.executable, "-c", SAVED_MODEL_RUN, str(tmp_path), *args], cwd=repo,
+                          capture_output=True, text=True, timeout=300, env=dict(os.environ, PYTHONPATH=repo))
     assert proc.returncode == 0, proc.stderr[-3000:]
-    with np.load(tmp_path / "out.npz", allow_pickle=True) as out:
+    return np.load(tmp_path / "out.npz", allow_pickle=True)
+
+
+def test_saved_model_serves_any_batch(trees, tmp_path):
+    """The batch is unknown in the signature (the JAX package's jax2tf shape
+    polymorphism; here a reshape to (-1, flat_len)): batches 1 and 3."""
+    xs = {"b1": inputs(2, 1, 1)[0], "b3": inputs(3, 1, 3)[0]}
+    with saved_model_run(trees, tmp_path, xs) as out:
         assert list(out["signature"]) == [None, TINY.im_side, TINY.im_side, 3]
         for name, x in xs.items():
             want = np.asarray(jax.nn.softmax(jax_forward(trees[0], x, TINY), -1))
@@ -146,3 +153,25 @@ def test_saved_model_serves_any_batch(trees, tmp_path):
             assert ids.shape == (x.shape[0],) and probs.shape == (x.shape[0], TINY.num_classes)
             np.testing.assert_allclose(probs, want, rtol=0, atol=TOL)
             np.testing.assert_array_equal(ids, want.argmax(-1))
+
+
+def test_saved_model_with_a_fixed_batch(trees, tmp_path):
+    """batch_size=4 pins the signature's batch, as the JAX export's does; the
+    answers are the JAX forward's."""
+    xs = {"b4": inputs(4, 1, 4)[0]}
+    with saved_model_run(trees, tmp_path, xs, "4") as out:
+        assert list(out["signature"]) == [4, TINY.im_side, TINY.im_side, 3]
+        want = np.asarray(jax.nn.softmax(jax_forward(trees[0], xs["b4"], TINY), -1))
+        np.testing.assert_allclose(out["b4/probs"], want, rtol=0, atol=TOL)
+        np.testing.assert_array_equal(out["b4/class_id"], want.argmax(-1))
+
+
+def test_allow_flex_tflite_matches_the_jax_export(trees, exported, tmp_path):
+    """allow_flex=True adds SELECT_TF_OPS to the allowed sets; the graph needs
+    none, so both packages' files answer as the builtins-only export."""
+    paths = {"port": texport.export_tflite(trees[1], str(tmp_path / "port.tflite"), tiny_config(), allow_flex=True),
+             "jax": jexport.export_tflite(trees[0], str(tmp_path / "jax.tflite"), TINY, allow_flex=True)}
+    for x in inputs(6, 2):
+        got = run_tflite(paths["port"], x)
+        np.testing.assert_allclose(got, run_tflite(paths["jax"], x), rtol=0, atol=TOL)
+        np.testing.assert_allclose(got, run_tflite(exported["port"], x), rtol=0, atol=TOL)

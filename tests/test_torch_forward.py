@@ -142,6 +142,11 @@ def test_param_count(port_vars):
     assert TM.param_count(port_vars) == 178062
 
 
+def test_param_count_takes_variables_by_keyword_as_the_jax_function(flat, port_vars):
+    jax_vars = jschema.unflatten_variables(flat)
+    assert TM.param_count(variables=port_vars) == JM.param_count(variables=jax_vars) == 178062
+
+
 def test_npz_round_trip_is_bit_identical(flat, port_vars):
     back = tschema.flatten_variables(port_vars)
     assert sorted(back) == sorted(flat)

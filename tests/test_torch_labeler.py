@@ -35,17 +35,17 @@ def tree(root) -> dict:
     return out
 
 
-def run_both(tmp_path, names, sessions) -> dict:
+def run_both(tmp_path, names, sessions, **kwargs) -> dict:
     """Each session (a list of keys, ESC included) through both packages'
-    ImageLabeler on their own copy of the directory; {package: (labeled
-    counts, the -labelled tree)}."""
+    ImageLabeler on their own copy of the directory, `kwargs` passed to
+    run_labeller; {package: (labeled counts, the -labelled tree)}."""
     out = {}
     for name, mod in (("jax", jlab), ("port", tlab)):
         d = image_dir(tmp_path / name, names)
         counts = []
         for keys in sessions:
             it = iter(keys)
-            counts.append(mod.ImageLabeler(d, ui=lambda p: next(it)).run_labeller())
+            counts.append(mod.ImageLabeler(d, ui=lambda p: next(it)).run_labeller(**kwargs))
         out[name] = (counts, tree(d + "-labelled"))
     return out
 
@@ -60,6 +60,16 @@ def test_sessions_with_esc_and_resume_write_the_jax_files(tmp_path, capsys):
                              "binned_files/99/im3.png", "labels.csv", "log.txt"]
     assert files["labels.csv"] == b"im0.png,97\r\nim1.png,98\r\nim2.png,97\r\nim3.png,99\r\n"
     assert b"Aborted by user" in files["log.txt"] and b"unreadable/unlabeled: im3.png" in files["log.txt"]
+
+
+def test_bin_files_false_writes_the_jax_label_file_and_no_bins(tmp_path):
+    names = [f"im{i}.png" for i in range(3)]
+    got = run_both(tmp_path, names, [[ord("a"), tlab.ESC], [ord("b"), ord("c")]], bin_files=False)
+    assert got["port"] == got["jax"]
+    counts, files = got["port"]
+    assert counts == [1, 2]
+    assert sorted(files) == ["labels.csv", "log.txt"]  # no binned_files/
+    assert files["labels.csv"] == b"im0.png,97\r\nim1.png,98\r\nim2.png,99\r\n"
 
 
 def test_comma_file_name_resumes_as_the_jax_labeler_does(tmp_path):

@@ -83,6 +83,25 @@ def test_conv2d_valid_matches_roomnet_tpu(cin, cout):
     np.testing.assert_allclose(got, np.asarray(JB.conv2d_valid(x, k)), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("dtype,accum", [("f32", None), ("f32", "f32"), ("bf16", "f32"), ("bf16", None)])
+def test_conv2d_valid_stride_and_accum_dtype_match_roomnet_tpu(stride, dtype, accum):
+    """stride= and accum_dtype= as the JAX function takes them: f32 within
+    1e-5; bf16 inputs summed in f32 (the port's default for bf16, JAX's with
+    accum_dtype=f32), the output in bf16, within one bf16 ulp."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 12, 11, 8).astype(np.float32)
+    k = (rng.randn(3, 3, 8, 16) * 0.2).astype(np.float32)
+    jdt, tdt = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    want = JB.conv2d_valid(jnp.asarray(x, jdt), jnp.asarray(k), stride=stride, accum_dtype=jnp.float32)
+    got = TB.conv2d_valid(torch.from_numpy(x).to(tdt), torch.from_numpy(k), stride=stride,
+                          accum_dtype=None if accum is None else torch.float32)
+    assert got.dtype == tdt and want.dtype == jdt
+    assert tuple(got.shape) == want.shape == (2, (12 - 3) // stride + 1, (11 - 3) // stride + 1, 16)
+    tol = 1e-5 if dtype == "f32" else BF16_RTOL
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("k,s", [(3, 1), (4, 1), (4, 2), (1, 1)])
 def test_avg_pool_valid_matches_roomnet_tpu(k, s):
     x = np.random.RandomState(2).uniform(0, 6, size=(2, 13, 12, 5)).astype(np.float32)

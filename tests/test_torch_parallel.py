@@ -65,11 +65,16 @@ FAULT_CASES = [("per_rank_bn", "trainbn"), ("mean_over_ranks", "masked"), ("l2_o
 
 @pytest.fixture(scope="module")
 def inputs():
-    """The JAX init with random BN fields (as a trained model has: with a
-    zero beta, the beta whose CE gradient vanishes under batch statistics
-    would take Adam steps of rounding noise) and a batch of 8."""
-    rng = np.random.RandomState(0)
-    flat = jschema.flatten_variables(jax_init(jax.random.PRNGKey(3), TINY))
+    return _draw(3, 0)
+
+
+def _draw(key: int, seed: int):
+    """The JAX init from PRNGKey(key) with random BN fields (as a trained
+    model has: with a zero beta, the beta whose CE gradient vanishes under
+    batch statistics would take Adam steps of rounding noise) and a batch of
+    8, both from RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    flat = jschema.flatten_variables(jax_init(jax.random.PRNGKey(key), TINY))
     for k in flat:
         if "bn/" in k:
             n = flat[k].shape
@@ -244,6 +249,47 @@ def test_dp_step_matches_the_jax_step_over_a_mesh(ranks, inputs, case):
         np.testing.assert_array_equal(ranks[1][case]["state"][k], v, err_msg=k)
     assert int(ranks[0][case]["state"]["meta/step"]) == STEPS
     _check(ranks[0][case]["state"], want, TOL, MOMENT_SHARE, moments=_batch_stats(case))
+
+
+def _jax_steps(step, hp, flat, x, y) -> dict:
+    """STEPS calls of the jitted JAX `step` on one device from `flat`, the
+    same batch and key each step; the state under the checkpoint's names."""
+    state = JS.init_train_state(jschema.unflatten_variables(flat, TINY), hp)
+    for _ in range(STEPS):
+        state, _ = step(state, x, y, jax.random.PRNGKey(0))
+    out = {"meta/step": np.asarray(state.step), **jax.device_get(state.train_vars),
+           **jax.device_get(state.frozen_vars)}
+    out.update({f"opt/{k}": np.asarray(v) for k, v in jax_flatten_opt(state.opt_state).items()})
+    return out
+
+
+def _moment_share(got: dict, want: dict) -> float:
+    """The largest |d| of an Adam moment over its tensor's largest |value|."""
+    return max(float(np.abs(np.asarray(got[k], np.float64) - want[k]).max() / np.abs(want[k]).max())
+               for k in want if k.startswith(("opt/mu/", "opt/nu/")))
+
+
+def test_single_process_step_at_the_k0_draw_within_jaxs_own_jump():
+    """The draw (PRNGKey(0), RandomState(0)), TINY, three steps with batch
+    statistics: the port's step in one process against the JAX step jitted
+    on one device. Under batch statistics a rounding-level change decides
+    which side of a non-smooth point both packages land on, so the Adam
+    moments are held to the larger of MOMENT_SHARE and twice JAX's own
+    largest gap when its weights are scaled by 1 + 2e-7 N(0, 1) (six draws,
+    RandomState(1000 + i)); params, BN stats and the count within TOL."""
+    flat, x, y = _draw(0, 0)
+    hp_kw = CASES["trainbn"]["hp"]
+    hp = JS.TrainHParams(**hp_kw)
+    step = jax.jit(JS.make_train_step(hp, TINY))
+    want = _jax_steps(step, hp, flat, x, y)
+    jumps = []
+    for i in range(6):
+        r = np.random.RandomState(1000 + i)
+        scaled = {k: (v * (1 + 2e-7 * r.randn(*v.shape))).astype(np.float32) for k, v in flat.items()}
+        jumps.append(_moment_share(_jax_steps(step, hp, scaled, x, y), want))
+    got = W._steps(flat, x, y, hp_kw, STEPS, group=None, rank=0, world=1)["state"]
+    assert int(got["meta/step"]) == STEPS
+    _check(got, want, TOL, max(MOMENT_SHARE, 2 * max(jumps)), moments=True)
 
 
 @pytest.mark.parametrize("case", list(CASES))

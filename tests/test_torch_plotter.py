@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from roomnet_tpu.plotting import plotter as jplot
+from roomnet_tpu_torch import CLASS_LABELS
 from roomnet_tpu_torch.plotting import plotter as tplot
 
 plt = pytest.importorskip("matplotlib.pyplot")
@@ -54,6 +55,42 @@ def test_training_stats_plots_equal_the_jax_packages(tmp_path, ragged):
         outs[name] = mod.plot_training_stats(str(sp), str(tmp_path / name))
     assert [os.path.basename(p) for p in outs["port"]] == ["accuracy_plot.png", "fscore_plot.png",
                                                            "recall_plot.png", "precision_plot.png"]
+    same_images(outs["port"], outs["jax"])
+
+
+def saved_text(monkeypatch) -> list:
+    """Patch pyplot.savefig to record, at each save, the file name and the
+    current axes' title, axis labels and legend entries."""
+    real, seen = plt.savefig, []
+
+    def savefig(path, *args, **kwargs):
+        ax = plt.gca()
+        legend = ax.get_legend()
+        seen.append((os.path.basename(str(path)), ax.get_title(), ax.get_xlabel(), ax.get_ylabel(),
+                     [t.get_text() for t in legend.get_texts()] if legend else []))
+        return real(path, *args, **kwargs)
+
+    monkeypatch.setattr(plt, "savefig", savefig)
+    return seen
+
+
+@pytest.mark.parametrize("class_labels,val_size", [(None, 360), (["a", "b", "c", "d", "e", "f"], "600")])
+def test_class_labels_and_val_size_label_the_plots_as_the_jax_package_does(tmp_path, monkeypatch, class_labels,
+                                                                          val_size):
+    sp = tmp_path / "stats.json"
+    sp.write_text(json.dumps(stats(False)))
+    texts, outs = {}, {}
+    for name, mod in (("jax", jplot), ("port", tplot)):
+        plt.close("all")
+        seen = saved_text(monkeypatch)
+        outs[name] = mod.plot_training_stats(str(sp), str(tmp_path / name), class_labels=class_labels,
+                                             val_size=val_size)
+        texts[name] = seen
+        monkeypatch.undo()
+    assert texts["port"] == texts["jax"]
+    assert texts["port"][0][3] == f"Validation Overall Accuracy over {val_size} images"
+    assert texts["port"][1][4] == (class_labels or CLASS_LABELS)
+    assert all(t[3].endswith(f"over {val_size} images") for t in texts["port"])
     same_images(outs["port"], outs["jax"])
 
 

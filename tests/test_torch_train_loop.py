@@ -442,6 +442,30 @@ def test_trainer_matches_hand_driven_steps(data_dir, steps_per_call):
         f"roomnet--{stats[0]['accuracy']}--5.npz"]
 
 
+def test_trainer_matches_hand_driven_steps_across_curriculum_phases(data_dir):
+    """chip_smoke.py phase 13 (a) at tiny: from the Trainer's own init, four
+    phases of 3 steps (batch statistics, then dropout 0.3 at two batch
+    sizes, then the BN freeze), a validation at steps 5 and 10: the Trainer
+    equals the hand-driven steps, a new feeder at each batch size and one
+    dropout generator, exactly (params, BN moving stats, Adam state,
+    losses)."""
+    phases = (Phase(until_step=3, batch_size=4, compute_bn_mean_var=True, update_bn_moving=True),
+              Phase(until_step=6, batch_size=8, compute_bn_mean_var=True, update_bn_moving=True,
+                    dropout_enabled=True, dropout_rate=0.3),
+              Phase(until_step=9, batch_size=6, compute_bn_mean_var=True, update_bn_moving=True,
+                    dropout_enabled=True, dropout_rate=0.3),
+              Phase(until_step=1 << 62, batch_size=10))
+    tc = _tc(data_dir, phases=phases)
+    extract_fpaths(tc.data_dir, tc.train_list_fpath, tc.val_list_fpath, str(data_dir / "labels.json"), seed=0)
+    tr = _trainer(tc)
+    states, want_losses = hand_driven(tr, 12)
+    losses = record_losses(tr)
+    state = tr.train(total_steps=12)
+    assert state_gap(state_tensors(state), state_tensors(states[-1]), 0.0) == 0.0
+    assert [float(v) for v in losses] == want_losses
+    assert [s["step"] for s in json.load(open(tc.stats_fpath))] == [5, 10]
+
+
 def test_trainer_refuses_what_waits_for_scale_out(tmp_path):
     """Scale-out is ported: a Trainer takes a mesh (its device and data
     group), the sharded feed (a no-op without a mesh, as in the JAX package)
