@@ -243,10 +243,27 @@ kernels, in phases; any failure raises and the script exits non-zero:
      line's curriculum_launches are (a)'s counts for f32 and (b)'s for bf16,
      curriculum_step_launches their launches per step by phase.
 
+ 14. The bench and the val-scale parity run: (a) `python -m
+     roomnet_tpu_torch bench` (roomnet_tpu_torch/bench.py at its full sizes)
+     in this process, its stdout captured: one JSON line whose keys and
+     extras' keys are those of the repo root's bench.py (read from its
+     source with ast, nothing imported) and its metric bench.py's string,
+     every number in it finite and positive, `device` nvidia-smi's line,
+     `device_forward_ms_batch256` within BENCH_FORWARD_SHARE of phase 5's
+     bf16 device forward, and launches 10/10/3/1 per forward and per
+     inference-BN train step of the run (`bench_forwards`); (b)
+     tools/valset_torch.py's run on the 1,609 valset images that need no
+     reference PNG: its drift guards pass, f32 argmax equal to the TF
+     graph's on every image, the sample logits within 1e-4, bf16 flips under
+     1%, and launches 10/10/3/1 per forward of each dtype's run. The kernels
+     line's bench_launches are (a)'s counts on the bf16 rows (the bench runs
+     bf16 alone, and its counts are one total: null on the f32 rows),
+     valset_launches (b)'s by dtype.
+
 Phase 5 also prints utils/roofline.py's summary of the batch-256 device
 forward, bf16 (2 bytes, the bf16 peak) and f32 (4 bytes, the f32 peak).
 Then the JSON line of serving, directory, training, server, trainer,
-scale-out, mesh-server, tensor-parallel and curriculum numbers, the script's wall
+scale-out, mesh-server, tensor-parallel, curriculum, bench and valset numbers, the script's wall
 time, one JSON line of per-kernel results and, last, the device line.
 f32 parity needs TF32 off; the script turns it off for everything it runs.
 """
@@ -801,13 +818,17 @@ def main() -> None:
     curriculum = phase13(cfgs, counts, zero_counts, per_forward, dev, smi)
     curriculum_launches = curriculum.pop("launches")
 
+    # -- phase 14: the bench and the val-scale parity run ---------------------------
+    bench_valset = phase14(counts, zero_counts, per_forward, serving, dev, smi)
+    bv_launches = bench_valset.pop("launches")
+
     for dt in cfgs:
         log(f"max |d| against plain [{dt}]: " + ", ".join(
             f"{n} {max_err[(n, dt, 8)]:.3g} (batch 8) {max_err[(n, dt, 256)]:.3g} (batch 256)"
             for n in kernels))
     log(json.dumps({"card": smi, "serving": serving, "directory": directory, "training": training,
                     "server": server, "trainer": trainer, "scale_out": scale_out, "server_mesh": server_mesh,
-                    "tensor_parallel": tensor_parallel, "curriculum": curriculum}))
+                    "tensor_parallel": tensor_parallel, "curriculum": curriculum, "bench_valset": bench_valset}))
     log(f"wall: {time.perf_counter() - wall0:.1f} s from start to the result lines")
     rows = []
     for dt in cfgs:
@@ -832,6 +853,10 @@ def main() -> None:
                 "tp_rank_step_launches": {m: c[name] for m, c in tp_per_step[dt].items()},
                 "curriculum_launches": curriculum_launches[dt]["run"][name],
                 "curriculum_step_launches": [c[name] for c in curriculum_launches[dt]["per_step"]],
+                # The bench runs FAST_CONFIG alone and its counts are not split by dtype:
+                # they sit on the bf16 rows, and the f32 rows have none measured.
+                "bench_launches": bv_launches["bench"][name] if dt == "bf16" else None,
+                "valset_launches": bv_launches["valset"][dt][name],
             })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3560,6 +3585,130 @@ def phase13(cfgs, counts, zero_counts, per_forward, dev, smi) -> dict:
     result["validation_s"] = [v["t1"] - v["t0"] for v in probe.validations]
     result["wall_s"] = time.perf_counter() - t_phase
     log(f"curriculum: phase 13 took {result['wall_s']:.1f} s")
+    return result
+
+
+# -- phase 14: the bench and the val-scale parity run ------------------------------
+BENCH_FORWARD_SHARE = 0.25  # (a): the bench's device forward within this share of phase 5's
+
+
+def bench_py_result() -> tuple[str, str, set, set]:
+    """(metric, unit, top-level keys, keys of "extras") of the JSON object the
+    repo root's bench.py prints as its result, read from its source with ast:
+    nothing of it is imported."""
+    import ast
+
+    tree = ast.parse((pathlib.Path(__file__).resolve().parent / "bench.py").read_text())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and any(isinstance(t, ast.Name) and t.id == "result" for t in node.targets)):
+            fields = dict(zip((k.value for k in node.value.keys), node.value.values))
+            return (fields["metric"].value, fields["unit"].value, set(fields),
+                    {k.value for k in fields["extras"].keys})
+    raise AssertionError("bench.py: no `result = {...}` assignment")
+
+
+def bench_forwards(burst_calls: int, **sizes) -> int:
+    """Forwards (or inference-BN train steps, 10/10/3/1 launches each) of one
+    run of roomnet_tpu_torch/bench.py at `bench.sizes(**sizes)`, the sizes
+    `bench.run(**sizes)` uses: the inference segment's warm-up, timed calls,
+    latency warm-up and latency calls; each train batch's warm-up and chains;
+    the e2e warm-up and runs; the daemon's warm-up (buckets 1, 2, 4, ...,
+    serve_batch), its first request, the keep-alive connection's first, the
+    interleaved pairs and the burst's device calls."""
+    from roomnet_tpu_torch import bench
+
+    n = bench.sizes(**sizes)
+    return ((1 + n["infer_iters"] + 1 + n["latency_calls"]) + 2 * (1 + n["chains"] * n["train_iters"])
+            + (1 + n["e2e_runs"] * math.ceil(n["e2e_images"] / n["batch"]))
+            + (n["serve_batch"].bit_length() + 2 + 2 * n["serve_pairs"] + burst_calls))
+
+
+def phase14(counts, zero_counts, per_forward, serving, dev, smi) -> dict:
+    """The bench and the val-scale parity run (docstring phase 14). Returns
+    their numbers, and under "launches" the bench's counts (bf16) and each
+    dtype's over the valset run."""
+    import io
+
+    from roomnet_tpu_torch import cli
+    from tools import valset_torch
+
+    t_phase = time.perf_counter()
+    # (a) `python -m roomnet_tpu_torch bench`, in this process.
+    out = io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(["bench"])
+    bench_s = time.perf_counter() - t0
+    bench_launches = counts()
+    lines = out.getvalue().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench: {len(lines)} lines on stdout, one expected:\n{out.getvalue()[:1000]}")
+    line = json.loads(lines[0])
+    metric, unit, top, extras = bench_py_result()
+    if set(line) != top or set(line["extras"]) != extras or (line["metric"], line["unit"]) != (metric, unit):
+        raise AssertionError(f"bench: keys {sorted(set(line) ^ top)} and extras {sorted(set(line['extras']) ^ extras)} "
+                             f"differ from bench.py's, or the metric {line['metric']!r} or unit {line['unit']!r}")
+
+    def numbers(obj, where: str):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                yield from numbers(v, f"{where}.{k}")
+        elif isinstance(obj, (bool, int, float)):
+            yield where, obj
+
+    for where, v in numbers({k: line[k] for k in ("value", "vs_baseline", "extras")}, "bench"):
+        if v is not True and not (isinstance(v, (int, float)) and not isinstance(v, bool) and math.isfinite(v)
+                                  and v > 0):
+            raise AssertionError(f"{where} = {v!r}: every number of the bench's line must be finite and positive")
+    if line["extras"]["device"] not in smi.splitlines():
+        raise AssertionError(f"bench: device {line['extras']['device']!r}, nvidia-smi says {smi!r}")
+    fwd, ref = line["extras"]["device_forward_ms_batch256"], serving["bf16"]["device_forward_ms_batch256"]
+    if abs(fwd / ref - 1) > BENCH_FORWARD_SHARE:
+        raise AssertionError(f"bench: device forward {fwd:.3f} ms, phase 5's {ref:.3f} ms (limit "
+                             f"{BENCH_FORWARD_SHARE:.0%})")
+    forwards = bench_forwards(line["extras"]["serving_burst_device_calls"])
+    if bench_launches != {n: c * forwards for n, c in per_forward.items()}:
+        raise AssertionError(f"bench: launches {bench_launches}, {forwards} forwards and inference-BN steps of "
+                             f"{per_forward} expected")
+    log(f"bench (python -m roomnet_tpu_torch bench in this process, {smi}): {bench_s:.1f} s; keys equal bench.py's; "
+        f"every number finite and positive; device forward {fwd:.3f} ms against phase 5's {ref:.3f} ms; launches "
+        f"{bench_launches} ({forwards} forwards and steps); the line: {lines[0]}")
+
+    # (b) tools/valset_torch.py on the 1,609 undocumented images.
+    launches = {}
+
+    @contextlib.contextmanager
+    def measure(dt: str):
+        zero_counts()
+        yield
+        launches[dt] = counts()
+
+    t0 = time.perf_counter()
+    val = valset_torch.run(dev, indices="undocumented", measure=measure)
+    val_s = time.perf_counter() - t0
+    if not val["ok"] or val["scored"] != len(valset_torch.undocumented_indices()):
+        raise AssertionError(f"valset: {json.dumps(val)}")
+    for dt, n in val["forwards"].items():
+        if launches[dt] != {k: c * n for k, c in per_forward.items()}:
+            raise AssertionError(f"valset[{dt}]: launches {launches[dt]}, {n} forwards of {per_forward} expected")
+    flip_d = max((float(np.abs(np.subtract(lg["bf16"], lg["bf16_plain_cpu"])).max())
+                  for lg in val["bf16_flip_logits"].values()), default=0.0)
+    flip_plain = sum(int(np.argmax(lg["bf16"]) == np.argmax(lg["bf16_plain_cpu"]))
+                     for lg in val["bf16_flip_logits"].values())
+    log(f"valset ({val['scored']} undocumented images, {val['decoder']} decode, {smi}): f32 {val['f32_mismatches']} "
+        f"argmax mismatches against the TF graph's {val['argmax_key']}, bf16 {val['bf16_flips']} flips "
+        f"({100 * val['bf16_flip_rate']:.3f}%, gate {100 * valset_torch.FLIP_GATE:g}%) at "
+        f"{val['bf16_flip_indices']} (f32 top-2 margins {val['bf16_flip_f32_top2_margins']}; the plain versions on "
+        f"the CPU flip {flip_plain} of them to the same class, bf16 logits max |d| {flip_d:.3g} from the card's), "
+        f"sample logits max |d| "
+        f"{val['sample_logits_max_abs_diff']:.3g} over {val['sample_images']} images; build {val['build_s']:.1f} s, "
+        f"score {val['score_s']:.1f} s, {val_s:.1f} s in all; launches {launches}")
+    result = {"bench": line, "bench_s": bench_s, "bench_forwards": forwards, "valset": val, "valset_s": val_s,
+              "wall_s": time.perf_counter() - t_phase,
+              "launches": {"bench": bench_launches, "valset": launches}}
+    log(f"bench and valset: phase 14 took {result['wall_s']:.1f} s")
     return result
 
 

@@ -12,6 +12,7 @@
     python -m roomnet_tpu_torch plot-checkpoints --model-dir all_trained_models/...
     python -m roomnet_tpu_torch label      --in-dir ./unlabeled
     python -m roomnet_tpu_torch doctor
+    python -m roomnet_tpu_torch bench
 
 Flags and defaults are the JAX package's, with these differences:
   * --device (default: the CUDA card) picks the device of the commands that
@@ -24,8 +25,8 @@ Flags and defaults are the JAX package's, with these differences:
   * serve --profile-port serves on-demand torch.profiler captures
     (`GET /capture?seconds=S`, utils/profiling.start_server) in place of
     jax.profiler's gRPC server.
-  * bench is not ported: the benchmark of the port is its own issue
-    (ROADMAP.md).
+  * bench runs the port's own benchmark (roomnet_tpu_torch/bench.py), not
+    the repo root's bench.py, which drives the JAX package.
 
 --data-parallel runs the command on a mesh over every rank of the launch,
 one process per card, rank 0 writing the outputs; for serve, rank 0 serves
@@ -378,6 +379,12 @@ def cmd_doctor(args):
     sys.exit(1 if failed else 0)
 
 
+def cmd_bench(args):
+    from . import bench
+
+    bench.main(args.device)
+
+
 def _add_device(p):
     p.add_argument("--device", default=None, help=DEVICE_HELP)
 
@@ -564,6 +571,10 @@ def build_parser() -> argparse.ArgumentParser:
     d = sub.add_parser("doctor", help="environment diagnostics (PASS/WARN/FAIL)")
     d.add_argument("--params", default="artifacts/roomnet_params.npz")
     d.set_defaults(fn=cmd_doctor)
+
+    b = sub.add_parser("bench", help="run the benchmark (roomnet_tpu_torch/bench.py): one JSON line")
+    _add_device(b)
+    b.set_defaults(fn=cmd_bench)
     return p
 
 

@@ -63,13 +63,14 @@ SUBCOMMANDS = {
     "export": ["export"],
     "serve": ["serve"],
     "doctor": ["doctor"],
+    "bench": ["bench"],
 }
 # The port's new modules, which must import on a host without JAX,
 # roomnet_tpu, TensorFlow or matplotlib (the card's).
 OFFLINE_MODULES = ("roomnet_tpu_torch.params.convert_tf", "roomnet_tpu_torch.params.export_tf",
                    "roomnet_tpu_torch.params.export", "roomnet_tpu_torch.plotting.plotter",
                    "roomnet_tpu_torch.data.labeler", "roomnet_tpu_torch.utils.profiling",
-                   "roomnet_tpu_torch.infer.server", "roomnet_tpu_torch.cli")
+                   "roomnet_tpu_torch.infer.server", "roomnet_tpu_torch.cli", "roomnet_tpu_torch.bench")
 
 
 @pytest.fixture
@@ -123,8 +124,8 @@ def read_csv(path):
 
 
 def test_cli_parses_the_ported_subcommands_only():
-    """Every subcommand of the JAX CLI but bench, with the JAX CLI's flags
-    (and --device where the command runs the model)."""
+    """Every subcommand of the JAX CLI, bench included, with the JAX CLI's
+    flags (and --device where the command runs the model)."""
     p = tcli.build_parser()
     for argv in [*SUBCOMMANDS.values(),
                  ["infer", "--images-dir", "/x", "--no-overlay", "--exact", "--device", "cpu"],
@@ -136,17 +137,16 @@ def test_cli_parses_the_ported_subcommands_only():
                  ["infer", "--images-dir", "/x", "--data-parallel"], ["validate", "--list-file", "/x", "--data-parallel"],
                  ["train", "--data-parallel"], ["train", "--ckpt-backend", "orbax"],
                  ["train", "--feed-mode", "sharded"], ["export", "--quantize", "dynamic"], ["export", "--format", "saved-model", "--out", "/tmp/sm"],
-                 ["label", "--in-dir", "/x", "--no-resume"]]:
+                 ["label", "--in-dir", "/x", "--no-resume"], ["bench", "--device", "cpu"]]:
         assert callable(p.parse_args(argv).fn)
-    with pytest.raises(SystemExit):
-        p.parse_args(["bench"])
+    assert p.parse_args(["bench"]).fn is tcli.cmd_bench
 
     def flags(parser) -> dict:
         sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
         return {name: {o for a in sp._actions for o in a.option_strings} for name, sp in sub.choices.items()}
 
     port, ref = flags(p), flags(jcli.build_parser())
-    assert set(port) == set(ref) - {"bench"}
+    assert set(port) == set(ref)
     for name in port:
         assert port[name] - ref[name] <= {"--device"}, name
         assert ref[name] - port[name] == set(), name

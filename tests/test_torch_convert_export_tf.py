@@ -33,6 +33,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NPZ = os.path.join(REPO, "artifacts", "roomnet_params.npz")
 
 
+@pytest.fixture(autouse=True)
+def eager_execution_restored():
+    """roomnet_tpu's export_tf calls tf.disable_eager_execution(), which holds
+    for the rest of the process: put eager execution back after each test.
+    Otherwise a test file that runs later in the same process and saves a
+    SavedModel (tests/test_export.py::test_saved_model_polymorphic_batch)
+    fails with "Unable to save checkpoint ... in graph mode". TF refuses to
+    enable eager execution once a global default graph exists (an earlier
+    TFLite conversion in the process makes one), so that graph is reset
+    first."""
+    yield
+    if not tf.executing_eagerly():
+        tf.compat.v1.reset_default_graph()
+        tf.compat.v1.enable_eager_execution()
+
+
 @pytest.fixture(scope="module")
 def flat():
     with np.load(NPZ) as data:

@@ -527,17 +527,16 @@ def test_train_parser_has_the_jax_dests_plus_device():
                                               (["--ckpt-backend", "orbax"], "ckpt_backend", "orbax"),
                                               (["--feed-mode", "sharded"], "feed_mode", "sharded")],
                          ids=["data-parallel", "orbax", "sharded"])
-def test_train_parser_refuses_what_waits_for_scale_out(argv, dest, value, capsys):
+def test_train_parser_refuses_what_waits_for_scale_out(argv, dest, value):
     """The Scale-out flags parse to the JAX parser's values, and since the
-    server's mesh so does serve --data-parallel; what still waits refuses as
-    it parses: the bench subcommand."""
+    server's mesh so does serve --data-parallel; nothing waits any more: the
+    bench subcommand, the last to come, parses in both CLIs."""
     assert getattr(tcli.build_parser().parse_args(["train", *argv]), dest) == value
     assert getattr(jcli.build_parser().parse_args(["train", *argv]), dest) == value
     for parser in (tcli.build_parser(), jcli.build_parser()):
         assert parser.parse_args(["serve", "--data-parallel"]).data_parallel is True
-    with pytest.raises(SystemExit):
-        tcli.build_parser().parse_args(["bench"])
-    assert "invalid choice: 'bench'" in capsys.readouterr().err
+        assert parser.parse_args(["bench"]).fn.__name__ == "cmd_bench"
+    assert tcli.build_parser().parse_args(["bench"]).fn is tcli.cmd_bench
 
 
 def test_train_cli_runs_on_the_cpu(data_dir, monkeypatch, capsys):
