@@ -8,7 +8,11 @@ reference checkpoint (artifacts/roomnet_params.npz) through its four CUDA
 kernels, in phases; any failure raises and the script exits non-zero:
 
   1. The card's name and power limit; build the kernels from csrc/ (one
-     nvcc per source, in parallel) and print the build time and ptxas usage.
+     nvcc per source, in parallel) and print the build time and ptxas usage;
+     count the conv library's HGMMA (wgmma), UTMALDG and UTMASTG (TMA load
+     and store) SASS lines with the cuobjdump beside that nvcc, each of
+     which must be there (no cuobjdump fails the phase). With --parent DIR,
+     DIR's csrc/conv3x3.cu is built beside them.
   2. Each kernel against its plain PyTorch version on the operands of every
      launch of one forward at batch 8 (real activations of the golden batch),
      f32 and bf16. f32: rtol = atol = 1e-5, conv 1e-4 (sum order). bf16:
@@ -27,15 +31,20 @@ kernels, in phases; any failure raises and the script exits non-zero:
      windows. Kernel and library windows replay a CUDA graph of their calls,
      so they time the card and not the host's launch rate; the plain
      version runs eagerly (the residual's copies host arrays, which a graph
-     cannot hold). Each site prints its launch plan: the conv's variant
-     (tile, shared memory), the residual's strip, span, shared memory and
+     cannot hold). Each site prints its launch plan: the conv's path
+     (wgmma+TMA, mma.sync or the f32 CUDA cores), rows per warp, tile,
+     warpgroups, stages, wgmma shape, how the output is stored and shared
+     memory (csrc/conv3x3.cu:rn_conv3x3_variant), the residual's strip, span, shared memory and
      blocks, the head's variant (resident or streamed, rows per block)
      beside an empty kernel's graph-replayed time.
      The bound is max(bytes / 3.35 TB/s, FLOPs / peak), peak 67 TFLOP/s for
      f32 arithmetic and 989 TFLOP/s for bf16 convolutions (H100 SXM). Bytes
      count each input element the function reads once (for the pool and the
      residual, only the rows and columns its windows or weights reach) and
-     each output once.
+     each output once. With --parent, each bf16 conv site also holds DIR's
+     kernel against the plain version and times it in the same turns (its
+     line's "parent" ms), and the phase ends with the summed kernel, parent
+     and library times.
   4. The full forward against the TF-graph goldens (forward_golden.npz, 7
      images, and forward_golden_wide.npz, 64): f32 logits within 1e-4 and
      argmax exact (float and uint8-fold input); bf16 argmax exact and
@@ -270,6 +279,7 @@ f32 parity needs TF32 off; the script turns it off for everything it runs.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import csv
 import ctypes
@@ -410,6 +420,58 @@ def compare(name, dt, args, got, want, where: str) -> float:
     return err
 
 
+def sass_counts(lib) -> dict:
+    """Lines of `lib`'s SASS (cuobjdump -sass, from the toolkit that holds the
+    nvcc the kernels are built with) that hold wgmma (HGMMA) and TMA loads
+    and stores (UTMALDG, UTMASTG). Raises where that toolkit has no
+    cuobjdump."""
+    from roomnet_tpu_torch.ops.kernels import _build
+
+    tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        raise FileNotFoundError(f"no cuobjdump beside {_build._nvcc()}: the conv's SASS cannot be checked")
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    return {op: sum(op in line for line in text.splitlines()) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+
+
+def parent_conv3x3(checkout: pathlib.Path):
+    """Starts one nvcc on another checkout's csrc/conv3x3.cu, with this
+    checkout's flags, into build/roomnet_tpu_torch/parent/. Returns a
+    function that waits for it and gives a bf16 conv3x3(x, kernel, bias)
+    through that library's rn_conv3x3, which must take this checkout's
+    packed weights and C entry. Its launches count nowhere."""
+    from roomnet_tpu_torch.ops.kernels import _build
+    from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
+
+    out = _build.BUILD_DIR / "parent" / "libconv3x3.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    src = checkout / "roomnet_tpu_torch" / "csrc" / "conv3x3.cu"
+    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{src}: build failed:\n{text}")
+        fn = ctypes.CDLL(str(out)).rn_conv3x3
+        fn.argtypes, fn.restype = KC._ARGS, ctypes.c_int
+
+        def conv(x, kernel, bias=None):
+            B, H, W, cin = x.shape
+            packed = KC.packed_kernel(kernel, x.dtype)
+            y = torch.empty((B, H - 2, W - 2, kernel.shape[3]), dtype=x.dtype, device=x.device)
+            rc = fn(x.data_ptr(), packed.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
+                    B, H, W, cin, kernel.shape[3], packed.shape[1], 1, x.device.index,
+                    torch.cuda.current_stream(x.device).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"{src}: rn_conv3x3 returned CUDA error {rc}")
+            return y
+
+        return conv
+
+    return finish
+
+
 def png_bytes(bgr: np.ndarray) -> bytes:
     """A PNG file (8-bit RGB, filter 0 on every row) of an (H, W, 3) uint8
     BGR image, written with the standard library's zlib alone."""
@@ -487,7 +549,12 @@ def timed_fill(fill, spent: list):
     return run
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one NVIDIA GPU.")
+    ap.add_argument("--parent", type=pathlib.Path, metavar="DIR",
+                    help="another checkout whose csrc/conv3x3.cu phase 3 also checks and times at the "
+                         "bf16 conv sites, in the same turns")
+    opts = ap.parse_args(argv)
     wall0 = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; the port's smoke run needs a GPU")
@@ -519,31 +586,34 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip()
     log(f"card: {smi}")
     t0 = time.perf_counter()
+    parent_build = parent_conv3x3(opts.parent.resolve()) if opts.parent else None
     _build.build()
     for name in _build.SOURCES:
         _build.load(name)
+    parent_conv = parent_build() if parent_build else None
     log(f"build: {time.perf_counter() - t0:.2f} s for {len(_build.SOURCES)} kernels "
         f"into {_build.BUILD_DIR}")
     for name in _build.SOURCES:
         logf = _build.BUILD_DIR / f"{name}.log"
         if logf.exists():
             for line in logf.read_text().splitlines():
-                if "entry function" in line or "registers" in line or "spill" in line:
+                if any(w in line for w in ("entry function", "registers", "spill", "wgmma")):
                     log(f"  ptxas {name}: {line.strip()}")
-
-    variant_fn = _build.entry("conv3x3", "rn_conv3x3_variant", [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    sass = sass_counts(_build.library_path("conv3x3"))
+    log(f"  sass conv3x3: {sass}")
+    if not (sass["HGMMA"] and sass["UTMALDG"] and sass["UTMASTG"]):
+        raise AssertionError(f"conv3x3: the library's SASS lacks wgmma or TMA: {sass}")
 
     def conv_variant(dt: str, args) -> str:
         """The conv kernel's variant for one launch (csrc/conv3x3.cu:rn_conv3x3_variant)."""
         x, k = args[0], args[1]
-        packed = KC.packed_kernel(k, x.dtype)
-        cp = packed.shape[1] if dt == "bf16" else packed.shape[-1]
-        out = (ctypes.c_int * 5)()
-        rc = variant_fn(x.shape[1], x.shape[2], x.shape[3], k.shape[3], cp, int(dt == "bf16"), out)
-        _build.check("conv3x3", "rn_conv3x3_variant", rc)
+        v = KC.variant(tuple(x.shape), k.shape[3], x.dtype)
         names = ("Cout_p", "rows/warp") if dt == "bf16" else ("NT", "warp cols")
-        return (f"{names[0]} {out[0]}, {names[1]} {out[1]}, tile {out[2]}x{out[3]}, "
-                f"smem {out[4]} B")
+        s = f"{v['path']}, {names[0]} {v['cp']}, {names[1]} {v['sub']}, tile {v['rows']}x{v['cols']}"
+        if v["path"] == "wgmma+TMA":
+            s += (f", {v['warpgroups']} warpgroups, {v['stages']} stages, m64n{v['cp']}k16, "
+                  + (f"TMA store swizzle {v['out_swizzle']} B" if v["tma_store"] else "lane stores"))
+        return s + f", smem {v['smem']} B"
 
     def residual_plan(dt: str, args) -> str:
         """The residual's plan for one launch (ops/kernels/residual.py:plan)."""
@@ -661,6 +731,7 @@ def main() -> None:
     rng = np.random.RandomState(0)
     x256_u8 = rng.randint(0, 256, size=(256, 224, 224, 3), dtype=np.uint8)
     timing = {}
+    parent_total = 0.0
     for dt in cfgs:
         sites = record(dt, normalized(x256_u8))
         for i, (name, args, kwargs) in enumerate(sites):
@@ -676,7 +747,15 @@ def main() -> None:
             lib = library_call(name, args, kwargs)
             if lib is not None:
                 fns["library"] = lib
+            parent_s = ""
+            if parent_conv is not None and name == "conv3x3" and dt == "bf16":
+                parent_err = compare(name, dt, args, parent_conv(*args), plain(*args, **kwargs),
+                                     f"site {i} at batch 256, --parent's kernel")
+                fns["parent"] = lambda: parent_conv(*args)
             ms = in_turns(fns, eager=("plain",))
+            if "parent" in ms:
+                parent_total += ms["parent"]
+                parent_s = f", parent {ms['parent']:.4f} ms (max |d| {parent_err:.3g})"
             k_ms, p_ms, l_ms = ms["kernel"], ms["plain"], ms.get("library")
             acc = timing.setdefault((name, dt), {"ms": 0.0, "plain_ms": 0.0, "library_ms": None,
                                                  "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0})
@@ -693,10 +772,13 @@ def main() -> None:
             variant = f", {variant(dt, args)}" if variant else ""
             log(f"time {name}[{dt}] site {i} in {tuple(args[0].shape)} -> {tuple(out0(out).shape)}: "
                 f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib_s} ms, "
-                f"bound {bound:.4f} ms ({by}), max |d| {err:.3g}{variant}")
+                f"bound {bound:.4f} ms ({by}), max |d| {err:.3g}{parent_s}{variant}")
             del out
         del sites
         torch.cuda.empty_cache()
+    if parent_conv is not None:
+        log(f"time conv3x3[bf16] summed over its sites: kernel {timing['conv3x3', 'bf16']['ms']:.4f} ms, "
+            f"parent {parent_total:.4f} ms, library {timing['conv3x3', 'bf16']['library_ms']:.4f} ms")
 
     # -- phase 4: full forward vs the TF-graph goldens, launches per forward --
     def counts():

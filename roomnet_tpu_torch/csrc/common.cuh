@@ -10,6 +10,11 @@ namespace rn {
 
 enum Dtype : int { kF32 = 0, kBF16 = 1 };
 
+// An entry's error code at or above kCuResult is a CUresult (libcuda's
+// status, e.g. a tensor map cuTensorMapEncodeTiled refused) plus kCuResult;
+// below it, a cudaError_t.
+constexpr int kCuResult = 100000;
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -86,5 +91,6 @@ inline unsigned grid_for(long long n, int threads) {
 }  // namespace rn
 
 extern "C" const char* rn_error_string(int code) {
+  if (code >= rn::kCuResult) return "a libcuda call failed (the code less 100000 is its CUresult)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

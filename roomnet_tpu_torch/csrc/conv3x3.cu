@@ -4,26 +4,50 @@
 // Replaces roomnet_tpu/ops/pallas/conv_b2.py:conv3x3_pallas (an im2col MXU
 // matmul over 8-row tiles). It is an implicit GEMM: M = the output pixels of
 // a tile, N = Cout, K = 9 * Cin, with the nine taps read as shifted views of
-// one input halo tile in shared memory (no im2col buffer). What bounds it on
-// an H100: bytes in bf16 (tensor cores do the ~4.5 GFLOP per image faster
-// than HBM delivers the activations), operations in f32 (CUDA cores).
+// one input halo tile in shared memory (no im2col buffer). K is cut into
+// slices of 8 input channels of one tap (16 bytes per pixel), two slices per
+// k16 step; an odd slice count is padded with a zero slice. The weights
+// arrive packed by ops/kernels/conv3x3.py:pack_bf16 as [slice][Cout_p][8].
 //
-// bf16 (`conv_tc`): tensor cores, mma.sync.m16n8k16 (bf16 in, f32 sums) fed
-// by ldmatrix. A persistent block holds all of Cout's weights in shared
-// memory for its life (the largest, 3x3x64x128, is 147 KB) and walks over
-// output tiles of (8*MI) rows x 16 columns; the input halo of the next tile
-// is fetched with 16-byte cp.async into a second buffer while the current
-// one is computed, once for all of Cout. K is cut into slices of 8 input
-// channels of one tap (16 bytes per pixel), two slices per k16 step, so
-// Cin = 3 or 8 wastes no half-empty k16 step on a whole tap; an odd slice
-// count is padded with a zero slice. The halo's pixel stride in 16-byte
-// units is odd and the weights are slice-major, so each ldmatrix phase of 8
-// rows hits 8 distinct bank groups at any tap offset. Warp w computes rows
-// w*MI .. w*MI+MI-1 of the tile (one m16 tile = 16 columns of one row) for
-// all of Cout. The weights arrive packed by ops/kernels/conv3x3.py:pack_bf16
-// as [slice][Cout_p][8] (the shared-memory image).
+// What bounds it on an H100: in bf16 the bytes at 32 channels and about
+// evenly bytes and operations at 64 and 128 (205^2x32->64 at batch 256: 0.69
+// GB in, 1.35 GB out, 389 GFLOP); in f32 the operations (CUDA cores). So
+// the bf16 path has to keep HBM and the tensor cores busy at once, and write
+// its output, two thirds of the bytes, in whole lines.
 //
-// f32 (`conv_f32`): full f32 on CUDA cores, no TF32. K is staged in chunks
+// bf16, Cin / 8 a power of two (`wg::conv_wg`): Hopper's wgmma, TMA and
+// mbarriers. A persistent block holds all of Cout's weights in shared memory
+// for its life (cp.async, once); its two warpgroups each walk their own
+// output tiles of 4*MI rows x 14 columns, one started half a tile after the
+// other so that each one's epilogue overlaps the other's wgmmas (with one
+// block per SM the two would otherwise idle the tensor cores together).
+// Each warpgroup's thread 0 keeps
+// the halos of its next tiles in flight in a ring of 2 or 3 stages: one 4-D
+// TMA box (8 channels x 16 columns x 4*MI+2 rows x 1 image) per 8 input
+// channels, zero-filled past the image, each stage signalled by an mbarrier.
+// wgmma.m64nNk16 (N = Cout_p) reads both operands from shared memory through
+// descriptors, K-major without swizzle (core matrices of 8 rows x 16 bytes):
+// B is the resident packed weights as they are (the two slices of a k16
+// step Cout_p * 16 bytes apart, n groups 128), and A is 64 consecutive halo
+// pixels shifted by the tap, 4 halo lines of 16: 8 consecutive pixels of
+// one 8-channel box are 128 contiguous bytes at any tap offset, which is
+// what makes the shifted view a canonical operand (the 2 extra columns of a
+// line are computed and discarded, 12.5% of the work). A tile's k16 steps
+// are issued back to back with nothing between them that touches the
+// accumulators (ptxas would serialize them otherwise), then waited on once.
+// Epilogue: sum + bias, rounded to bf16 into a staging tile swizzled by its
+// pixel stride (conflict-free stores), written by a TMA store that clips the
+// ragged edge while the warpgroup goes on to its next tile; where Cout is not
+// a multiple of 8 (no 16-byte row stride for TMA), each lane stores its
+// values itself.
+//
+// bf16, other Cin (conv 0's 3 channels, whose 6-byte pixel stride TMA
+// refuses, and Cin / 8 no power of two, whose tap the wgmma loop's shift
+// cannot find; `tc::conv_tc`): mma.sync.m16n8k16 fed by ldmatrix from a halo,
+// two buffers, loaded by 16-byte cp.async where Cin % 8 == 0 and else by
+// element loads zero-padded to 8 channels.
+//
+// f32 (`cc::conv_f32`): full f32 on CUDA cores, no TF32. K is staged in chunks
 // of 4 input channels (the halo chunk and its 9 x 4 x NT weights, 16-byte
 // cp.async, two buffers so chunk c+1 loads while chunk c computes). Each
 // thread keeps 8 rows x 8 output channels of sums in registers; per tap it
@@ -33,12 +57,15 @@
 // ops/kernels/conv3x3.py:pack_f32 as [Cout tile][chunk][tap][4][NT].
 //
 // The packed layout is decided in Python alone: the caller passes its Cout_p
-// (bf16) or NT (f32), read off the packed tensor's shape, and this file only
-// picks the tile (rows per warp, warp width) that goes with it.
+// (bf16) or NT (f32), read off the packed tensor's shape. This file picks
+// the path by shape alone (dtype, Cin) and the tile that goes with it; it
+// never falls back from one path to another.
 //
-// Epilogue (both): sum + bias in f32, then one rounding to the io dtype, as
+// Epilogue (all): sum + bias in f32, then one rounding to the io dtype, as
 // ops/kernels/conv3x3.py:conv3x3_plain rounds.
+#include <cuda.h>  // CUtensorMap and its enums; the encode function comes from the runtime
 #include <cstdint>
+#include <initializer_list>
 #include <map>
 #include <mutex>
 #include <tuple>
@@ -83,14 +110,31 @@ cudaError_t fit(const void* k, int device, int smem_max, size_t smem, Fit& out) 
   return e;
 }
 
-// What one launch runs, for reports: report[5] = {Cout_p (bf16) or NT (f32),
-// rows per warp (bf16) or warp width (f32), tile rows, tile columns, dynamic
-// shared memory bytes}. A launch given a report fills it and launches nothing.
-void fill(int* report, int cp, int sub, int rows, int cols, size_t smem) {
-  report[0] = cp, report[1] = sub, report[2] = rows, report[3] = cols, report[4] = (int)smem;
+// What one launch runs, for reports: report[REPORT] = {path (kF32 CUDA cores,
+// kMmaSync, kWgmma), Cout_p (bf16) or NT (f32), rows per warp (bf16) or warp
+// width (f32), tile rows, tile columns, dynamic shared memory bytes, consumer
+// warpgroups (wgmma; else 0), halo stages (buffers), 1 if TMA stores the
+// output (else each lane stores its values), the output staging's swizzle
+// bytes (0: none)}. A launch given a report fills it and launches nothing.
+constexpr int REPORT = 10;
+enum Path : int { kF32 = 0, kMmaSync = 1, kWgmma = 2 };
+
+void fill(int* report, std::initializer_list<int> v) {
+  int i = 0;
+  for (int x : v) report[i++] = x;
+  for (; i < REPORT; ++i) report[i] = 0;
 }
 
-// ---- bf16: implicit GEMM on tensor cores ------------------------------------
+__device__ __forceinline__ void store2(__nv_bfloat16* p, int co, int cout, float v0, float v1) {
+  if (co + 1 < cout && (cout & 1) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(p + co) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    if (co < cout) p[co] = __float2bfloat16_rn(v0);
+    if (co + 1 < cout) p[co + 1] = __float2bfloat16_rn(v1);
+  }
+}
+
+// ---- bf16, other Cin: mma.sync on a cp.async or element-load halo -----------
 
 namespace tc {
 
@@ -129,15 +173,6 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, int co, int cout, float v0, float v1) {
-  if (co + 1 < cout && (cout & 1) == 0) {
-    *reinterpret_cast<__nv_bfloat162*>(p + co) = __floats2bfloat162_rn(v0, v1);
-  } else {
-    if (co < cout) p[co] = __float2bfloat16_rn(v0);
-    if (co + 1 < cout) p[co + 1] = __float2bfloat16_rn(v1);
-  }
 }
 
 template <int COUT_P, int MI>
@@ -310,7 +345,7 @@ int launch(Args a, int B, cudaStream_t s, int device, int* report) {
   a.tiles = a.tiles_w * a.tiles_h * B;
   const size_t smem = smem_bytes(a, COUT_P, MI);
   if (report != nullptr) {
-    fill(report, COUT_P, MI, WARPS * MI, TW, smem);
+    fill(report, {kMmaSync, COUT_P, MI, WARPS * MI, TW, (int)smem, 0, 2});
     return cudaSuccess;
   }
   auto* k = conv_tc<COUT_P, MI>;
@@ -348,6 +383,522 @@ int run(const Args& a, int cout_p, int B, cudaStream_t s, int device, int* repor
 }
 
 }  // namespace tc
+
+// ---- bf16, Cin / 8 a power of two: wgmma on TMA halo tiles ----------------
+
+namespace wg {
+
+constexpr int TW = 14;       // output columns of a tile
+constexpr int HWD = TW + 2;  // halo columns: one line of 16 A rows
+constexpr int WARPGROUPS = WARPS / 4;
+
+// The smem plan of one launch, byte offsets from the block's 1024-aligned
+// base: [warpgroup][stage][c8][box] halo | [warpgroup][obox][obox_bytes]
+// output staging | weights | one mbarrier per warpgroup and stage.
+struct Plan {
+  int mi = 0, stages = 0;
+  int box_bytes = 0, stage_bytes = 0;        // one 8-channel box; a stage of c8 boxes
+  int olg = 0, obox = 0, obox_bytes = 0;     // output boxes (0: each lane stores its values)
+  int off_out = 0, off_w = 0, off_bar = 0;
+  size_t smem = 0;
+};
+
+struct Args {
+  const uint4* w;  // [nsp][Cout_p][8] bf16
+  const float* bias;
+  __nv_bfloat16* y;
+  int Ho, Wo, Cout;
+  int c8, nsp;  // 16-byte channel groups of a pixel (Cin / 8); K slices, 9 * c8 made even
+  int tiles_w, tiles_h, tiles;
+  Plan p;
+};
+
+// Wgmma<N>::run(d, da, db): one wgmma.mma_async.m64nNk16, bf16 in, the f32
+// sums accumulated in d; A (64 x 16) and B (16 x N) read from shared memory
+// through the descriptors da and db, both K-major.
+template <int N> struct Wgmma;
+template <> struct Wgmma<8> {
+  __device__ static void run(float (&d)[4], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "%4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <> struct Wgmma<16> {
+  __device__ static void run(float (&d)[8], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <> struct Wgmma<32> {
+  __device__ static void run(float (&d)[16], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <> struct Wgmma<64> {
+  __device__ static void run(float (&d)[32], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <> struct Wgmma<128> {
+  __device__ static void run(float (&d)[64], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accesses of `v` across a wgmma fence or wait.
+template <int N> __device__ __forceinline__ void fence_operands(float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(v[i])::"memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// Spins until the phase of parity `parity` completes. A copy that never
+// lands traps the kernel after 2^26 tries (the launch then fails with an
+// error) rather than hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) asm volatile("trap;");
+  }
+}
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma's B, a TMA store's source).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2,
+                                          int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// Waits until no TMA store of this thread still reads shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+
+// A wgmma matrix descriptor without swizzle (K-major core matrices of 8 rows
+// x 16 bytes): start address, leading byte offset (between the two k halves)
+// and stride byte offset (between groups of 8 rows), each in 16-byte units.
+__host__ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+// The 16-byte chunk `c` of pixel `p` in a TMA box whose pixel stride is
+// 16 << lg bytes and whose swizzle span is that stride (lg = 0: none): TMA's
+// 32/64/128-byte swizzle XORs the chunk index with bits 7.. of the offset.
+__device__ __forceinline__ uint32_t swizzled(int p, int c, int lg) {
+  return (static_cast<uint32_t>(p) << (4 + lg)) + ((c ^ ((p >> (3 - lg)) & ((1 << lg) - 1))) << 4);
+}
+
+// Each warpgroup walks its own tiles, half a tile behind the other, so
+// one's epilogue overlaps the other's wgmma: tile rows 4*MI, MI wgmma blocks of
+// 64 A rows, each 4 halo lines of 16 pixels (14 outputs, 2 discarded). Warp
+// w % 4 holds the sums of line 4i + w % 4 of block i. The warpgroup's
+// thread 0 issues its TMA copies.
+template <int COUT_P, int MI>
+__global__ void __launch_bounds__(THREADS, 2) conv_wg(const __grid_constant__ CUtensorMap xmap,
+                                                      const __grid_constant__ CUtensorMap ymap,
+                                                      const Args a) {
+  constexpr int TH = 4 * MI;
+  constexpr int NA = COUT_P / 2;  // accumulators of one m64 x Cout_p block per thread
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const Plan p = a.p;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gen = smem_raw + (base - raw);  // the same bytes, generic address
+  uint4* sw = reinterpret_cast<uint4*>(gen + p.off_w);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0), wq = warp & 3;  // wg: warp-uniform
+  const bool lead = (tid & 127) == 0;
+  const uint32_t halo = base + wg * p.stages * p.stage_bytes;
+  const uint32_t outs = base + p.off_out + wg * p.obox * p.obox_bytes;
+  const uint32_t bar0 = base + p.off_bar + 8 * p.stages * wg;
+  const int slot = 2 * blockIdx.x + wg, stride = 2 * gridDim.x;
+
+  auto load_tile = [&](int t, int st) {  // the warpgroup's thread 0
+    const int tw = t % a.tiles_w, r = t / a.tiles_w, th = r % a.tiles_h, b = r / a.tiles_h;
+    const uint32_t bar = bar0 + 8 * st;
+    mbar_expect_tx(bar, p.stage_bytes);
+    for (int c = 0; c < a.c8; ++c)
+      tma_load(halo + st * p.stage_bytes + c * p.box_bytes, &xmap, bar, 8 * c, tw * TW, th * TH, b);
+  };
+  auto wg_sync = [&] { asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory"); };
+
+  if (lead) {
+    for (int s = 0; s < p.stages; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Weights: a straight copy of the packed image (slice j = tap * c8 + c is
+  // channel group c of tap (dy, dx)).
+  for (int i = tid; i < a.nsp * COUT_P; i += THREADS) rn::cp_async16(sw + i, a.w + i, true);
+  rn::cp_async_commit();
+  __syncthreads();  // the barriers are initialised before any TMA signals them
+  if (lead)
+    for (int s = 0; s < p.stages; ++s)
+      if (slot + s * stride < a.tiles) load_tile(slot + s * stride, s);
+  rn::cp_async_wait<0>();
+  fence_proxy_async();  // cp.async wrote the weights that wgmma reads
+  __syncthreads();
+
+  // B: slice 2s at 2s * Cout_p * 16 bytes, the k halves Cout_p * 16 apart,
+  // groups of 8 output channels 128 apart.
+  const uint64_t b0 = desc(base + p.off_w, COUT_P * 16, 128);
+  const int g = lane >> 2, q = (lane & 3) * 2;
+  const int steps = a.nsp / 2, lc = 31 - __clz(a.c8), box16 = p.box_bytes >> 4;  // c8 = 1 << lc (`takes`)
+
+  int t = slot;
+  if (wg == 1 && t < a.tiles) asm volatile("bar.sync 3, 256;\n" ::: "memory");
+  for (int it = 0; t < a.tiles; ++it, t += stride) {
+    const int st = it % p.stages;
+    mbar_wait(bar0 + 8 * st, (it / p.stages) & 1);
+    // A of block i, k16 step (tap, c): the 64 halo pixels from line 4i
+    // shifted by the tap (dy * 16 + dx pixels, 16 bytes each) in chunk box
+    // c, the second k half one box on (leading offset box_bytes), groups of 8
+    // pixels 128 bytes apart. B of slices j, j + 1: j * Cout_p * 16 bytes on.
+    // Where Cin = 8 a step's k halves are taps 2s and 2s + 1 (the padding
+    // slice reads tap 8 again against zero weights): the leading offset is
+    // the taps' distance.
+    uint64_t a0[MI];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+      a0[i] = desc(halo + st * p.stage_bytes + i * 64 * 16, a.c8 == 1 ? 0 : p.box_bytes, 128);
+
+    float acc[MI][NA];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+#pragma unroll
+      for (int n = 0; n < NA; ++n) acc[i][n] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i) fence_operands(acc[i]);
+    // One loop, no branch and nothing that touches the accumulators between
+    // the fence and the commit: either makes ptxas serialize the wgmmas
+    // (its info C7515).
+    wgmma_fence();
+    for (int s = 0; s < steps; ++s) {
+      const int j = 2 * s, tap = j >> lc, c = j & (a.c8 - 1), t1 = tap + 1;
+      const int toff = (tap / 3) * HWD + tap % 3;
+      const int lbo = a.c8 == 1 && t1 < 9 ? (t1 / 3) * HWD + t1 % 3 - toff : 0;  // Cin = 8: the next tap
+      const uint64_t da = (uint64_t)(toff + c * box16) | ((uint64_t)lbo << 16);
+      const uint64_t db = b0 + (uint64_t)(j * COUT_P);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) Wgmma<COUT_P>::run(acc[i], a0[i] + da, db);
+    }
+    wgmma_commit();
+    // Once: warpgroup 1 starts its first tile after warpgroup 0 has issued
+    // its first, so that, with equal work per tile, their epilogues keep
+    // falling in each other's wgmmas.
+    if (it == 0 && wg == 0 && slot + 1 < a.tiles) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+    wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < MI; ++i) fence_operands(acc[i]);
+
+    // The warpgroup is done with stage st, and its last TMA store has read
+    // the staging tile: refill st, then stage this tile's output.
+    if (lead) bulk_wait_read();
+    wg_sync();
+    const int tw = t % a.tiles_w, r = t / a.tiles_w, th = r % a.tiles_h, b = r / a.tiles_h;
+    const int tn = t + p.stages * stride;
+    if (lead && tn < a.tiles) load_tile(tn, st);
+
+    // C fragment of block i, n8 block n: (A row g, channels 8n+q, +1) in
+    // acc[i][4n], [4n+1], (row g + 8, the same) in [4n+2], [4n+3]; A row
+    // g + 8hh of warp wq is column g + 8hh of tile row 4i + wq.
+    if (p.obox > 0) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int col = g + hh * 8;
+          if (col >= TW) continue;
+          const int pix = (4 * i + wq) * TW + col;
+#pragma unroll
+          for (int n = 0; n < COUT_P / 8; ++n) {
+            const int co = n * 8 + q;
+            if (n * 8 >= a.Cout) continue;
+            float v0 = acc[i][4 * n + 2 * hh], v1 = acc[i][4 * n + 2 * hh + 1];
+            if (a.bias != nullptr) v0 = __fadd_rn(v0, a.bias[co]), v1 = __fadd_rn(v1, a.bias[co + 1]);
+            const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+            const uint32_t addr = outs + (n >> p.olg) * p.obox_bytes +
+                                  swizzled(pix, n & ((1 << p.olg) - 1), p.olg) + q * 2;
+            st_shared(addr, *reinterpret_cast<const uint32_t*>(&v));
+          }
+        }
+      }
+      fence_proxy_async();  // the staging tile is read by TMA
+      wg_sync();
+      if (lead) {
+        for (int ob = 0; ob < p.obox; ++ob)
+          tma_store(&ymap, outs + ob * p.obox_bytes, ob << (3 + p.olg), tw * TW, th * TH, b);
+        bulk_commit();
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int oh = th * TH + 4 * i + wq;
+        if (oh >= a.Ho) continue;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int col = g + hh * 8, ow = tw * TW + col;
+          if (col >= TW || ow >= a.Wo) continue;
+          __nv_bfloat16* yp = a.y + (((size_t)b * a.Ho + oh) * a.Wo + ow) * a.Cout;
+#pragma unroll
+          for (int n = 0; n < COUT_P / 8; ++n) {
+            const int co = n * 8 + q;
+            float v0 = acc[i][4 * n + 2 * hh], v1 = acc[i][4 * n + 2 * hh + 1];
+            if (a.bias != nullptr) {
+              if (co < a.Cout) v0 = __fadd_rn(v0, a.bias[co]);
+              if (co + 1 < a.Cout) v1 = __fadd_rn(v1, a.bias[co + 1]);
+            }
+            store2(yp, co, a.Cout, v0, v1);
+          }
+        }
+      }
+    }
+  }
+  if (lead) bulk_wait();  // the last stores have left shared memory
+}
+
+int up(int v, int m) { return (v + m - 1) / m * m; }
+
+// log2 of the largest of 1, 2, 4, 8 that divides n.
+int lg_chunks(int n) { return n % 8 == 0 ? 3 : n % 4 == 0 ? 2 : n % 2 == 0 ? 1 : 0; }
+
+Plan layout(const Args& a, int cout_p, int mi, int stages) {
+  Plan p;
+  const int th = 4 * mi;
+  p.mi = mi, p.stages = stages;
+  p.box_bytes = (th + 2) * HWD * 16;  // a multiple of 128 bytes
+  p.stage_bytes = a.c8 * p.box_bytes;
+  if (a.Cout % 8 == 0) {
+    p.olg = lg_chunks(a.Cout / 8);
+    p.obox = (a.Cout / 8) >> p.olg;
+    p.obox_bytes = up(th * TW * (16 << p.olg), 1024);  // 1024-aligned: the 128-byte swizzle's period
+  }
+  p.off_out = up(WARPGROUPS * stages * p.stage_bytes, 1024);
+  p.off_w = p.off_out + WARPGROUPS * p.obox * p.obox_bytes;
+  p.off_bar = p.off_w + a.nsp * cout_p * 16;
+  p.smem = 1024 + p.off_bar + 8 * WARPGROUPS * stages;  // 1024: room to align the base
+  return p;
+}
+
+// Rows per warp and stages for the packed Cout_p: the most rows the
+// accumulators allow (64 per thread), then 3 stages before 2, whose shared
+// memory still lets two blocks share an SM, else the first that fits at all
+// (mi 0 if none does).
+Plan plan(const Args& a, int cout_p) {
+  const int mi_max = cout_p >= 128 ? 1 : (cout_p >= 64 ? 2 : 4);
+  for (size_t limit : {(size_t)MAX_SMEM / 2 - 1024, (size_t)MAX_SMEM})
+    for (int m = mi_max; m >= 1; m /= 2)
+      for (int stages = 3; stages >= 2; --stages) {
+        const Plan p = layout(a, cout_p, m, stages);
+        if (p.smem <= limit) return p;
+      }
+  return Plan{};
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found once through the runtime's entry
+// point query (the library links the runtime alone).
+int encoder(EncodeTiled* out) {
+  static EncodeTiled fn = nullptr;
+  static const int err = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+    if (e == cudaSuccess && (q != cudaDriverEntryPointSuccess || f == nullptr))
+      e = cudaErrorSymbolNotFound;
+    fn = reinterpret_cast<EncodeTiled>(f);
+    return static_cast<int>(e);
+  }();
+  *out = fn;
+  return err;
+}
+
+CUtensorMapSwizzle swizzle(int lg) {
+  switch (lg) {
+    case 1: return CU_TENSOR_MAP_SWIZZLE_32B;
+    case 2: return CU_TENSOR_MAP_SWIZZLE_64B;
+    case 3: return CU_TENSOR_MAP_SWIZZLE_128B;
+    default: return CU_TENSOR_MAP_SWIZZLE_NONE;
+  }
+}
+
+// A 4-D map over an NHWC bf16 tensor (C, W, H, B innermost first) whose box
+// is (8 << lg) channels x bw x bh x 1, swizzled by its pixel stride. Made for
+// every launch: it holds the tensor's pointer. Returns 0 or
+// rn::kCuResult + the CUresult.
+int encode(CUtensorMap* m, const void* ptr, int B, int H, int W, int C, int lg, int bw, int bh,
+           CUtensorMapL2promotion l2) {
+  EncodeTiled fn;
+  const int e = encoder(&fn);
+  if (e != 0) return e;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2, (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)(8 << lg), (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle(lg), l2,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : rn::kCuResult + static_cast<int>(r);
+}
+
+template <int COUT_P, int MI>
+int launch(Args a, const void* x, int B, int H, int W, int Cin, cudaStream_t s, int device, int* report) {
+  const Plan& p = a.p;
+  constexpr int TH = 4 * MI;
+  if (report != nullptr) {
+    fill(report, {kWgmma, COUT_P, MI, TH, TW, (int)p.smem, WARPGROUPS, p.stages, p.obox > 0,
+                  p.obox > 0 && p.olg ? 16 << p.olg : 0});
+    return cudaSuccess;
+  }
+  CUtensorMap xmap{}, ymap{};
+  int e = encode(&xmap, x, B, H, W, Cin, 0, HWD, TH + 2, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+  if (e == 0 && p.obox > 0)
+    e = encode(&ymap, a.y, B, a.Ho, a.Wo, a.Cout, p.olg, TW, TH, CU_TENSOR_MAP_L2_PROMOTION_NONE);
+  if (e != 0) return e;
+  auto* k = conv_wg<COUT_P, MI>;
+  Fit f;
+  const cudaError_t fe = fit(reinterpret_cast<const void*>(k), device, MAX_SMEM, p.smem, f);
+  if (fe != cudaSuccess) return fe;
+  const int resident = (f.per_sm > 0 ? f.per_sm : 1) * f.sms, blocks = (a.tiles + 1) / 2;
+  k<<<blocks < resident ? blocks : resident, THREADS, p.smem, s>>>(xmap, ymap, a);
+  return cudaGetLastError();
+}
+
+template <int COUT_P>
+int launch_mi(Args& a, const void* x, int B, int H, int W, int Cin, cudaStream_t s, int device,
+              int* report) {
+  a.tiles_w = (a.Wo + TW - 1) / TW;
+  a.tiles_h = (a.Ho + 4 * a.p.mi - 1) / (4 * a.p.mi);
+  a.tiles = a.tiles_w * a.tiles_h * B;
+  if constexpr (COUT_P <= 32) {
+    if (a.p.mi == 4) return launch<COUT_P, 4>(a, x, B, H, W, Cin, s, device, report);
+  }
+  if constexpr (COUT_P <= 64) {
+    if (a.p.mi == 2) return launch<COUT_P, 2>(a, x, B, H, W, Cin, s, device, report);
+  }
+  return launch<COUT_P, 1>(a, x, B, H, W, Cin, s, device, report);
+}
+
+// Takes Cin / 8 a power of two: a k16 step's two slices lie in one tap (or
+// are the two taps of Cin = 8), and the step loop finds the tap by a shift.
+// A multiply by ceil(2^16 / c8) there, which would take Cin 48, 96 and 112
+// too, made the main-path sites 7% slower in all on an H100.
+bool takes(int Cin) { return Cin % 8 == 0 && ((Cin / 8) & (Cin / 8 - 1)) == 0; }
+
+int run(const void* x, const void* w, const void* bias, void* y, int B, int H, int W, int Cin, int Cout,
+        int cout_p, cudaStream_t s, int device, int* report) {
+  if (Cout > cout_p) return cudaErrorInvalidValue;
+  Args a;
+  a.w = static_cast<const uint4*>(w);
+  a.bias = static_cast<const float*>(bias);
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.Ho = H - 2, a.Wo = W - 2, a.Cout = Cout;
+  a.c8 = Cin / 8;
+  a.nsp = (9 * a.c8 + 1) / 2 * 2;
+  a.p = plan(a, cout_p);
+  if (a.p.mi == 0) return cudaErrorInvalidConfiguration;
+  switch (cout_p) {
+    case 8: return launch_mi<8>(a, x, B, H, W, Cin, s, device, report);
+    case 16: return launch_mi<16>(a, x, B, H, W, Cin, s, device, report);
+    case 32: return launch_mi<32>(a, x, B, H, W, Cin, s, device, report);
+    case 64: return launch_mi<64>(a, x, B, H, W, Cin, s, device, report);
+    case 128: return launch_mi<128>(a, x, B, H, W, Cin, s, device, report);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace wg
 
 // ---- f32: full f32 on CUDA cores --------------------------------------------
 
@@ -495,7 +1046,7 @@ template <int NT, int WC>
 int launch(Args a, int B, cudaStream_t s, int device, int* report) {
   using L = Tile<NT, WC>;
   if (report != nullptr) {
-    fill(report, NT, WC, L::TH, L::TW, L::SMEM);
+    fill(report, {kF32, NT, WC, L::TH, L::TW, (int)L::SMEM, 0, 2});
     return cudaSuccess;
   }
   auto* k = conv_f32<NT, WC>;
@@ -533,8 +1084,10 @@ int run(const Args& a, int nt, int B, cudaStream_t s, int device, int* report) {
 
 int dispatch(const void* x, const void* w, const void* bias, void* y, int B, int H, int W,
              int Cin, int Cout, int cp, int dtype, int device, cudaStream_t s, int* report) {
-  if (dtype == rn::kBF16)
+  if (dtype == rn::kBF16) {
+    if (wg::takes(Cin)) return wg::run(x, w, bias, y, B, H, W, Cin, Cout, cp, s, device, report);
     return tc::run(tc::make_args(x, w, bias, y, H, W, Cin, Cout), cp, B, s, device, report);
+  }
   return cc::run(cc::make_args(x, w, bias, y, H, W, Cin, Cout), cp, B, s, device, report);
 }
 
@@ -544,6 +1097,8 @@ int dispatch(const void* x, const void* w, const void* bias, void* y, int B, int
 // ops/kernels/conv3x3.py (pack_bf16 or pack_f32, by dtype) and cp their
 // Cout_p (bf16, w's dim 1) or NT (f32, w's last dim); bias (Cout,) f32 or
 // null; y (B,H-2,W-2,Cout) in the io dtype. All contiguous, 16-byte aligned.
+// bf16 with Cin / 8 a power of two takes the wgmma + TMA path, other bf16 mma.sync,
+// f32 the CUDA cores.
 extern "C" int rn_conv3x3(const void* x, const void* w, const void* bias, void* y, int B, int H,
                           int W, int Cin, int Cout, int cp, int dtype, int device, void* stream) {
   rn::DeviceGuard guard(device);
@@ -553,7 +1108,7 @@ extern "C" int rn_conv3x3(const void* x, const void* w, const void* bias, void* 
 }
 
 // The variant rn_conv3x3 launches for one shape (the same dispatch, stopped
-// before the launch), for reports: out[5] as `fill` lays it out; every
+// before the launch), for reports: out[REPORT] as `fill` lays it out; every
 // variant runs 256 threads. Returns 0, or the error rn_conv3x3 would return.
 extern "C" int rn_conv3x3_variant(int H, int W, int Cin, int Cout, int cp, int dtype, int* out) {
   return dispatch(nullptr, nullptr, nullptr, nullptr, 1, H, W, Cin, Cout, cp, dtype, -1, nullptr,

@@ -1,10 +1,14 @@
 """3x3 VALID conv, NHWC x HWIO -> NHWC, f32 accumulation: csrc/conv3x3.cu.
 
 Replaces roomnet_tpu/ops/pallas/conv_b2.py:conv3x3_pallas. The kernel is an
-implicit GEMM over a shared-memory halo tile (see the source's header): in
-bf16 on tensor cores (mma.sync), in f32 on CUDA cores in full f32. The
-optional f32 bias carries the uint8 preprocess folded into conv 0
-(models/roomnet.py:_fold_preprocess_into_first_conv).
+implicit GEMM over a shared-memory halo tile (see the source's header). The
+path is chosen by shape alone: bf16 with Cin / 8 a power of two runs
+Hopper's wgmma, both operands read from shared memory (the resident
+weights and the shifted halo that TMA loads), with TMA stores of the
+output; other bf16 (conv 0's 3 channels, Cin 48) runs mma.sync on a halo of element
+loads; f32 runs in full f32 on CUDA cores. `variant` reports which path and
+tile a shape takes. The optional f32 bias carries the uint8 preprocess
+folded into conv 0 (models/roomnet.py:_fold_preprocess_into_first_conv).
 
 The kernel reads its weights in a packed layout, made here from the HWIO
 kernel by `pack_bf16` / `pack_f32` once per kernel tensor and cached beside
@@ -13,7 +17,10 @@ it:
   * bf16: [slice][Cout_p][8], slice j = tap * c8 + c the channels 8c..8c+7
     of tap (dy, dx) = divmod(tap, 3), c8 = ceil(Cin / 8), the slice count
     padded to even, Cout padded to Cout_p in COUT_STEPS. It is the
-    shared-memory image the kernel copies as it is.
+    shared-memory image the kernel copies as it is, and wgmma's K-major
+    layout without swizzle for its B operand: core matrices of 8 output
+    channels x 16 bytes, the two slices of a k16 step Cout_p * 16 bytes
+    apart, groups of 8 channels 128.
   * f32: [Cout tile][chunk][tap][4][NT], chunk c the channels 4c..4c+3, NT =
     min(64, Cout_p) output channels per block.
 
@@ -45,6 +52,10 @@ I = ctypes.c_int
 _ARGS = [P, P, P, P, I, I, I, I, I, I, I, I, P]
 COUT_STEPS = (8, 16, 32, 64, 128)
 F32_NT = 64  # output channels of one f32 block
+# rn_conv3x3_variant's report, in order (csrc/conv3x3.cu:fill).
+VARIANT_FIELDS = ("path", "cp", "sub", "rows", "cols", "smem", "warpgroups", "stages", "tma_store",
+                  "out_swizzle")
+PATHS = ("f32 CUDA cores", "mma.sync", "wgmma+TMA")
 
 _packed = WeakIdKeyDictionary()  # kernel tensor -> (version, dtype, packed)
 
@@ -136,6 +147,21 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = N
 
 
 conv3x3.launches = 0
+
+
+def variant(shape: tuple, cout: int, dtype: torch.dtype) -> dict:
+    """What the kernel launches for x of `shape` (B,H,W,Cin) and `cout`
+    output channels in `dtype` (csrc/conv3x3.cu:rn_conv3x3_variant, which
+    builds the library but launches nothing): VARIANT_FIELDS by name, `path`
+    one of PATHS. Raises on a shape the kernel refuses."""
+    _, H, W, cin = shape
+    cp = cout_padded(cout) if dtype == torch.bfloat16 else min(F32_NT, cout_padded(cout))
+    out = (ctypes.c_int * len(VARIANT_FIELDS))()
+    fn = _build.entry("conv3x3", "rn_conv3x3_variant", [I] * 6 + [P])
+    _build.check("conv3x3", "rn_conv3x3_variant", fn(H, W, cin, cout, cp, int(dtype == torch.bfloat16), out))
+    got = dict(zip(VARIANT_FIELDS, out))
+    got["path"] = PATHS[got["path"]]
+    return got
 
 
 class _Conv3x3(torch.autograd.Function):

@@ -45,6 +45,7 @@ from roomnet_tpu_torch.ops.kernels.residual import residual_bn, residual_bn_plai
 from roomnet_tpu_torch.params.schema import load_npz
 # Imported by its own name (pytest puts tests/ on sys.path): on a machine with
 # another `tests` package installed, `tests.torch_port_util` would not resolve.
+import torch_port_util as U
 from torch_port_util import (cuda_device, img_bytes, outputs, post, random_bn,  # noqa: F401
                              tiny_classifier, torch_tree, wrapper_cases)
 
@@ -179,6 +180,83 @@ def test_cuda_conv3x3_entry_refuses_a_layout_it_does_not_know(cuda_device, dtype
     rc = fn(x.data_ptr(), packed.data_ptr(), None, y.data_ptr(), 1, 5, 5, 8, 16, cp,
             int(dtype == torch.bfloat16), x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     assert rc != 0
+
+
+# The bf16 wgmma + TMA path (csrc/conv3x3.cu, namespace wg), held against
+# conv3x3_plain within one bf16 ulp at every main-path shape it takes, many
+# tiles per warpgroup, ragged edges, every (Cin, Cout) it takes, the TP
+# slice of block 4; its plan against the twin in tests/torch_port_util.py.
+def _bf16_conv_case(device, batch, h, w, cin, cout, seed, with_bias=False):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(batch, h, w, cin).astype(np.float32)).to(device, torch.bfloat16)
+    k = torch.from_numpy((rng.randn(3, 3, cin, cout) / np.sqrt(9 * cin)).astype(np.float32))
+    bias = torch.from_numpy(rng.randn(cout).astype(np.float32)).to(device) if with_bias else None
+    return x, k.to(device, torch.bfloat16), bias
+
+
+def _assert_bf16_conv(x, k, bias):
+    got, want = conv3x3(x, k, bias), conv3x3_plain(x, k, bias)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_ULP, atol=BF16_ULP * 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", range(1, len(U.CONV_SITES)))
+@pytest.mark.parametrize("batch", [1, 3, 256, 640])
+def test_cuda_conv3x3_wgmma_main_path_shapes(cuda_device, site, batch):
+    h, cin, cout = U.CONV_SITES[site]
+    assert KC.variant((batch, h, h, cin), cout, torch.bfloat16)["path"] == "wgmma+TMA"
+    _assert_bf16_conv(*_bf16_conv_case(cuda_device, batch, h, h, cin, cout, seed=site + batch))
+    torch.cuda.empty_cache()  # up to 6 GB at batch 640: hand it back before later tests spawn ranks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [8, 16, 32, 64, 128, 48, 96])
+@pytest.mark.parametrize("cout", [6, 8, 12, 16, 32, 36, 64, 128])
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+def test_cuda_conv3x3_wgmma_channels_and_ragged_edges(cuda_device, cin, cout, with_bias):
+    """Every (Cin, Cout) the path takes, at ragged heights and widths (tiles
+    of 4 * rows-per-warp rows and 14 columns cut at the edge), Cout not a
+    multiple of 8 (each lane stores its values); Cin 48 and 96 (Cin / 8 no
+    power of two) take mma.sync and are held to the same bound; Cin 128
+    with Cout 64 or 128 and Cin 96 with Cout 128 are refused (the weights
+    and halo outgrow shared memory)."""
+    if (cin == 128 and cout > 32) or (cin == 96 and cout > 64):
+        with pytest.raises(RuntimeError, match="invalid configuration"):
+            KC.variant((1, 8, 8, cin), cout, torch.bfloat16)
+        return
+    want = "wgmma+TMA" if U.wg_takes(cin) else "mma.sync"
+    assert KC.variant((1, 8, 8, cin), cout, torch.bfloat16)["path"] == want
+    for batch, h, w in ((2, 23, 31), (1, 9, 45), (3, 30, 16)):
+        _assert_bf16_conv(*_bf16_conv_case(cuda_device, batch, h, w, cin, cout, seed=cin + cout + h,
+                                           with_bias=with_bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [3, 256])
+def test_cuda_conv3x3_wgmma_tensor_parallel_slice(cuda_device, batch):
+    """Block 4's conv column-sharded over a 'model' axis of 2: 48^2 x 64 -> 64."""
+    _assert_bf16_conv(*_bf16_conv_case(cuda_device, batch, 48, 48, 64, 64, seed=batch))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", range(len(U.CONV_SITES)))
+def test_cuda_conv3x3_dispatch_by_shape(cuda_device, site):
+    """Cin = 3 takes mma.sync, Cin 8 and multiples of 16 wgmma + TMA with the
+    twin's plan (rows per warp, stages, tile, shared memory, the output's
+    stores)."""
+    h, cin, cout = U.CONV_SITES[site]
+    v = KC.variant((256, h, h, cin), cout, torch.bfloat16)
+    if not U.wg_takes(cin):
+        assert v["path"] == "mma.sync"
+        return
+    p = U.wg_plan(cin, cout)
+    assert v["path"] == "wgmma+TMA" and v["warpgroups"] == U.WG_GROUPS
+    assert (v["sub"], v["stages"], v["rows"], v["cols"], v["smem"]) == (p["mi"], p["stages"], p["th"], U.WG_TW,
+                                                                          p["smem"])
+    assert v["tma_store"] == (p["obox"] > 0)
+    assert KC.variant((256, h, h, cin), cout, torch.float32)["path"] == "f32 CUDA cores"
 
 
 @pytest.mark.cuda

@@ -34,6 +34,7 @@ from roomnet_tpu_torch.ops.kernels.pool import relu6_pool_bn_plain
 from roomnet_tpu_torch.ops.kernels.residual import residual_bn_plain, source_pairs
 from roomnet_tpu_torch.ops.resize import interp_matrix_tf1
 from tests.conftest import ARTIFACTS
+from tests import torch_port_util as U
 from tests.torch_port_util import outputs, random_bn, torch_tree, wrapper_cases
 
 BF16_ULP = 2.0 ** -7
@@ -191,6 +192,151 @@ def test_conv3x3_packed_kernel_is_cached_per_tensor_and_version():
 def test_conv3x3_refuses_cout_past_128():
     with pytest.raises(ValueError, match="not supported"):
         KC.cout_padded(129)
+
+
+# -- conv3x3's wgmma + TMA path, replayed by its twin (tests/torch_port_util.py)
+
+# (Cin, Cout) of the main path's convs with Cin % 8 == 0 (sites 1-9), and
+# Cout 8 and 16 at other Cin.
+WG_PAIRS = sorted({(ci, co) for _, ci, co in U.CONV_SITES[1:]} | {(8, 8), (64, 8), (32, 16), (128, 8)})
+# Every Cin up to 128 that the path takes.
+WG_CINS = [cin for cin in range(8, 129, 8) if U.wg_takes(cin)]
+
+
+@pytest.mark.parametrize("cin,cout", WG_PAIRS)
+def test_conv3x3_wgmma_b_descriptor_reads_the_hwio_kernel(cin, cout):
+    """Every k16 step's B element (k, n), read from pack_bf16's bytes at the
+    descriptor's canonical K-major offsets, is the HWIO kernel's weight of
+    slice 2s + k // 8 (zero in the padding slice and past Cout)."""
+    _, k = _conv_operands(cin, cout, torch.bfloat16, seed=50 + cin + cout)
+    packed = KC.pack_bf16(k)
+    cout_p, c8 = packed.shape[1], cin // 8
+    desc = U.wg_b_descriptor(cout_p)
+    # The descriptor's fields fit their bits: 14 bits of 16-byte units each.
+    assert desc["lbo"] % 16 == 0 and desc["lbo"] >> 4 < 1 << 14 and desc["sbo"] >> 4 < 1 << 14
+    raw = packed.view(torch.int16).numpy().view(np.uint8).reshape(-1)
+    kk, nn = np.meshgrid(np.arange(16), np.arange(cout_p), indexing="ij")
+    hwio = k.float().reshape(9, cin, cout)
+    for s in range(packed.shape[0] // 2):
+        off = U.wg_b_offset(desc, s, kk, nn)
+        got = torch.from_numpy((raw[off] | (raw[off + 1].astype(np.uint16) << 8)).astype(np.int16))
+        got = got.view(torch.bfloat16).float()
+        want = torch.zeros((16, cout_p))
+        for half in (0, 1):
+            j = 2 * s + half
+            if j < 9 * c8:
+                tap, c = divmod(j, c8)
+                want[8 * half:8 * half + 8, :cout] = hwio[tap, 8 * c:8 * c + 8]
+        assert torch.equal(got, want), f"k16 step {s}"
+
+
+@pytest.mark.parametrize("cin", WG_CINS)
+def test_conv3x3_wgmma_a_descriptor_reads_the_shifted_halo(cin):
+    """Each k16 step's A descriptor, over a stage of 8-channel TMA boxes,
+    gives row m of block i the 16 channels of slices 2s, 2s + 1 at halo
+    pixel 64i + m shifted by each slice's tap (zeros against the padding
+    slice's weights): tagged pixels read back at the descriptor's offsets."""
+    p = U.wg_plan(cin, 16)
+    th, c8 = p["th"], p["c8"]
+    npix = (th + 2) * U.WG_HWD
+    # Tag every (pixel, channel) where the TMA box of its 8-channel group put it.
+    stage = np.full(p["stage_bytes"] // 2 + 32, -1, np.int64)
+    pix, ch = np.meshgrid(np.arange(npix), np.arange(8 * c8), indexing="ij")
+    stage[(ch // 8) * (p["box_bytes"] // 2) + pix * 8 + ch % 8] = pix * 1000 + ch
+    rows, ks = np.meshgrid(np.arange(64), np.arange(16), indexing="ij")
+    for s in range(p["nsp"] // 2):
+        d = U.wg_a_descriptor(p, s)
+        assert d["lbo"] % 16 == 0 and d["lbo"] >> 4 < 1 << 14 and d["start"] % 16 == 0
+        for blk in range(p["mi"]):
+            got = stage[U.desc_offset({**d, "start": d["start"] + blk * 64 * 16}, rows, ks) // 2]
+            for half in (0, 1):
+                j = 2 * s + half
+                if j >= 9 * c8:
+                    continue  # zero weights: what it reads is never summed
+                tap, c = divmod(j, c8)
+                dy, dx = divmod(tap, 3)
+                row_pix = blk * 64 + rows[:, :8] + dy * U.WG_HWD + dx
+                want = row_pix * 1000 + 8 * c + ks[:, :8]
+                # Rows of the 2 discarded columns may read past the halo.
+                keep = (rows[:, :8] + blk * 64) % U.WG_HWD < U.WG_TW
+                assert np.array_equal(got[:, 8 * half:8 * half + 8][keep], want[keep]), f"step {s}"
+
+
+@pytest.mark.parametrize("cin", [24, 48, 96, 112])
+def test_conv3x3_wgmma_leaves_cin_whose_tap_a_shift_misses(cin):
+    """Cin / 8 no power of two goes to mma.sync: at such Cin the kernel's
+    shift and mask (the twin's A descriptor) name another tap than slice
+    j's, which the halo test above would read as wrong pixels."""
+    assert not U.wg_takes(cin)
+    c8 = cin // 8
+    lc = c8.bit_length() - 1
+    assert any((j >> lc, j & (c8 - 1)) != divmod(j, c8) for j in range(0, 9 * c8, 2))
+
+
+@pytest.mark.parametrize("cout", [8, 16, 32, 64, 128, 24])
+def test_conv3x3_wgmma_staged_output_is_what_the_tma_store_reads(cout):
+    """The epilogue's swizzled staging offset of every (pixel, channel pair)
+    is where the TMA store's swizzled box reads it, and each 8-lane phase of
+    the staging stores hits 8 distinct 16-byte bank groups."""
+    p = U.wg_plan(16, cout)
+    olg, span = p["olg"], 16 << p["olg"]
+    for pix in range(p["th"] * U.WG_TW):
+        for ch in range(0, cout, 2):
+            n, e = divmod(ch, 8)
+            wrote = U.wg_swizzled(pix, n & ((1 << olg) - 1), olg) + 2 * e
+            assert wrote == U.tma_swizzle(pix * span + 16 * (n & ((1 << olg) - 1)) + 2 * e, span)
+    for row in range(p["th"]):
+        for col in (0, 8):  # lanes g = 0..7 of one q: columns col + g of one row
+            for n in range(cout // 8):
+                pixels = [row * U.WG_TW + col + g for g in range(8) if col + g < U.WG_TW]
+                groups = {(U.wg_swizzled(x, n & ((1 << olg) - 1), olg) >> 4) & 7 for x in pixels}
+                assert len(groups) == len(pixels)
+
+
+@pytest.mark.parametrize("site", range(1, len(U.CONV_SITES)))
+@pytest.mark.parametrize("batch,ragged", [(1, 0), (3, 0), (3, 5)])
+def test_conv3x3_wgmma_tile_walk_covers_each_output_once(site, batch, ragged):
+    """The persistent warpgroups' walk (t = 2 * block + g, then on by twice
+    the grid) over the tiles covers every output pixel once (the TMA store's
+    box clipped at the edge), and each tile's halo arrives in the
+    warpgroup's stage it waits on with the parity of that stage's completed
+    loads."""
+    h, cin, cout = U.CONV_SITES[site]
+    p = U.wg_plan(cin, cout)
+    ho, wo = h - 2, h - 2 + ragged
+    tiles = U.wg_tiles(ho, wo, batch, p["th"])
+    per_sm = 2 if p["smem"] <= U.WG_MAX_SMEM // 2 - 1024 else 1
+    grid = min(-(-len(tiles) // 2), 132 * per_sm)
+    seen = np.zeros((batch, ho, wo), np.int64)
+    for slot in range(U.WG_GROUPS * grid):  # warpgroup g of block b: slot 2b + g
+        ring = {}  # stage -> [tile index, loads so far]
+        walk = list(range(slot, len(tiles), U.WG_GROUPS * grid))
+        for k in range(min(p["stages"], len(walk))):
+            ring[k] = [walk[k], 1]
+        for it, t in enumerate(walk):
+            st = it % p["stages"]
+            assert ring[st][0] == t and (ring[st][1] - 1) & 1 == (it // p["stages"]) & 1
+            if it + p["stages"] < len(walk):
+                ring[st] = [walk[it + p["stages"]], ring[st][1] + 1]
+            b, r0, c0 = tiles[t]
+            seen[b, r0:r0 + p["th"], c0:c0 + U.WG_TW] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("cin,cout,shape", [
+    (8, 32, (1, 19, 37)), (16, 16, (3, 13, 11)), (32, 64, (1, 20, 21)), (64, 128, (1, 12, 20)),
+    (128, 16, (1, 11, 23)), (16, 12, (2, 10, 9)), (64, 64, (1, 22, 18)), (8, 6, (2, 9, 17))])
+def test_conv3x3_wgmma_replay_matches_plain(cin, cout, shape):
+    """The whole path by its twin's index arithmetic (TMA boxes, A and B
+    descriptors, staged output, the store's clip) gives conv3x3_plain within
+    one bf16 ulp."""
+    rng = np.random.RandomState(cin + cout)
+    x = T(rng.randn(*shape, cin).astype(np.float32)).to(torch.bfloat16)
+    k = T((rng.randn(3, 3, cin, cout) / np.sqrt(9 * cin)).astype(np.float32)).to(torch.bfloat16)
+    bias = T(rng.randn(cout).astype(np.float32))
+    got = U.wg_replay(x, KC.pack_bf16(k), cout, bias)
+    want = conv3x3_plain(x, k, bias)
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_ULP, atol=1e-5)
 
 
 # -- relu6_pool_bn -----------------------------------------------------------

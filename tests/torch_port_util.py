@@ -120,3 +120,183 @@ def get_json(server, path: str):
 
     with urllib.request.urlopen(url(server, path), timeout=10) as r:
         return json.loads(r.read())
+
+
+# -- a twin of the bf16 conv's wgmma + TMA path (csrc/conv3x3.cu, namespace wg)
+
+# (H, Cin, Cout) of the ten convs of the 224 forward, in order (square inputs).
+CONV_SITES = [(224, 3, 8), (220, 8, 32), (215, 32, 32), (210, 32, 32), (205, 32, 64), (100, 64, 64),
+              (48, 64, 128), (46, 128, 16), (21, 16, 16), (8, 16, 16)]
+WG_GROUPS, WG_TW, WG_HWD = 2, 14, 16  # warpgroups of a block, tile columns, halo line
+WG_MAX_SMEM = 232448
+
+
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _lg_chunks(n: int) -> int:
+    """log2 of the largest of 1, 2, 4, 8 that divides n (wg::lg_chunks)."""
+    return 3 if n % 8 == 0 else 2 if n % 4 == 0 else 1 if n % 2 == 0 else 0
+
+
+def wg_takes(cin: int) -> bool:
+    """wg::takes: Cin / 8 a power of two."""
+    return cin % 8 == 0 and (cin // 8) & (cin // 8 - 1) == 0
+
+
+def wg_layout(cin: int, cout: int, cout_p: int, mi: int, stages: int) -> dict:
+    """wg::layout: the shared-memory plan of one launch, bytes from the
+    block's 1024-aligned base."""
+    c8 = cin // 8
+    nsp = (9 * c8 + 1) // 2 * 2
+    th = 4 * mi  # tile rows of one warpgroup
+    p = {"mi": mi, "stages": stages, "th": th, "c8": c8, "nsp": nsp}
+    p["box_bytes"] = (th + 2) * WG_HWD * 16
+    p["stage_bytes"] = c8 * p["box_bytes"]
+    p["olg"] = p["obox"] = p["obox_bytes"] = 0
+    if cout % 8 == 0:
+        p["olg"] = _lg_chunks(cout // 8)
+        p["obox"] = (cout // 8) >> p["olg"]
+        p["obox_bytes"] = _up(th * WG_TW * (16 << p["olg"]), 1024)
+    p["off_out"] = _up(WG_GROUPS * stages * p["stage_bytes"], 1024)
+    p["off_w"] = p["off_out"] + WG_GROUPS * p["obox"] * p["obox_bytes"]
+    p["off_bar"] = p["off_w"] + nsp * cout_p * 16
+    p["smem"] = 1024 + p["off_bar"] + 8 * WG_GROUPS * stages
+    return p
+
+
+def wg_plan(cin: int, cout: int) -> dict:
+    """wg::plan: the most rows per warp (64 accumulators a thread), 3 stages
+    before 2, that let two blocks share an SM, else the first that fits."""
+    from roomnet_tpu_torch.ops.kernels.conv3x3 import cout_padded
+
+    cout_p = cout_padded(cout)
+    mi_max = 1 if cout_p >= 128 else 2 if cout_p >= 64 else 4
+    for limit in (WG_MAX_SMEM // 2 - 1024, WG_MAX_SMEM):
+        for mi in (m for m in (4, 2, 1) if m <= mi_max):
+            for stages in (3, 2):
+                p = wg_layout(cin, cout, cout_p, mi, stages)
+                if p["smem"] <= limit:
+                    return p
+    raise ValueError(f"conv3x3: no plan fits Cin {cin}, Cout {cout}")
+
+
+def _toff(tap: int) -> int:
+    dy, dx = divmod(tap, 3)
+    return dy * WG_HWD + dx
+
+
+def wg_a_descriptor(p: dict, step: int) -> dict:
+    """K16 step `step`'s A descriptor for halo pixel 0 of a stage at offset
+    0, in bytes (no swizzle, K-major), as the kernel adds it up: start
+    (chunk box c, tap offset), leading offset (to the second k half: the
+    next box, or the next tap where Cin = 8, the same tap for the padding
+    slice), stride offset 128 (8 pixels). The tap and channel box are the
+    kernel's shift and mask of slice j (c8 a power of two)."""
+    j, lc = 2 * step, p["c8"].bit_length() - 1
+    tap, c = j >> lc, j & (p["c8"] - 1)
+    lbo = p["box_bytes"]
+    if p["c8"] == 1:
+        lbo = (_toff(tap + 1) - _toff(tap)) * 16 if tap + 1 < 9 else 0
+    return {"start": c * p["box_bytes"] + _toff(tap) * 16, "lbo": lbo, "sbo": 128}
+
+
+def wg_b_descriptor(cout_p: int) -> dict:
+    """The B matrix descriptor of k16 step 0 (no swizzle, K-major), in bytes
+    from the weights' start: leading offset (the two k halves), stride
+    offset (n groups of 8)."""
+    return {"start": 0, "lbo": cout_p * 16, "sbo": 128}
+
+
+def desc_offset(desc: dict, row, k):
+    """Byte offset of element (row, k) of a K-major no-swizzle operand whose
+    descriptor is `desc`: core matrix (row // 8, k // 8) of 8 rows x 16 bytes."""
+    return desc["start"] + (row // 8) * desc["sbo"] + (k // 8) * desc["lbo"] + (row % 8) * 16 + (k % 8) * 2
+
+
+def wg_b_offset(desc: dict, step: int, k, n):
+    """Byte offset of B element (k, n) of k16 step `step`: the descriptor's
+    start advanced by the step's two slices."""
+    return desc_offset({**desc, "start": desc["start"] + step * 2 * desc["lbo"]}, n, k)
+
+
+def wg_swizzled(pix, chunk, lg: int):
+    """wg::swizzled: byte offset of 16-byte chunk `chunk` of pixel `pix` in a
+    box of 16 << lg bytes per pixel, swizzled by that span (numpy-friendly)."""
+    return (pix << (4 + lg)) + ((chunk ^ ((pix >> (3 - lg)) & ((1 << lg) - 1))) << 4)
+
+
+def tma_swizzle(raw, span: int):
+    """TMA's 32/64/128-byte swizzle of a byte offset in a 1024-aligned box:
+    bits 4.. (as many as the span holds 16-byte chunks) XOR bits 7.."""
+    if span <= 16:
+        return raw
+    mask = span // 16 - 1
+    return raw ^ (((raw >> 7) & mask) << 4)
+
+
+def wg_tiles(ho: int, wo: int, batch: int, th: int) -> list:
+    """(batch, row0, col0) of every output tile, in the kernel's order t;
+    warpgroup g of block b walks t = 2b + g, then on by twice the grid."""
+    tw, tt = -(-wo // WG_TW), -(-ho // th)
+    return [(t // (tw * tt), (t // tw) % tt * th, t % tw * WG_TW) for t in range(tw * tt * batch)]
+
+
+def wg_replay(x: torch.Tensor, packed: torch.Tensor, cout: int, bias=None) -> torch.Tensor:
+    """The wgmma + TMA path replayed with its own index arithmetic: each
+    tile's halo, one TMA box per 8 input channels; each k16 step's A rows
+    read at the A descriptor's offsets (64 halo pixels a block, 4 lines of
+    16, 2 of them past the tile's 14 columns), B at the weights'
+    descriptor; f32 sums; the output staged at the swizzled staging offsets
+    and read back by the TMA store's box, clipped at the edge. bf16 x
+    (B,H,W,Cin) with wg_takes(Cin)."""
+    b_, h, w, cin = x.shape
+    cout_p = packed.shape[1]
+    p = wg_plan(cin, cout)
+    th = p["th"]
+    ho, wo = h - 2, w - 2
+    bits = x.contiguous().view(torch.int16).numpy().view(np.uint16)
+    wbytes = packed.contiguous().view(torch.int16).numpy().view(np.uint8).reshape(-1)
+    bdesc = wg_b_descriptor(cout_p)
+    kk, nn = np.meshgrid(np.arange(16), np.arange(cout_p), indexing="ij")
+    rows, ks = np.meshgrid(np.arange(64), np.arange(16), indexing="ij")
+    y = torch.zeros((b_, ho, wo, cout), dtype=torch.bfloat16)
+    hr, hc = np.meshgrid(np.arange(th + 2), np.arange(WG_HWD), indexing="ij")
+    for bi, r0, c0 in wg_tiles(ho, wo, b_, th):
+        # The stage: c8 boxes of (th + 2) lines x 16 pixels x 8 channels, zero
+        # past the image, and NaN after it: A reads 2 pixels past the last box,
+        # which must land only in the 2 discarded columns.
+        stage = np.full(p["stage_bytes"] // 2 + 32, 0x7FC0, np.uint16)
+        gh, gw = r0 + hr, c0 + hc
+        inside = (gh < h) & (gw < w)
+        for c in range(p["c8"]):
+            vals = np.zeros((th + 2, WG_HWD, 8), np.uint16)
+            vals[inside] = bits[bi, gh[inside], gw[inside], 8 * c:8 * c + 8]
+            stage[c * p["box_bytes"] // 2:(c + 1) * p["box_bytes"] // 2] = vals.reshape(-1)
+        acc = np.zeros((th * WG_HWD // 64, 64, cout_p), np.float32)
+        for s in range(p["nsp"] // 2):
+            ad = wg_a_descriptor(p, s)
+            boff = wg_b_offset(bdesc, s, kk, nn)
+            bmat = (wbytes[boff] | (wbytes[boff + 1].astype(np.uint16) << 8)).astype(np.uint32) << 16
+            for blk in range(acc.shape[0]):  # the warpgroup's MI blocks, in line order
+                off = desc_offset({**ad, "start": ad["start"] + blk * 64 * 16}, rows, ks)
+                amat = stage[off // 2].astype(np.uint32) << 16
+                acc[blk] += amat.view(np.float32) @ bmat.view(np.float32)
+        out = torch.from_numpy(acc.reshape(th, WG_HWD, cout_p)[:, :WG_TW, :cout].reshape(th * WG_TW, cout))
+        if bias is not None:
+            out = out + bias.float()
+        out = out.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+        if p["obox"]:
+            # Staged at the epilogue's swizzled offsets, read back by the TMA
+            # store's box (pixel stride 16 << olg bytes, swizzled by it).
+            olg, ospan = p["olg"], 16 << p["olg"]
+            pix, ch = np.meshgrid(np.arange(th * WG_TW), np.arange(cout), indexing="ij")
+            n, e = ch // 8, ch % 8
+            staged = np.zeros((p["obox"], p["obox_bytes"] // 2), np.uint16)
+            staged[n >> olg, (wg_swizzled(pix, n & ((1 << olg) - 1), olg) + 2 * e) // 2] = out
+            out = staged[n >> olg, tma_swizzle(pix * ospan + 16 * (n & ((1 << olg) - 1)) + 2 * e, ospan) // 2]
+        out = torch.from_numpy(out.astype(np.int16)).view(torch.bfloat16).reshape(th, WG_TW, cout)
+        nr, nc = min(th, ho - r0), min(WG_TW, wo - c0)
+        y[bi, r0:r0 + nr, c0:c0 + nc] = out[:nr, :nc]
+    return y
