@@ -10,9 +10,10 @@ kernels, in phases; any failure raises and the script exits non-zero:
   1. The card's name and power limit; build the kernels from csrc/ (one
      nvcc per source, in parallel) and print the build time and ptxas usage;
      count the conv library's HGMMA (wgmma), UTMALDG and UTMASTG (TMA load
-     and store) SASS lines with the cuobjdump beside that nvcc, each of
-     which must be there (no cuobjdump fails the phase). With --parent DIR,
-     DIR's csrc/conv3x3.cu is built beside them.
+     and store) SASS lines, and the HGMMA lines of the TF32 kind in its f32
+     TF32 split kernels (conv_tf32x3), with the cuobjdump beside that nvcc,
+     each of which must be there (no cuobjdump fails the phase). With
+     --parent DIR, DIR's csrc/conv3x3.cu is built beside them.
   2. Each kernel against its plain PyTorch version on the operands of every
      launch of one forward at batch 8 (real activations of the golden batch),
      f32 and bf16. f32: rtol = atol = 1e-5, conv 1e-4 (sum order). bf16:
@@ -32,19 +33,24 @@ kernels, in phases; any failure raises and the script exits non-zero:
      so they time the card and not the host's launch rate; the plain
      version runs eagerly (the residual's copies host arrays, which a graph
      cannot hold). Each site prints its launch plan: the conv's path
-     (wgmma+TMA, mma.sync or the f32 CUDA cores), rows per warp, tile,
-     warpgroups, stages, wgmma shape, how the output is stored and shared
+     (wgmma+TMA, mma.sync, the f32 TF32 split on wgmma+TMA or the f32
+     CUDA cores), rows per warp, tile, warpgroups, stages, wgmma shape, Cout
+     tiles, how the output is stored and shared
      memory (csrc/conv3x3.cu:rn_conv3x3_variant), the residual's strip, span, shared memory and
      blocks, the head's variant (resident or streamed, rows per block)
      beside an empty kernel's graph-replayed time.
      The bound is max(bytes / 3.35 TB/s, FLOPs / peak), peak 67 TFLOP/s for
-     f32 arithmetic and 989 TFLOP/s for bf16 convolutions (H100 SXM). Bytes
+     f32 arithmetic and 989 TFLOP/s for bf16 convolutions (H100 SXM); the
+     f32 conv where it runs on the TF32 split counts the three TF32 products
+     per f32 one that f32 accuracy needs (the kernel issues a fourth) at 495
+     TFLOP/s, conv 0 the f32 peak. Bytes
      count each input element the function reads once (for the pool and the
      residual, only the rows and columns its windows or weights reach) and
-     each output once. With --parent, each bf16 conv site also holds DIR's
-     kernel against the plain version and times it in the same turns (its
-     line's "parent" ms), and the phase ends with the summed kernel, parent
-     and library times.
+     each output once. The phase ends with each dtype's summed conv kernel,
+     library and bound times (f32: beside the CUDA-core method's bound).
+     With --parent, each conv site (bf16 and f32) also holds DIR's kernel
+     against the plain version and times it in the same turns (its line's
+     "parent" ms, summed on those lines).
   4. The full forward against the TF-graph goldens (forward_golden.npz, 7
      images, and forward_golden_wide.npz, 64): f32 logits within 1e-4 and
      argmax exact (float and uint8-fold input); bf16 argmax exact and
@@ -270,7 +276,8 @@ kernels, in phases; any failure raises and the script exits non-zero:
      valset_launches (b)'s by dtype.
 
 Phase 5 also prints utils/roofline.py's summary of the batch-256 device
-forward, bf16 (2 bytes, the bf16 peak) and f32 (4 bytes, the f32 peak).
+forward, bf16 (2 bytes, the bf16 peak) and f32 (4 bytes, the f32 peak; the
+convs on the TF32 split at a third of the TF32 peak).
 Then the JSON line of serving, directory, training, server, trainer,
 scale-out, mesh-server, tensor-parallel, curriculum, bench and valset numbers, the script's wall
 time, one JSON line of per-kernel results and, last, the device line.
@@ -304,6 +311,8 @@ import torch.nn.functional as F
 from roomnet_tpu_torch.utils.roofline import H100_BF16_PEAK_FLOPS as PEAK_BF16_TENSOR
 from roomnet_tpu_torch.utils.roofline import H100_F32_PEAK_FLOPS as PEAK_F32
 from roomnet_tpu_torch.utils.roofline import H100_HBM_BYTES_PER_S as HBM_BYTES_PER_S
+from roomnet_tpu_torch.utils.roofline import H100_TF32_PEAK_FLOPS as PEAK_TF32
+from roomnet_tpu_torch.utils.roofline import TF32X3_PASSES
 
 WINDOW_MS = 20.0  # device time of one timed window
 PER_FORWARD = {"conv3x3": 10, "relu6_pool_bn": 10, "residual_bn": 3, "dense_head": 1}  # launches per forward
@@ -423,23 +432,33 @@ def compare(name, dt, args, got, want, where: str) -> float:
 def sass_counts(lib) -> dict:
     """Lines of `lib`'s SASS (cuobjdump -sass, from the toolkit that holds the
     nvcc the kernels are built with) that hold wgmma (HGMMA) and TMA loads
-    and stores (UTMALDG, UTMASTG). Raises where that toolkit has no
-    cuobjdump."""
+    and stores (UTMALDG, UTMASTG), and the HGMMA lines of the TF32 kind in
+    the f32 entry's TF32 split kernels (functions named conv_tf32x3:
+    "HGMMA_TF32"). Raises where that toolkit has no cuobjdump."""
     from roomnet_tpu_torch.ops.kernels import _build
 
     tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
     if not tool.exists():
         raise FileNotFoundError(f"no cuobjdump beside {_build._nvcc()}: the conv's SASS cannot be checked")
     text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
-    return {op: sum(op in line for line in text.splitlines()) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+    counts = dict.fromkeys(("HGMMA", "UTMALDG", "UTMASTG", "HGMMA_TF32"), 0)
+    function = ""
+    for line in text.splitlines():
+        if "Function :" in line:
+            function = line
+        for op in ("HGMMA", "UTMALDG", "UTMASTG"):
+            counts[op] += op in line
+        counts["HGMMA_TF32"] += "HGMMA" in line and "TF32" in line and "conv_tf32x3" in function
+    return counts
 
 
 def parent_conv3x3(checkout: pathlib.Path):
     """Starts one nvcc on another checkout's csrc/conv3x3.cu, with this
     checkout's flags, into build/roomnet_tpu_torch/parent/. Returns a
-    function that waits for it and gives a bf16 conv3x3(x, kernel, bias)
-    through that library's rn_conv3x3, which must take this checkout's
-    packed weights and C entry. Its launches count nowhere."""
+    function that waits for it and gives a conv3x3(x, kernel, bias) through
+    that library's rn_conv3x3, which must take this checkout's C entry and
+    packed weights: pack_bf16's in bf16, pack_f32's (the CUDA cores') in
+    f32. Its launches count nowhere."""
     from roomnet_tpu_torch.ops.kernels import _build
     from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
 
@@ -458,10 +477,11 @@ def parent_conv3x3(checkout: pathlib.Path):
 
         def conv(x, kernel, bias=None):
             B, H, W, cin = x.shape
+            bf16 = x.dtype == torch.bfloat16
             packed = KC.packed_kernel(kernel, x.dtype)
             y = torch.empty((B, H - 2, W - 2, kernel.shape[3]), dtype=x.dtype, device=x.device)
             rc = fn(x.data_ptr(), packed.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
-                    B, H, W, cin, kernel.shape[3], packed.shape[1], 1, x.device.index,
+                    B, H, W, cin, kernel.shape[3], packed.shape[1 if bf16 else -1], int(bf16), x.device.index,
                     torch.cuda.current_stream(x.device).cuda_stream)
             if rc != 0:
                 raise RuntimeError(f"{src}: rn_conv3x3 returned CUDA error {rc}")
@@ -553,7 +573,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one NVIDIA GPU.")
     ap.add_argument("--parent", type=pathlib.Path, metavar="DIR",
                     help="another checkout whose csrc/conv3x3.cu phase 3 also checks and times at the "
-                         "bf16 conv sites, in the same turns")
+                         "conv sites (bf16 and f32), in the same turns")
     opts = ap.parse_args(argv)
     wall0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -601,14 +621,18 @@ def main(argv=None) -> None:
                     log(f"  ptxas {name}: {line.strip()}")
     sass = sass_counts(_build.library_path("conv3x3"))
     log(f"  sass conv3x3: {sass}")
-    if not (sass["HGMMA"] and sass["UTMALDG"] and sass["UTMASTG"]):
-        raise AssertionError(f"conv3x3: the library's SASS lacks wgmma or TMA: {sass}")
+    if not (sass["HGMMA"] and sass["UTMALDG"] and sass["UTMASTG"] and sass["HGMMA_TF32"]):
+        raise AssertionError(f"conv3x3: the library's SASS lacks wgmma, TMA or the f32 path's TF32 wgmma: {sass}")
 
     def conv_variant(dt: str, args) -> str:
         """The conv kernel's variant for one launch (csrc/conv3x3.cu:rn_conv3x3_variant)."""
         x, k = args[0], args[1]
         v = KC.variant(tuple(x.shape), k.shape[3], x.dtype)
         names = ("Cout_p", "rows/warp") if dt == "bf16" else ("NT", "warp cols")
+        if v["path"] == "tf32x3 wgmma+TMA":
+            return (f"{v['path']}, NT {v['cp']} ({v['cout_tiles']} Cout tiles), m64 blocks {v['sub']}, tile "
+                    f"{v['rows']}x{v['cols']}, {v['warpgroups']} warpgroups, {v['stages']} stages of "
+                    f"{v['chunk']} channels, 4 x m64n{v['cp']}k8, lane stores, smem {v['smem']} B")
         s = f"{v['path']}, {names[0]} {v['cp']}, {names[1]} {v['sub']}, tile {v['rows']}x{v['cols']}"
         if v["path"] == "wgmma+TMA":
             s += (f", {v['warpgroups']} warpgroups, {v['stages']} stages, m64n{v['cp']}k16, "
@@ -699,11 +723,18 @@ def main(argv=None) -> None:
         return None
 
     def work(name, dt, args, kwargs, out):
-        """(bytes, FLOPs, peak) the function needs on this launch's operands."""
+        """(bytes, operations, peak) the function needs on this launch's
+        operands. The f32 conv where it runs on the TF32 split counts the
+        TF32X3_PASSES products per f32 one that f32 accuracy needs, at the
+        TF32 peak (conv 0 stays on the CUDA cores' f32 peak)."""
         if name == "conv3x3":
             x, k, bias = args
             flops = 2 * out.numel() * 9 * x.shape[3]
-            return nbytes(x, k, bias, out), flops, PEAK_BF16_TENSOR if dt == "bf16" else PEAK_F32
+            if dt == "bf16":
+                return nbytes(x, k, bias, out), flops, PEAK_BF16_TENSOR
+            if KC.tf32_takes(x.shape[3]):
+                return nbytes(x, k, bias, out), TF32X3_PASSES * flops, PEAK_TF32
+            return nbytes(x, k, bias, out), flops, PEAK_F32
         if name == "relu6_pool_bn":
             # Only the rows and columns some window covers: k4/s2 skips the last.
             x, w, b = args
@@ -731,7 +762,7 @@ def main(argv=None) -> None:
     rng = np.random.RandomState(0)
     x256_u8 = rng.randint(0, 256, size=(256, 224, 224, 3), dtype=np.uint8)
     timing = {}
-    parent_total = 0.0
+    parent_total = {}
     for dt in cfgs:
         sites = record(dt, normalized(x256_u8))
         for i, (name, args, kwargs) in enumerate(sites):
@@ -748,17 +779,22 @@ def main(argv=None) -> None:
             if lib is not None:
                 fns["library"] = lib
             parent_s = ""
-            if parent_conv is not None and name == "conv3x3" and dt == "bf16":
+            if parent_conv is not None and name == "conv3x3":
                 parent_err = compare(name, dt, args, parent_conv(*args), plain(*args, **kwargs),
                                      f"site {i} at batch 256, --parent's kernel")
                 fns["parent"] = lambda: parent_conv(*args)
             ms = in_turns(fns, eager=("plain",))
             if "parent" in ms:
-                parent_total += ms["parent"]
+                parent_total[dt] = parent_total.get(dt, 0.0) + ms["parent"]
                 parent_s = f", parent {ms['parent']:.4f} ms (max |d| {parent_err:.3g})"
             k_ms, p_ms, l_ms = ms["kernel"], ms["plain"], ms.get("library")
             acc = timing.setdefault((name, dt), {"ms": 0.0, "plain_ms": 0.0, "library_ms": None,
-                                                 "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0})
+                                                 "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                                                 "cores_bound_ms": 0.0})
+            if name == "conv3x3":
+                # The CUDA cores' f32 method, for the record beside the bound.
+                acc["cores_bound_ms"] += max(nb / HBM_BYTES_PER_S,
+                                             2 * out.numel() * 9 * args[0].shape[3] / PEAK_F32) * 1e3
             acc["ms"] += k_ms
             acc["plain_ms"] += p_ms
             if l_ms is not None:
@@ -776,9 +812,12 @@ def main(argv=None) -> None:
             del out
         del sites
         torch.cuda.empty_cache()
-    if parent_conv is not None:
-        log(f"time conv3x3[bf16] summed over its sites: kernel {timing['conv3x3', 'bf16']['ms']:.4f} ms, "
-            f"parent {parent_total:.4f} ms, library {timing['conv3x3', 'bf16']['library_ms']:.4f} ms")
+    for dt in cfgs:
+        t = timing["conv3x3", dt]
+        log(f"time conv3x3[{dt}] summed over its sites [{smi}]: kernel {t['ms']:.4f} ms, "
+            + (f"parent {parent_total[dt]:.4f} ms, " if dt in parent_total else "")
+            + f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms"
+            + (f" (CUDA-core method: {t['cores_bound_ms']:.4f} ms)" if dt == "f32" else ""))
 
     # -- phase 4: full forward vs the TF-graph goldens, launches per forward --
     def counts():
@@ -850,7 +889,12 @@ def main(argv=None) -> None:
         # The analytic roofline of the whole forward (utils/roofline.py) at
         # this dtype's bytes and peak, against the device forward's time.
         dtype_bytes, peak = (2, PEAK_BF16_TENSOR) if dt == "bf16" else (4, PEAK_F32)
-        roofline = summarize(cfg, 256, dtype_bytes=dtype_bytes, peak_flops=peak, measured_s=fwd_ms / 1e3)
+        conv_peak = None
+        if dt == "f32":  # the convs on the TF32 split, as phase 3's bound counts them
+            def conv_peak(cin):
+                return PEAK_TF32 / TF32X3_PASSES if KC.tf32_takes(cin) else PEAK_F32
+        roofline = summarize(cfg, 256, dtype_bytes=dtype_bytes, peak_flops=peak, measured_s=fwd_ms / 1e3,
+                             conv_peak_flops=conv_peak)
         serving[dt] = {"img_per_s_batch256": thr, "device_forward_ms_batch256": fwd_ms,
                        "p50_ms": {f"batch{n}": v for n, v in lat.items()}, "forwards": forwards,
                        "roofline": roofline}
@@ -858,7 +902,8 @@ def main(argv=None) -> None:
             f"forward {fwd_ms:.3f} ms; p50 latency " +
             ", ".join(f"batch {n} {v:.2f} ms" for n, v in lat.items()) +
             f"; launches {got} over {forwards} forwards")
-        log(f"roofline[{dt}] (utils/roofline.py summarize(cfg, 256, dtype_bytes={dtype_bytes}, peak_flops={peak:g}) "
+        log(f"roofline[{dt}] (utils/roofline.py summarize(cfg, 256, dtype_bytes={dtype_bytes}, peak_flops={peak:g}"
+            + (", conv_peak_flops=TF32 / 3 where the conv takes Cin" if conv_peak else "") + ") "
             f"of the device forward, {smi}): " + json.dumps(roofline))
         del clf, xb
         torch.cuda.empty_cache()

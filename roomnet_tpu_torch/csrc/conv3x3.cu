@@ -11,7 +11,8 @@
 //
 // What bounds it on an H100: in bf16 the bytes at 32 channels and about
 // evenly bytes and operations at 64 and 128 (205^2x32->64 at batch 256: 0.69
-// GB in, 1.35 GB out, 389 GFLOP); in f32 the operations (CUDA cores). So
+// GB in, 1.35 GB out, 389 GFLOP); in f32 the operations (TF32 passes on the
+// tensor cores; CUDA cores at conv 0). So
 // the bf16 path has to keep HBM and the tensor cores busy at once, and write
 // its output, two thirds of the bytes, in whole lines.
 //
@@ -47,7 +48,33 @@
 // two buffers, loaded by 16-byte cp.async where Cin % 8 == 0 and else by
 // element loads zero-padded to 8 channels.
 //
-// f32 (`cc::conv_f32`): full f32 on CUDA cores, no TF32. K is staged in chunks
+// f32, Cin a multiple of 8 up to 256 (`tf::conv_tf32x3`): TF32 passes on
+// wgmma over a hi/lo split, f32-accurate as the reference's
+// Precision.HIGHEST contraction (six bf16 passes of the TPU's MXU) is. Each
+// f32 operand is split into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna,
+// ties away from zero), and each k8 step sums lo_a*lo_b, lo_a*hi_b,
+// hi_a*lo_b and hi_a*hi_b, smallest first, into one f32 accumulator. Three
+// passes (without lo_a*lo_b, below f32's own rounding) are as accurate on
+// the card; the fourth is there for chip_smoke.py phase 10 (b), whose
+// moment gate failed with three (PERF.md §6). The halo, the descriptors
+// and the tile walk are the bf16 wgmma path's with a 4-channel TMA box (16
+// bytes a pixel, as the bf16 box of 8), so that 8 consecutive halo pixels
+// are again one core matrix at any tap offset. K runs in chunks of 8
+// channels, one halo stage each (Cin 128's whole halo would not fit beside
+// its weights): a warpgroup splits each stage in place into hi and a lo
+// twin once it lands, then issues the chunk's 9 taps x 4 passes x m64
+// blocks, and adds the chunk's sums into f32 registers rounded to nearest
+// (the tensor cores' own accumulation truncates: over a whole K of 1152 the
+// error reached the 1e-4 gate). B comes packed and split by
+// ops/kernels/conv3x3.py:pack_tf32x3 as
+// [Cout tile][hi, lo][slice][NT][4]; a block holds one Cout tile of NT
+// channels (hi + lo at most 144 KB: Cin 64 takes NT 32, Cin 128 NT 16), the
+// Cout tiles over blockIdx.y. Each lane stores its output pairs (8 lanes of
+// a pixel fill 32-byte sectors). Bound: the tensor cores' TF32 rate over
+// the three passes f32 accuracy needs, 2.5x above the CUDA cores' f32 rate.
+//
+// f32, other Cin (conv 0's 3 channels: `cc::conv_f32`): full f32 on CUDA
+// cores, no TF32. K is staged in chunks
 // of 4 input channels (the halo chunk and its 9 x 4 x NT weights, 16-byte
 // cp.async, two buffers so chunk c+1 loads while chunk c computes). Each
 // thread keeps 8 rows x 8 output channels of sums in registers; per tap it
@@ -111,13 +138,15 @@ cudaError_t fit(const void* k, int device, int smem_max, size_t smem, Fit& out) 
 }
 
 // What one launch runs, for reports: report[REPORT] = {path (kF32 CUDA cores,
-// kMmaSync, kWgmma), Cout_p (bf16) or NT (f32), rows per warp (bf16) or warp
-// width (f32), tile rows, tile columns, dynamic shared memory bytes, consumer
-// warpgroups (wgmma; else 0), halo stages (buffers), 1 if TMA stores the
-// output (else each lane stores its values), the output staging's swizzle
-// bytes (0: none)}. A launch given a report fills it and launches nothing.
-constexpr int REPORT = 10;
-enum Path : int { kF32 = 0, kMmaSync = 1, kWgmma = 2 };
+// kMmaSync, kWgmma, kTf32x3), Cout_p (bf16) or NT (f32), rows per warp (bf16,
+// tf32x3: m64 blocks per warpgroup) or warp width (f32 CUDA cores), tile rows,
+// tile columns, dynamic shared memory bytes, consumer warpgroups (wgmma; else
+// 0), halo stages (buffers), 1 if TMA stores the output (else each lane stores
+// its values), the output staging's swizzle bytes (0: none), Cout tiles over
+// blockIdx.y and input channels per halo stage (tf32x3; else 0)}. A launch
+// given a report fills it and launches nothing.
+constexpr int REPORT = 12;
+enum Path : int { kF32 = 0, kMmaSync = 1, kWgmma = 2, kTf32x3 = 3 };
 
 void fill(int* report, std::initializer_list<int> v) {
   int i = 0;
@@ -813,20 +842,21 @@ CUtensorMapSwizzle swizzle(int lg) {
   }
 }
 
-// A 4-D map over an NHWC bf16 tensor (C, W, H, B innermost first) whose box
-// is (8 << lg) channels x bw x bh x 1, swizzled by its pixel stride. Made for
-// every launch: it holds the tensor's pointer. Returns 0 or
-// rn::kCuResult + the CUresult.
+// A 4-D map over an NHWC tensor of `dt` (bf16 or f32; C, W, H, B innermost
+// first) whose box is 16 << lg bytes of channels x bw x bh x 1, swizzled by
+// its pixel stride. Made for every launch: it holds the tensor's pointer.
+// Returns 0 or rn::kCuResult + the CUresult.
 int encode(CUtensorMap* m, const void* ptr, int B, int H, int W, int C, int lg, int bw, int bh,
-           CUtensorMapL2promotion l2) {
+           CUtensorMapL2promotion l2, CUtensorMapDataType dt = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled fn;
   const int e = encoder(&fn);
   if (e != 0) return e;
+  const cuuint64_t es = dt == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;  // bytes per element
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2, (cuuint64_t)H * W * C * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)(8 << lg), (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * es, (cuuint64_t)W * C * es, (cuuint64_t)H * W * C * es};
+  const cuuint32_t box[4] = {(cuuint32_t)((16 << lg) / es), (cuuint32_t)bw, (cuuint32_t)bh, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+  const CUresult r = fn(m, dt, 4, const_cast<void*>(ptr), dims, strides, box,
                         elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle(lg), l2,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : rn::kCuResult + static_cast<int>(r);
@@ -899,6 +929,380 @@ int run(const void* x, const void* w, const void* bias, void* y, int B, int H, i
 }
 
 }  // namespace wg
+
+// ---- f32, Cin % 8 == 0: TF32 passes over a hi/lo split, wgmma on TMA halo tiles
+
+namespace tf {
+
+constexpr int TW = wg::TW;    // output columns of a tile
+constexpr int HWD = wg::HWD;  // halo columns: one line of 16 A rows
+constexpr int WARPGROUPS = wg::WARPGROUPS;
+constexpr int KB = 2;  // 4-channel TMA boxes of one K chunk: 8 input channels, one k8 step per tap
+// Hi + lo weights of one Cout tile at most (ops/kernels/conv3x3.py:TF32_W_MAX,
+// which picks NT so that they fit).
+constexpr int W_MAX = 147456;
+
+// The smem plan of one launch, byte offsets from the block's 1024-aligned
+// base: [warpgroup][stage][KB][box] halo (TMA; rewritten in place as hi) |
+// [warpgroup][KB][box] lo twin | hi then lo weights | one mbarrier per
+// warpgroup and stage.
+struct Plan {
+  int mi = 0, stages = 0;
+  int box_bytes = 0, chunk_bytes = 0;  // one 4-channel box; the KB boxes of a stage
+  int off_lo = 0, off_w = 0, off_bar = 0;
+  size_t smem = 0;
+};
+
+struct Args {
+  const uint4* w;  // [Cout tile][hi, lo][slice][NT][4] f32 holding TF32 values
+  const float* bias;
+  float* y;
+  int Ho, Wo, Cout;
+  int chunks, nsp;  // K chunks (Cin / 8); slices of 4 channels (9 * Cin / 4)
+  int tiles_w, tiles_h, tiles;
+  Plan p;
+};
+
+// Tf32<N>::run(d, da, db, scale_d): one wgmma.mma_async.m64nNk8, TF32 in,
+// the f32 sums accumulated in d (scale_d 1) or written to it (0); A (64 x 8)
+// and B (8 x N) read from shared memory through the descriptors da and db,
+// both K-major (TF32 has no other).
+template <int N> struct Tf32;
+template <> struct Tf32<8> {
+  __device__ static void run(float (&d)[4], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3}, "
+        "%4, %5, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <> struct Tf32<16> {
+  __device__ static void run(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <> struct Tf32<32> {
+  __device__ static void run(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <> struct Tf32<64> {
+  __device__ static void run(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// v rounded to TF32, to nearest with ties away from zero, its 13 low
+// mantissa bits zero (the bits wgmma reads).
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r & 0xFFFFE000u;
+}
+// v = hi + lo to f32 accuracy: hi = tf32(v), lo = tf32(v - hi); lo is 0
+// where v - hi is not finite, so NaN stays NaN (in hi) and an infinity is
+// not made NaN. ops/kernels/conv3x3.py:tf32_split is its twin.
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(v);
+  const float r = __fsub_rn(v, __uint_as_float(hi));
+  lo = tf32(fabsf(r) < __int_as_float(0x7f800000) ? r : 0.f);
+}
+
+// Each warpgroup walks its own tiles of 4*MI rows x 14 columns, half a tile
+// behind the other, and each tile in K chunks of 8 input channels: one halo
+// stage per chunk (two 4-channel TMA boxes of 4*MI+2 lines of 16 pixels),
+// ring of `stages` per warpgroup. Once a stage lands, the warpgroup splits it
+// in place into hi and its lo twin, then issues, per tap and m64 block,
+// lo_a*lo_b, lo_a*hi_b, hi_a*lo_b and hi_a*hi_b into one f32 accumulator,
+// the chunk's first product overwriting it. It waits for the chunk (its
+// thread 0 then refills the stage) and adds the chunk's sums into f32
+// registers, rounded to nearest: the tensor cores' accumulation truncates,
+// and over Cin 128's 432 wgmmas of three passes the truncations summed to
+// 1e-4 (max |d| at site 7, H100); over a chunk's 36 they stay at f32's own
+// rounding. The other warpgroup's wgmmas fill the tensor cores meanwhile.
+// The block holds Cout tile blockIdx.y's hi and lo weights.
+template <int NT, int MI>
+__global__ void __launch_bounds__(THREADS, 1) conv_tf32x3(const __grid_constant__ CUtensorMap xmap,
+                                                          const Args a) {
+  constexpr int TH = 4 * MI;
+  constexpr int NA = NT / 2;  // accumulators of one m64 x NT block per thread
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const Plan p = a.p;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gen = smem_raw + (base - raw);  // the same bytes, generic address
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wt = tid & 127;
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0), wq = warp & 3;  // wg: warp-uniform
+  const bool lead = wt == 0;
+  const int off_halo = wg * p.stages * p.chunk_bytes, ls = p.off_lo + wg * p.chunk_bytes;
+  const uint32_t bar0 = base + p.off_bar + 8 * p.stages * wg;
+  const int slot = 2 * blockIdx.x + wg, stride = 2 * gridDim.x, ct = blockIdx.y;
+  const int items = slot < a.tiles ? ((a.tiles - 1 - slot) / stride + 1) * a.chunks : 0;
+
+  auto load_item = [&](int it, int st) {  // the warpgroup's thread 0
+    const int t = slot + it / a.chunks * stride, k = it % a.chunks;
+    const int tw = t % a.tiles_w, r = t / a.tiles_w, th = r % a.tiles_h, b = r / a.tiles_h;
+    const uint32_t bar = bar0 + 8 * st, dst = base + off_halo + st * p.chunk_bytes;
+    wg::mbar_expect_tx(bar, p.chunk_bytes);
+#pragma unroll
+    for (int c = 0; c < KB; ++c)
+      wg::tma_load(dst + c * p.box_bytes, &xmap, bar, 4 * (KB * k + c), tw * TW, th * TH, b);
+  };
+  auto wg_sync = [&] { asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory"); };
+
+  if (lead) {
+    for (int s = 0; s < p.stages; ++s) wg::mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Weights: Cout tile ct's hi and lo images as they are (slice j = (chunk *
+  // 9 + tap) * KB + box, [NT][4] each).
+  const int wunits = 2 * a.nsp * NT;
+  uint4* sw = reinterpret_cast<uint4*>(gen + p.off_w);
+  for (int i = tid; i < wunits; i += THREADS) rn::cp_async16(sw + i, a.w + (size_t)ct * wunits + i, true);
+  rn::cp_async_commit();
+  __syncthreads();  // the barriers are initialised before any TMA signals them
+  if (lead)
+    for (int s = 0; s < p.stages && s < items; ++s) load_item(s, s);
+  rn::cp_async_wait<0>();
+  wg::fence_proxy_async();  // cp.async wrote the weights that wgmma reads
+  __syncthreads();
+
+  // B of chunk k, tap: slices (k * 9 + tap) * KB and the next, NT * 16 bytes
+  // apart (the k halves), groups of 8 output channels 128 apart; lo a whole
+  // hi image on.
+  const uint64_t bhi = wg::desc(base + p.off_w, NT * 16, 128);
+  const uint64_t blo = bhi + (uint64_t)(a.nsp * NT);
+  const int g = lane >> 2, q = (lane & 3) * 2;
+  float acc[MI][NA], sum[MI][NA];  // one chunk's sums (wgmma); the tile's (f32, rounded to nearest)
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int n = 0; n < NA; ++n) acc[i][n] = sum[i][n] = 0.f;
+  }
+
+  if (wg == 1 && items > 0) asm volatile("bar.sync 3, 256;\n" ::: "memory");
+  int it = 0;
+  for (int t = slot; t < a.tiles; t += stride) {
+    for (int k = 0; k < a.chunks; ++k, ++it) {
+      const int st = it % p.stages, hs = off_halo + st * p.chunk_bytes;
+      wg::mbar_wait(bar0 + 8 * st, (it / p.stages) & 1);
+      // The split: hi over the stage, lo into the twin (the chunk before,
+      // its last reader, is done).
+      for (int i = wt; i < p.chunk_bytes / 16; i += 128) {
+        const float4 v = *reinterpret_cast<const float4*>(gen + hs + 16 * i);
+        uint4 h, l;
+        split(v.x, h.x, l.x);
+        split(v.y, h.y, l.y);
+        split(v.z, h.z, l.z);
+        split(v.w, h.w, l.w);
+        *reinterpret_cast<uint4*>(gen + hs + 16 * i) = h;
+        *reinterpret_cast<uint4*>(gen + ls + 16 * i) = l;
+      }
+      wg::fence_proxy_async();  // wgmma reads what this thread wrote
+      wg_sync();
+      // A of block i, tap (dy, dx): the 64 halo pixels from line 4i shifted
+      // by dy * 16 + dx pixels (16 bytes each) in box 0, the second k half
+      // one box on (leading offset box_bytes), groups of 8 pixels 128 bytes
+      // apart. Rows of the 2 columns past the tile's 14 may read 2 pixels
+      // past the last box: their sums are discarded.
+      const uint64_t ah = wg::desc(base + hs, p.box_bytes, 128), al = wg::desc(base + ls, p.box_bytes, 128);
+      const uint64_t bk = (uint64_t)(k * 9 * KB * NT);
+      // Nothing touches the accumulators between the fence and the commit
+      // (ptxas would serialize the wgmmas otherwise, its info C7515).
+      wg::wgmma_fence();
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const uint64_t db = bk + (uint64_t)(tap * KB * NT);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const uint64_t da = (uint64_t)((tap / 3) * HWD + tap % 3 + i * 64);
+          Tf32<NT>::run(acc[i], al + da, blo + db, tap > 0);
+          Tf32<NT>::run(acc[i], al + da, bhi + db, 1);
+          Tf32<NT>::run(acc[i], ah + da, blo + db, 1);
+          Tf32<NT>::run(acc[i], ah + da, bhi + db, 1);
+        }
+      }
+      wg::wgmma_commit();
+      // Once: warpgroup 1 starts after warpgroup 0 has issued half a tile,
+      // so that their epilogues fall in each other's wgmmas.
+      if (it == a.chunks / 2 && wg == 0 && slot + 1 < a.tiles) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+      wg::wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < MI; ++i) wg::fence_operands(acc[i]);
+      // The chunk is done with its stage: refill it; then add its sums.
+      if (lead && it + p.stages < items) load_item(it + p.stages, st);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+#pragma unroll
+        for (int n = 0; n < NA; ++n) sum[i][n] = __fadd_rn(sum[i][n], acc[i][n]);
+      }
+    }
+
+    // C fragment of block i, n8 block n: (A row g, channels 8n+q, +1) in
+    // sum[i][4n], [4n+1], (row g + 8, the same) in [4n+2], [4n+3]; A row
+    // g + 8hh of warp wq is column g + 8hh of tile row 4i + wq. Each lane
+    // stores its two channels: 8 lanes of a pixel fill 32-byte sectors.
+    const int tw = t % a.tiles_w, r = t / a.tiles_w, th = r % a.tiles_h, b = r / a.tiles_h;
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const int oh = th * TH + 4 * i + wq;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int col = g + hh * 8, ow = tw * TW + col;
+        if (oh >= a.Ho || col >= TW || ow >= a.Wo) continue;
+        float* yp = a.y + (((size_t)b * a.Ho + oh) * a.Wo + ow) * a.Cout;
+#pragma unroll
+        for (int n = 0; n < NT / 8; ++n) {
+          const int co = ct * NT + n * 8 + q;
+          float v0 = sum[i][4 * n + 2 * hh], v1 = sum[i][4 * n + 2 * hh + 1];
+          if (a.bias != nullptr) {
+            if (co < a.Cout) v0 = __fadd_rn(v0, a.bias[co]);
+            if (co + 1 < a.Cout) v1 = __fadd_rn(v1, a.bias[co + 1]);
+          }
+          if (co + 1 < a.Cout && (a.Cout & 1) == 0) {
+            *reinterpret_cast<float2*>(yp + co) = make_float2(v0, v1);
+          } else {
+            if (co < a.Cout) yp[co] = v0;
+            if (co + 1 < a.Cout) yp[co + 1] = v1;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+#pragma unroll
+      for (int n = 0; n < NA; ++n) sum[i][n] = 0.f;
+    }
+  }
+}
+
+Plan layout(int nsp, int nt, int mi, int stages) {
+  Plan p;
+  p.mi = mi, p.stages = stages;
+  p.box_bytes = (4 * mi + 2) * HWD * 16;  // a multiple of 256 bytes
+  p.chunk_bytes = KB * p.box_bytes;
+  p.off_lo = WARPGROUPS * stages * p.chunk_bytes;
+  p.off_w = p.off_lo + WARPGROUPS * p.chunk_bytes;
+  p.off_bar = p.off_w + 2 * nsp * nt * 16;
+  p.smem = 1024 + p.off_bar + 8 * WARPGROUPS * stages;  // 1024: room to align the base
+  return p;
+}
+
+// Blocks per warpgroup and stages for the packed NT: the most m64 blocks the
+// accumulators allow (64 per thread, and as many f32 sums), then 4 stages
+// before 3 and 2 (mi 0 if nothing fits). Blocks before stages: 4 blocks and 3
+// stages beat 2 blocks and 4 by 3-10% at Cin 64 and 128 (H100).
+Plan plan(int nsp, int nt) {
+  const int mi_max = nt >= 64 ? 2 : 4;
+  for (int m = mi_max; m >= 1; m /= 2)
+    for (int stages : {4, 3, 2}) {
+      const Plan p = layout(nsp, nt, m, stages);
+      if (p.smem <= (size_t)MAX_SMEM) return p;
+    }
+  return Plan{};
+}
+
+template <int NT, int MI>
+int launch(Args a, const void* x, int B, int H, int W, int Cin, cudaStream_t s, int device, int* report) {
+  const Plan& p = a.p;
+  constexpr int TH = 4 * MI;
+  const int ny = (a.Cout + NT - 1) / NT;
+  if (report != nullptr) {
+    fill(report, {kTf32x3, NT, MI, TH, TW, (int)p.smem, WARPGROUPS, p.stages, 0, 0, ny, 4 * KB});
+    return cudaSuccess;
+  }
+  CUtensorMap xmap{};
+  const int e = wg::encode(&xmap, x, B, H, W, Cin, 0, HWD, TH + 2, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                           CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (e != 0) return e;
+  auto* k = conv_tf32x3<NT, MI>;
+  Fit f;
+  const cudaError_t fe = fit(reinterpret_cast<const void*>(k), device, MAX_SMEM, p.smem, f);
+  if (fe != cudaSuccess) return fe;
+  // Persistent: every block resident at once, so the Cout tiles of one
+  // output tile run close together and read its halo from L2.
+  const int resident = (f.per_sm > 0 ? f.per_sm : 1) * f.sms, per_y = resident / ny > 0 ? resident / ny : 1;
+  const int blocks = (a.tiles + 1) / 2;
+  k<<<dim3(blocks < per_y ? blocks : per_y, ny), THREADS, p.smem, s>>>(xmap, a);
+  return cudaGetLastError();
+}
+
+template <int NT>
+int launch_mi(Args& a, const void* x, int B, int H, int W, int Cin, cudaStream_t s, int device,
+              int* report) {
+  a.tiles_w = (a.Wo + TW - 1) / TW;
+  a.tiles_h = (a.Ho + 4 * a.p.mi - 1) / (4 * a.p.mi);
+  a.tiles = a.tiles_w * a.tiles_h * B;
+  if constexpr (NT <= 32) {
+    if (a.p.mi == 4) return launch<NT, 4>(a, x, B, H, W, Cin, s, device, report);
+  }
+  if (a.p.mi == 2) return launch<NT, 2>(a, x, B, H, W, Cin, s, device, report);
+  return launch<NT, 1>(a, x, B, H, W, Cin, s, device, report);
+}
+
+// Takes Cin a multiple of 8 up to 256 (ops/kernels/conv3x3.py:tf32_takes): a
+// K chunk is 8 channels, its taps a loop the compiler unrolls (no tap is
+// found by arithmetic on Cin), and one Cout tile's weights fit at NT = 8.
+bool takes(int Cin) { return Cin % 8 == 0 && Cin <= 256; }
+
+int run(const void* x, const void* w, const void* bias, void* y, int B, int H, int W, int Cin, int Cout, int nt,
+        cudaStream_t s, int device, int* report) {
+  if ((nt != 8 && nt != 16 && nt != 32 && nt != 64) || 72 * Cin * nt > W_MAX) return cudaErrorInvalidValue;
+  Args a;
+  a.w = static_cast<const uint4*>(w);
+  a.bias = static_cast<const float*>(bias);
+  a.y = static_cast<float*>(y);
+  a.Ho = H - 2, a.Wo = W - 2, a.Cout = Cout;
+  a.chunks = Cin / 8;
+  a.nsp = 9 * Cin / 4;
+  a.p = plan(a.nsp, nt);
+  if (a.p.mi == 0) return cudaErrorInvalidConfiguration;
+  switch (nt) {
+    case 8: return launch_mi<8>(a, x, B, H, W, Cin, s, device, report);
+    case 16: return launch_mi<16>(a, x, B, H, W, Cin, s, device, report);
+    case 32: return launch_mi<32>(a, x, B, H, W, Cin, s, device, report);
+    default: return launch_mi<64>(a, x, B, H, W, Cin, s, device, report);
+  }
+}
+
+}  // namespace tf
 
 // ---- f32: full f32 on CUDA cores --------------------------------------------
 
@@ -1088,17 +1492,20 @@ int dispatch(const void* x, const void* w, const void* bias, void* y, int B, int
     if (wg::takes(Cin)) return wg::run(x, w, bias, y, B, H, W, Cin, Cout, cp, s, device, report);
     return tc::run(tc::make_args(x, w, bias, y, H, W, Cin, Cout), cp, B, s, device, report);
   }
+  if (tf::takes(Cin)) return tf::run(x, w, bias, y, B, H, W, Cin, Cout, cp, s, device, report);
   return cc::run(cc::make_args(x, w, bias, y, H, W, Cin, Cout), cp, B, s, device, report);
 }
 
 }  // namespace
 
 // x (B,H,W,Cin) in the io dtype; w the packed weights of
-// ops/kernels/conv3x3.py (pack_bf16 or pack_f32, by dtype) and cp their
-// Cout_p (bf16, w's dim 1) or NT (f32, w's last dim); bias (Cout,) f32 or
+// ops/kernels/conv3x3.py (pack_bf16, pack_tf32x3 or pack_f32, by dtype and
+// Cin) and cp their Cout_p (bf16, w's dim 1) or NT (f32: pack_tf32x3's dim 3,
+// pack_f32's last dim); bias (Cout,) f32 or
 // null; y (B,H-2,W-2,Cout) in the io dtype. All contiguous, 16-byte aligned.
-// bf16 with Cin / 8 a power of two takes the wgmma + TMA path, other bf16 mma.sync,
-// f32 the CUDA cores.
+// bf16 with Cin / 8 a power of two takes the wgmma + TMA path, other bf16 mma.sync;
+// f32 with Cin % 8 == 0 (up to 256) TF32 passes over a hi/lo split on wgmma (pack_tf32x3's
+// layout, cp its NT), other f32 the CUDA cores.
 extern "C" int rn_conv3x3(const void* x, const void* w, const void* bias, void* y, int B, int H,
                           int W, int Cin, int Cout, int cp, int dtype, int device, void* stream) {
   rn::DeviceGuard guard(device);

@@ -6,13 +6,16 @@ path is chosen by shape alone: bf16 with Cin / 8 a power of two runs
 Hopper's wgmma, both operands read from shared memory (the resident
 weights and the shifted halo that TMA loads), with TMA stores of the
 output; other bf16 (conv 0's 3 channels, Cin 48) runs mma.sync on a halo of element
-loads; f32 runs in full f32 on CUDA cores. `variant` reports which path and
-tile a shape takes. The optional f32 bias carries the uint8 preprocess
+loads; f32 with Cin a multiple of 8 up to 256 (`tf32_takes`) runs TF32
+products on wgmma over hi and lo parts of each operand (lo*lo, lo*hi,
+hi*lo, hi*hi), f32-accurate as the reference's Precision.HIGHEST is; other
+f32 (conv 0) runs in full f32 on CUDA cores. `variant` reports which path
+and tile a shape takes. The optional f32 bias carries the uint8 preprocess
 folded into conv 0 (models/roomnet.py:_fold_preprocess_into_first_conv).
 
 The kernel reads its weights in a packed layout, made here from the HWIO
-kernel by `pack_bf16` / `pack_f32` once per kernel tensor and cached beside
-it:
+kernel by `pack_bf16` / `pack_tf32x3` / `pack_f32` once per kernel tensor
+and cached beside it:
 
   * bf16: [slice][Cout_p][8], slice j = tap * c8 + c the channels 8c..8c+7
     of tap (dy, dx) = divmod(tap, 3), c8 = ceil(Cin / 8), the slice count
@@ -21,8 +24,14 @@ it:
     layout without swizzle for its B operand: core matrices of 8 output
     channels x 16 bytes, the two slices of a k16 step Cout_p * 16 bytes
     apart, groups of 8 channels 128.
-  * f32: [Cout tile][chunk][tap][4][NT], chunk c the channels 4c..4c+3, NT =
-    min(64, Cout_p) output channels per block.
+  * f32, TF32 split: [Cout tile][hi, lo][slice][NT][4], slice j =
+    (chunk * 9 + tap) * 2 + b the channels 4c..4c+3 with c = 2 * chunk + b
+    (K chunks of 8 channels, the kernel's halo stages), hi = tf32(k) and lo
+    = tf32(k - hi) (`tf32_split`), NT = `tf32_nt(Cin, Cout)` output channels
+    per block: the widest whose hi + lo fit TF32_W_MAX bytes. Each image is
+    wgmma's K-major B as in bf16, 4 f32 where bf16 has 8.
+  * f32, CUDA cores: [Cout tile][chunk][tap][4][NT], chunk c the channels
+    4c..4c+3, NT = min(64, Cout_p) output channels per block.
 
 Every padded entry is zero. This module alone decides the layout: the
 wrapper passes its Cout_p (bf16) or NT (f32), read off the packed tensor, to
@@ -51,13 +60,15 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 _ARGS = [P, P, P, P, I, I, I, I, I, I, I, I, P]
 COUT_STEPS = (8, 16, 32, 64, 128)
-F32_NT = 64  # output channels of one f32 block
+F32_NT = 64  # output channels of one f32 CUDA-core block
+TF32_NTS = (64, 32, 16, 8)  # output channels of one TF32 split block, widest first
+TF32_W_MAX = 147456  # hi + lo weights of one TF32 split Cout tile, bytes (csrc/conv3x3.cu:tf::W_MAX)
 # rn_conv3x3_variant's report, in order (csrc/conv3x3.cu:fill).
 VARIANT_FIELDS = ("path", "cp", "sub", "rows", "cols", "smem", "warpgroups", "stages", "tma_store",
-                  "out_swizzle")
-PATHS = ("f32 CUDA cores", "mma.sync", "wgmma+TMA")
+                  "out_swizzle", "cout_tiles", "chunk")
+PATHS = ("f32 CUDA cores", "mma.sync", "wgmma+TMA", "tf32x3 wgmma+TMA")
 
-_packed = WeakIdKeyDictionary()  # kernel tensor -> (version, dtype, packed)
+_packed = WeakIdKeyDictionary()  # kernel tensor -> {(dtype, tf32x3): (version, packed)}
 
 
 def conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
@@ -106,15 +117,65 @@ def pack_f32(kernel: torch.Tensor) -> torch.Tensor:
     return k.reshape(9, chunks, 4, tiles, nt).permute(3, 1, 0, 2, 4).contiguous()
 
 
-def packed_kernel(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The packed weights of `kernel` in `dtype`, made once per kernel tensor
-    (and again after an in-place change to it)."""
-    hit = _packed.get(kernel)
-    if hit is not None and hit[0] == kernel._version and hit[1] == dtype:
-        return hit[2]
+def tf32_takes(cin: int) -> bool:
+    """Whether f32 at `cin` input channels runs on the TF32 split
+    (csrc/conv3x3.cu:tf::takes): K chunks of 8 channels, and one Cout tile
+    of 8 channels within TF32_W_MAX."""
+    return cin % 8 == 0 and cin <= 256
+
+
+def tf32_nt(cin: int, cout: int) -> int:
+    """Output channels of one TF32 split block: the widest of TF32_NTS up to
+    Cout_p whose hi + lo weights (72 * Cin * NT bytes) fit TF32_W_MAX."""
+    for nt in TF32_NTS:
+        if nt <= cout_padded(cout) and 72 * cin * nt <= TF32_W_MAX:
+            return nt
+    raise ValueError(f"conv3x3: Cin {cin} has no TF32 split tile")
+
+
+def tf32(v: torch.Tensor) -> torch.Tensor:
+    """f32 `v` rounded to TF32 as cvt.rna.tf32.f32 rounds (to nearest, ties
+    away from zero), the 13 low mantissa bits zero; NaN and infinities stay."""
+    bits = v.float().contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(v), rounded, v.float())
+
+
+def tf32_split(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of f32 `v`: hi = tf32(v), lo = tf32(v - hi), lo 0 where v -
+    hi is not finite (csrc/conv3x3.cu:tf::split)."""
+    hi = tf32(v)
+    r = v.float() - hi
+    return hi, tf32(torch.where(torch.isfinite(r), r, torch.zeros_like(r)))
+
+
+def pack_tf32x3(kernel: torch.Tensor) -> torch.Tensor:
+    """HWIO (3,3,Cin,Cout) f32 -> [Cout tile][hi, lo][slice][NT][4], Cin a
+    multiple of 8 (`tf32_takes`)."""
+    _, _, cin, cout = kernel.shape
+    nt = tf32_nt(cin, cout)
+    tiles = -(-cout // nt)
+    k = _zero_padded(kernel.float(), cin, tiles * nt)
+    k = k.reshape(9, cin // 8, 2, 4, tiles, nt).permute(4, 1, 0, 2, 5, 3).reshape(tiles, 9 * cin // 4, nt, 4)
+    return torch.stack(tf32_split(k), 1).contiguous()
+
+
+def packed_kernel(kernel: torch.Tensor, dtype: torch.dtype, tf32x3: bool = False) -> torch.Tensor:
+    """The packed weights of `kernel` in `dtype` (f32 with `tf32x3`:
+    pack_tf32x3's layout, else pack_f32's), made once per kernel tensor and
+    layout (and again after an in-place change to it)."""
+    layouts = _packed.get(kernel)
+    if layouts is None or any(v != kernel._version for v, _ in layouts.values()):
+        layouts = _packed[kernel] = {}
+    hit = layouts.get((dtype, tf32x3))
+    if hit is not None:
+        return hit[1]
     k = kernel.to(dtype)
-    packed = pack_bf16(k) if dtype == torch.bfloat16 else pack_f32(k)
-    _packed[kernel] = (kernel._version, dtype, packed)
+    if dtype == torch.bfloat16:
+        packed = pack_bf16(k)
+    else:
+        packed = pack_tf32x3(k) if tf32x3 else pack_f32(k)
+    layouts[(dtype, tf32x3)] = (kernel._version, packed)
     return packed
 
 
@@ -131,13 +192,14 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = N
         bias = bias.float().contiguous()
         if bias.shape != (Cout,):
             raise ValueError(f"conv3x3: bias {tuple(bias.shape)} is not ({Cout},)")
-    packed = packed_kernel(kernel, x.dtype)
+    tf32x3 = x.dtype == torch.float32 and tf32_takes(Cin)
+    packed = packed_kernel(kernel, x.dtype, tf32x3)
     operands = (packed,) if bias is None else (packed, bias)
     dtype, device, stream = _build.launch_args("conv3x3", x, *operands)
     if x.data_ptr() % 16:
         raise ValueError("conv3x3: x must start on a 16-byte boundary")
     y = torch.empty((B, H - 2, W - 2, Cout), dtype=x.dtype, device=x.device)
-    cp = packed.shape[1] if x.dtype == torch.bfloat16 else packed.shape[-1]
+    cp = packed.shape[1] if x.dtype == torch.bfloat16 else packed.shape[3 if tf32x3 else -1]
     fn = _build.entry("conv3x3", "rn_conv3x3", _ARGS)
     rc = fn(x.data_ptr(), packed.data_ptr(), None if bias is None else bias.data_ptr(),
             y.data_ptr(), B, H, W, Cin, Cout, cp, dtype, device, stream)
@@ -155,7 +217,10 @@ def variant(shape: tuple, cout: int, dtype: torch.dtype) -> dict:
     builds the library but launches nothing): VARIANT_FIELDS by name, `path`
     one of PATHS. Raises on a shape the kernel refuses."""
     _, H, W, cin = shape
-    cp = cout_padded(cout) if dtype == torch.bfloat16 else min(F32_NT, cout_padded(cout))
+    if dtype == torch.bfloat16:
+        cp = cout_padded(cout)
+    else:
+        cp = tf32_nt(cin, cout) if tf32_takes(cin) else min(F32_NT, cout_padded(cout))
     out = (ctypes.c_int * len(VARIANT_FIELDS))()
     fn = _build.entry("conv3x3", "rn_conv3x3_variant", [I] * 6 + [P])
     _build.check("conv3x3", "rn_conv3x3_variant", fn(H, W, cin, cout, cp, int(dtype == torch.bfloat16), out))

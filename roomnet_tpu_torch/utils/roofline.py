@@ -10,18 +10,25 @@ rates given; the model leaves out padding, layouts and weight reads, so it
 bounds from below.
 
 Default peaks: one NVIDIA H100 SXM (NVIDIA's data sheet, dense): 989
-TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32 outside them, 3.35 TB/s
-HBM. `summarize(..., dtype_bytes=4, peak_flops=H100_F32_PEAK_FLOPS)` is the
-f32 forward's. This is the whole forward's yardstick; chip_smoke.py's
-per-kernel bound counts each kernel's own bytes and operations.
+TFLOP/s bf16 on the tensor cores, 495 TFLOP/s TF32 on them, 67 TFLOP/s f32
+outside them, 3.35 TB/s HBM. The f32 forward's is `summarize(...,
+dtype_bytes=4, peak_flops=H100_F32_PEAK_FLOPS, conv_peak_flops=rule)`, where
+`rule(cin)` is H100_TF32_PEAK_FLOPS / TF32X3_PASSES for the convs the port
+runs as TF32 products over a hi/lo split (three per f32 product are what
+f32 accuracy needs) and the f32 peak for the rest (conv 0). This is
+the whole forward's yardstick; chip_smoke.py's per-kernel bound counts each
+kernel's own bytes and operations.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 H100_BF16_PEAK_FLOPS = 989e12
+H100_TF32_PEAK_FLOPS = 495e12
 H100_F32_PEAK_FLOPS = 67e12
+TF32X3_PASSES = 3  # TF32 products an f32-accurate product needs (hi*hi, hi*lo, lo*hi)
 H100_HBM_BYTES_PER_S = 3.35e12
 
 
@@ -87,17 +94,33 @@ def cfg_filters_resize(filters: int) -> float:
     return float(filters)
 
 
+def conv_inputs(cfg) -> dict[str, int]:
+    """{conv group name: its input channels}, as `forward_groups` names them."""
+    out, in_ch = {}, 3
+    for bi, (filters, depth) in enumerate(zip(cfg.block_filters, cfg.block_depths)):
+        for d in range(depth):
+            out[f"b{bi + 1}.conv{d}"] = in_ch if d == 0 else filters
+        in_ch = filters
+    return out
+
+
 def summarize(cfg, batch: int, *, dtype_bytes: int = 2, peak_flops: float = H100_BF16_PEAK_FLOPS,
-              hbm_bw: float = H100_HBM_BYTES_PER_S, measured_s: float | None = None) -> dict:
+              hbm_bw: float = H100_HBM_BYTES_PER_S, measured_s: float | None = None,
+              conv_peak_flops: Callable[[int], float] | None = None) -> dict:
     """The forward's totals and ideal time at `batch`; with `measured_s`
     (one forward's time, in seconds), the achieved rate and shares of the
     peak and of the ideal. `pct_bf16_roofline` keeps the JAX package's
-    name: it is the share of `peak_flops`, whatever that peak's type."""
+    name: it is the share of `peak_flops`, whatever that peak's type. With
+    `conv_peak_flops`, each conv group runs at conv_peak_flops(its Cin)
+    (the f32 forward's three TF32 passes) and `pct_bf16_roofline` is the
+    operations' least time at those rates over the measured time."""
     groups = forward_groups(cfg, batch, dtype_bytes)
+    cins = conv_inputs(cfg) if conv_peak_flops is not None else {}
+    peaks = [conv_peak_flops(cins[g.name]) if g.name in cins else peak_flops for g in groups]
     total_flops = sum(g.flops for g in groups)
     total_bytes = sum(g.hbm_bytes for g in groups)
-    ideal = sum(g.ideal_s(peak_flops, hbm_bw) for g in groups)
-    hbm_ideal = sum(g.ideal_s(peak_flops, hbm_bw) for g in groups if g.hbm_bound(peak_flops, hbm_bw))
+    ideal = sum(g.ideal_s(pk, hbm_bw) for g, pk in zip(groups, peaks))
+    hbm_ideal = sum(g.ideal_s(pk, hbm_bw) for g, pk in zip(groups, peaks) if g.hbm_bound(pk, hbm_bw))
     out = {
         "batch": batch,
         "total_gflops": total_flops / 1e9,
@@ -108,6 +131,9 @@ def summarize(cfg, batch: int, *, dtype_bytes: int = 2, peak_flops: float = H100
     if measured_s is not None:
         out["measured_ms"] = measured_s * 1e3
         out["achieved_tflops"] = total_flops / measured_s / 1e12
-        out["pct_bf16_roofline"] = 100.0 * total_flops / measured_s / peak_flops
+        if conv_peak_flops is None:
+            out["pct_bf16_roofline"] = 100.0 * total_flops / measured_s / peak_flops
+        else:
+            out["pct_bf16_roofline"] = 100.0 * sum(g.flops / pk for g, pk in zip(groups, peaks)) / measured_s
         out["pct_of_ideal"] = 100.0 * ideal / measured_s
     return out

@@ -243,11 +243,21 @@ def test_cuda_conv3x3_wgmma_tensor_parallel_slice(cuda_device, batch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("site", range(len(U.CONV_SITES)))
 def test_cuda_conv3x3_dispatch_by_shape(cuda_device, site):
-    """Cin = 3 takes mma.sync, Cin 8 and multiples of 16 wgmma + TMA with the
-    twin's plan (rows per warp, stages, tile, shared memory, the output's
-    stores)."""
+    """bf16: Cin = 3 takes mma.sync, Cin 8 and multiples of 16 wgmma + TMA
+    with the twin's plan (rows per warp, stages, tile, shared memory, the
+    output's stores). f32: Cin = 3 stays on the CUDA cores, the others take
+    TF32 passes over a hi/lo split with the twin's plan (NT, m64 blocks, stages, Cout
+    tiles, 8 channels a stage, shared memory)."""
     h, cin, cout = U.CONV_SITES[site]
     v = KC.variant((256, h, h, cin), cout, torch.bfloat16)
+    f = KC.variant((256, h, h, cin), cout, torch.float32)
+    if not KC.tf32_takes(cin):
+        assert f["path"] == "f32 CUDA cores"
+    else:
+        t = U.tf_plan(cin, cout)
+        assert f["path"] == "tf32x3 wgmma+TMA" and f["warpgroups"] == U.WG_GROUPS and not f["tma_store"]
+        assert (f["cp"], f["sub"], f["stages"], f["rows"], f["cols"], f["smem"], f["cout_tiles"], f["chunk"]) == (
+            t["nt"], t["mi"], t["stages"], t["th"], U.WG_TW, t["smem"], t["cout_tiles"], 8)
     if not U.wg_takes(cin):
         assert v["path"] == "mma.sync"
         return
@@ -256,7 +266,101 @@ def test_cuda_conv3x3_dispatch_by_shape(cuda_device, site):
     assert (v["sub"], v["stages"], v["rows"], v["cols"], v["smem"]) == (p["mi"], p["stages"], p["th"], U.WG_TW,
                                                                           p["smem"])
     assert v["tma_store"] == (p["obox"] > 0)
-    assert KC.variant((256, h, h, cin), cout, torch.float32)["path"] == "f32 CUDA cores"
+
+
+# The f32 TF32 path over a hi/lo split (csrc/conv3x3.cu, namespace tf), held against
+# conv3x3_plain at phase 2's f32 conv gate (rtol = atol = 1e-4; one TF32
+# pass misses it, tests/test_torch_kernels.py) at every main-path shape it
+# takes, many tiles per warpgroup, ragged edges, the TP slice, roomnet-600;
+# inputs in ReLU6's range, as the f32 path sees them past conv 0.
+def _f32_conv_case(device, batch, h, w, cin, cout, seed, with_bias=False):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.rand(batch, h, w, cin) * 6).astype(np.float32)).to(device)
+    k = torch.from_numpy((rng.randn(3, 3, cin, cout) / np.sqrt(9 * cin)).astype(np.float32)).to(device)
+    bias = torch.from_numpy(rng.randn(cout).astype(np.float32)).to(device) if with_bias else None
+    return x, k, bias
+
+
+def _assert_f32_conv(x, k, bias, path="tf32x3 wgmma+TMA"):
+    assert KC.variant(tuple(x.shape), k.shape[3], torch.float32)["path"] == path
+    got, want = conv3x3(x, k, bias), conv3x3_plain(x, k, bias)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", range(1, len(U.CONV_SITES)))
+@pytest.mark.parametrize("batch", [8, 640])
+def test_cuda_conv3x3_tf32x3_main_path_shapes(cuda_device, site, batch):
+    h, cin, cout = U.CONV_SITES[site]
+    _assert_f32_conv(*_f32_conv_case(cuda_device, batch, h, h, cin, cout, seed=site + batch, with_bias=True))
+    torch.cuda.empty_cache()  # up to 12 GB at batch 640: hand it back before later tests spawn ranks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [8, 16, 32, 64, 128, 48])
+@pytest.mark.parametrize("cout", [6, 8, 16, 32, 36, 64, 128])
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+def test_cuda_conv3x3_tf32x3_channels_and_ragged_edges(cuda_device, cin, cout, with_bias):
+    """Tiles of 4 * blocks rows and 14 columns cut at the edge, Cout tiles
+    cut at Cout (6, 36), several Cout tiles (Cin 64 and 128 at Cout >= 32),
+    Cin 48 (six K chunks)."""
+    for batch, h, w in ((2, 23, 31), (1, 9, 45), (3, 30, 16)):
+        _assert_f32_conv(*_f32_conv_case(cuda_device, batch, h, w, cin, cout, seed=cin + cout + h,
+                                         with_bias=with_bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [3, 256])
+def test_cuda_conv3x3_tf32x3_tensor_parallel_slice(cuda_device, batch):
+    """Block 4's conv column-sharded over a 'model' axis of 2: 48^2 x 64 -> 64."""
+    _assert_f32_conv(*_f32_conv_case(cuda_device, batch, 48, 48, 64, 64, seed=batch))
+
+
+@pytest.mark.cuda
+def test_cuda_conv3x3_tf32x3_roomnet_600_shapes(cuda_device):
+    """Every conv of roomnet-600's forward at batch 2: conv 0 on the CUDA
+    cores, the rest TF32 passes over a hi/lo split."""
+    cfg = registry.get("roomnet-600")
+    side, cin, seen = cfg.im_side, 3, 0
+    for bi, (filters, depth) in enumerate(zip(cfg.block_filters, cfg.block_depths)):
+        for d in range(depth):
+            c = cin if d == 0 else filters
+            path = "tf32x3 wgmma+TMA" if KC.tf32_takes(c) else "f32 CUDA cores"
+            _assert_f32_conv(*_f32_conv_case(cuda_device, 2, side, side, c, filters, seed=bi * 10 + d), path=path)
+            seen += path != "f32 CUDA cores"
+            side -= 2
+            if cfg.block_pools[bi] is not None:
+                pk, pst = cfg.block_pools[bi]
+                side = (side - pk) // pst + 1
+        cin = filters
+    assert seen == 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [3, 4, 12, 20, 264])
+def test_cuda_conv3x3_f32_cin_the_path_refuses_stays_on_the_cuda_cores(cuda_device, cin):
+    """Cin not a multiple of 8, or past 256: the CUDA cores' full f32."""
+    assert not KC.tf32_takes(cin)
+    _assert_f32_conv(*_f32_conv_case(cuda_device, 2, 13, 19, cin, 16, seed=cin, with_bias=True),
+                     path="f32 CUDA cores")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(8, 32), (64, 128), (128, 16)])
+def test_cuda_conv3x3_tf32x3_keeps_nan(cuda_device, cin, cout):
+    """NaN in the input stays NaN through the split (hi keeps it, lo is 0):
+    the outputs that see one are NaN exactly where the plain version's are,
+    the rest within the gate."""
+    x, k, bias = _f32_conv_case(cuda_device, 2, 17, 23, cin, cout, seed=cin)
+    x[:, ::6, ::7, cin // 2] = float("nan")
+    got, want = conv3x3(x, k, bias), conv3x3_plain(x, k, bias)
+    torch.cuda.synchronize()
+    assert torch.isnan(want).any() and not torch.isnan(want).all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    keep = ~torch.isnan(want)
+    torch.testing.assert_close(got[keep], want[keep], rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

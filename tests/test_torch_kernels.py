@@ -33,7 +33,7 @@ from roomnet_tpu_torch.ops.kernels.dense_head import dense_head_plain, pack_head
 from roomnet_tpu_torch.ops.kernels.pool import relu6_pool_bn_plain
 from roomnet_tpu_torch.ops.kernels.residual import residual_bn_plain, source_pairs
 from roomnet_tpu_torch.ops.resize import interp_matrix_tf1
-from tests.conftest import ARTIFACTS
+from tests.conftest import ARTIFACTS, GOLDEN_DIR
 from tests import torch_port_util as U
 from tests.torch_port_util import outputs, random_bn, torch_tree, wrapper_cases
 
@@ -337,6 +337,209 @@ def test_conv3x3_wgmma_replay_matches_plain(cin, cout, shape):
     got = U.wg_replay(x, KC.pack_bf16(k), cout, bias)
     want = conv3x3_plain(x, k, bias)
     torch.testing.assert_close(got.float(), want.float(), rtol=BF16_ULP, atol=1e-5)
+
+
+# -- conv3x3's f32 TF32 path over a hi/lo split, replayed by its twin (tests/torch_port_util.py)
+
+# Every Cin up to 128 that the path takes.
+TF_CINS = [cin for cin in range(1, 129) if KC.tf32_takes(cin)]
+# (Cin, Cout) of the main path's f32 sites it takes (1-9), the TP slice of
+# block 4 (Cout 64), Cout that no tile width holds whole (6, 36), Cin 48.
+TF_PAIRS = sorted({(ci, co) for _, ci, co in U.CONV_SITES[1:]} | {(64, 64), (8, 6), (16, 36), (48, 24)})
+# Main-path sites 1-9, narrowed: (B, H, W) with tiles cut by H and W.
+TF_SHAPES = [(2, 19, 33), (3, 13, 11)]
+
+
+def _relu6_range_operands(shape, cin, cout, seed):
+    """x in ReLU6's range [0, 6), a Glorot-scaled HWIO kernel and a bias, f32:
+    the operands the f32 path sees past conv 0."""
+    rng = np.random.RandomState(seed)
+    x = T((rng.rand(*shape, cin) * 6).astype(np.float32))
+    k = T((rng.randn(3, 3, cin, cout) / np.sqrt(9 * cin)).astype(np.float32))
+    return x, k, T(rng.randn(cout).astype(np.float32))
+
+
+def _outside_gate(got, want, tol=1e-4):
+    """Values of `got` outside phase 2's f32 conv gate (rtol = atol = 1e-4)."""
+    return int(((got - want).abs() > tol + tol * want.abs()).sum())
+
+
+def test_conv3x3_tf32_takes_multiples_of_8_up_to_256():
+    """The path admits Cin % 8 == 0 up to 256 (csrc/conv3x3.cu:tf::takes),
+    and every such Cin has a plan at Cout 8, 16 and 128; conv 0's 3 channels
+    stay on the CUDA cores."""
+    for cin in range(1, 300):
+        assert KC.tf32_takes(cin) == (cin % 8 == 0 and cin <= 256), cin
+        if KC.tf32_takes(cin):
+            for cout in (8, 16, 128):
+                p = U.tf_plan(cin, cout)
+                assert p["smem"] <= U.WG_MAX_SMEM and 72 * cin * p["nt"] <= KC.TF32_W_MAX
+    assert not KC.tf32_takes(U.CONV_SITES[0][1])
+
+
+@pytest.mark.parametrize("cin", TF_CINS)
+def test_conv3x3_tf32_a_descriptor_reads_the_shifted_halo(cin):
+    """Each chunk's A descriptors, over a stage of two 4-channel TMA boxes,
+    give row m of block i the 8 channels of the chunk at halo pixel 64i + m
+    shifted by the tap: tagged pixels read back at the descriptor's offsets,
+    at every Cin the path takes (the taps are an unrolled loop: nothing is
+    found by arithmetic on Cin)."""
+    p = U.tf_plan(cin, 16)
+    npix = (p["th"] + 2) * U.WG_HWD
+    rows, ks = np.meshgrid(np.arange(64), np.arange(8), indexing="ij")
+    keep = None
+    for k in range(p["chunks"]):
+        # Tag every (pixel, channel) of chunk k where its box put it.
+        stage = np.full(p["chunk_bytes"] // 4 + 8, -1, np.int64)
+        pix, ch = np.meshgrid(np.arange(npix), np.arange(8), indexing="ij")
+        stage[(ch // 4) * (p["box_bytes"] // 4) + pix * 4 + ch % 4] = pix * 1000 + 8 * k + ch
+        for tap in range(9):
+            dy, dx = divmod(tap, 3)
+            for blk in range(p["mi"]):
+                d = U.tf_a_descriptor(p, tap, blk)
+                assert d["lbo"] % 16 == 0 and d["lbo"] >> 4 < 1 << 14 and d["start"] % 16 == 0
+                got = stage[U.desc_offset32(d, rows, ks) // 4]
+                want = (blk * 64 + rows + dy * U.WG_HWD + dx) * 1000 + 8 * k + ks
+                # Rows of the 2 discarded columns may read past the halo.
+                keep = (rows + blk * 64) % U.WG_HWD < U.WG_TW
+                assert np.array_equal(got[keep], want[keep]), f"chunk {k} tap {tap} block {blk}"
+    assert keep is not None
+
+
+@pytest.mark.parametrize("cin,cout", TF_PAIRS)
+def test_conv3x3_tf32_b_descriptor_reads_the_split_kernel(cin, cout):
+    """Every (chunk, tap) B element (k, n) of every Cout tile, read from
+    pack_tf32x3's bytes at the descriptor's K-major offsets, is the hi (and
+    lo) part of the HWIO weight of channel 8 * chunk + k, output channel
+    tile * NT + n (zero past Cout)."""
+    _, kern, _ = _relu6_range_operands((1, 3, 3), cin, cout, seed=60 + cin + cout)
+    packed = KC.pack_tf32x3(kern)
+    p = U.tf_plan(cin, cout)
+    assert packed.shape == (p["cout_tiles"], 2, p["nsp"], p["nt"], 4)
+    nt = p["nt"]
+    wflat = packed.numpy().reshape(p["cout_tiles"], -1)
+    hwio = np.zeros((9, cin, p["cout_tiles"] * nt), np.float32)
+    hwio[..., :cout] = kern.numpy().reshape(9, cin, cout)
+    hi, lo = (t.numpy() for t in KC.tf32_split(T(hwio)))
+    nn, kk = np.meshgrid(np.arange(nt), np.arange(8), indexing="ij")
+    for y in range(p["cout_tiles"]):
+        for k in range(p["chunks"]):
+            for tap in range(9):
+                for part, want in ((False, hi), (True, lo)):
+                    d = U.tf_b_descriptor(p, k, tap, part)
+                    assert d["lbo"] >> 4 < 1 << 14
+                    got = wflat[y][U.desc_offset32(d, nn, kk) // 4]  # (n, k)
+                    assert np.array_equal(got.T, want[tap, 8 * k:8 * k + 8, y * nt:(y + 1) * nt]), (y, k, tap)
+
+
+@pytest.mark.parametrize("site", range(1, len(U.CONV_SITES)))
+def test_conv3x3_pack_tf32x3_unpacks_to_hwio(site):
+    """hi + lo of every packed weight is the HWIO kernel within 2^-23 of it
+    (lo's own TF32 rounding: half a TF32 ulp of |k - hi| <= 2^-12 |k|), both
+    TF32 values (the 13 low mantissa bits zero), hi the rna rounding of
+    the weight; the padding is zeros."""
+    _, cin, cout = U.CONV_SITES[site]
+    _, kern, _ = _relu6_range_operands((1, 3, 3), cin, cout, seed=70 + site)
+    packed = KC.pack_tf32x3(kern)
+    p = U.tf_plan(cin, cout)
+    tiles, nt = p["cout_tiles"], p["nt"]
+    bits = packed.view(torch.int32)
+    assert not (bits & 0x1FFF).any()
+    # [tile][part][chunk][tap][b][n][e] -> (tap, chunk, b, e) = Cin, (tile, n) = Cout.
+    parts = packed.reshape(tiles, 2, cin // 8, 9, 2, nt, 4).permute(1, 3, 2, 4, 6, 0, 5).reshape(2, 9, cin, -1)
+    back = (parts[0].double() + parts[1].double())[..., :cout].reshape(3, 3, cin, cout)
+    torch.testing.assert_close(back, kern.double(), rtol=2.0 ** -23, atol=0)
+    assert torch.equal(parts[0][..., :cout].reshape(3, 3, cin, cout), KC.tf32(kern))
+    assert not parts[:, ..., cout:].any()
+
+
+def test_conv3x3_tf32x3_packed_kernel_is_cached_per_tensor_and_version():
+    """The TF32 split layout is cached beside the CUDA cores' one, per
+    kernel tensor, and made again after an in-place change."""
+    _, k, _ = _relu6_range_operands((1, 3, 3), 32, 64, seed=6)
+    first = KC.packed_kernel(k, torch.float32, tf32x3=True)
+    cores = KC.packed_kernel(k, torch.float32)
+    assert KC.packed_kernel(k, torch.float32, tf32x3=True) is first
+    assert KC.packed_kernel(k, torch.float32) is cores and cores.shape != first.shape
+    assert torch.equal(first, KC.pack_tf32x3(k))
+    k.mul_(2.0)
+    again = KC.packed_kernel(k, torch.float32, tf32x3=True)
+    assert again is not first and torch.equal(again, KC.pack_tf32x3(k))
+
+
+@pytest.mark.parametrize("site", range(1, len(U.CONV_SITES)))
+@pytest.mark.parametrize("shape", TF_SHAPES, ids=["19x33", "13x11"])
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+def test_conv3x3_tf32_replay_matches_plain(site, shape, with_bias):
+    """The whole path by its twin's index arithmetic (TMA boxes per K chunk,
+    the rna split, A and B descriptors, four products, the tile walk's clip)
+    gives conv3x3_plain within phase 2's f32 conv gate at every main-path
+    site's channels, tiles cut by H and W."""
+    _, cin, cout = U.CONV_SITES[site]
+    x, k, bias = _relu6_range_operands(shape, cin, cout, seed=80 + site)
+    bias = bias if with_bias else None
+    got = U.tf_replay(x, KC.pack_tf32x3(k), cout, bias)
+    want = conv3x3_plain(x, k, bias)
+    assert got.shape == want.shape and _outside_gate(got, want) == 0
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (8, 6), (16, 36), (48, 24)])
+def test_conv3x3_tf32_replay_matches_plain_off_the_main_path(cin, cout):
+    """The TP slice of block 4 (Cout 64 in two tiles of 32), Cout that no
+    tile width holds whole, Cin 48 (six chunks), with bias."""
+    x, k, bias = _relu6_range_operands((2, 12, 17), cin, cout, seed=90 + cin + cout)
+    torch.testing.assert_close(U.tf_replay(x, KC.pack_tf32x3(k), cout, bias), conv3x3_plain(x, k, bias),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("site", range(1, len(U.CONV_SITES)))
+def test_conv3x3_tf32_one_pass_mutant_fails_the_gate(site):
+    """The same twin with one TF32 pass (hi_a * hi_b alone) falls outside
+    the gate that four products and three (without lo_a * lo_b) meet: the
+    gate sees the difference."""
+    _, cin, cout = U.CONV_SITES[site]
+    x, k, bias = _relu6_range_operands(TF_SHAPES[0], cin, cout, seed=80 + site)
+    want = conv3x3_plain(x, k, bias)
+    for passes in (4, 3):
+        assert _outside_gate(U.tf_replay(x, KC.pack_tf32x3(k), cout, bias, passes=passes), want) == 0
+    assert _outside_gate(U.tf_replay(x, KC.pack_tf32x3(k), cout, bias, passes=1), want) > 0
+
+
+@pytest.mark.parametrize("cin,cout", [(8, 32), (32, 64), (64, 128), (128, 16)])
+def test_conv3x3_tf32_replay_matches_pallas_highest(cin, cout):
+    """The twin against the Pallas kernel it replaces, run in interpret mode
+    at its Precision.HIGHEST contraction, within the same gate."""
+    x, k, _ = _relu6_range_operands((1, 18, 23), cin, cout, seed=100 + cin)
+    want = np.asarray(conv3x3_pallas(x.numpy(), k.numpy(), row_tile=8, interpret=True))
+    got = U.tf_replay(x, KC.pack_tf32x3(k), cout)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_conv3x3_tf32_twin_forward_matches_the_tf_golden(monkeypatch):
+    """The port's f32 forward on the 7-image golden batch with every conv
+    the path takes swapped for its twin (conv 0 stays plain, as it stays on
+    the CUDA cores): logits within 1e-4 of the TF graph, argmax exact."""
+    from roomnet_tpu_torch.models import roomnet as M
+    from roomnet_tpu_torch.params.schema import load_npz
+
+    replayed = []
+
+    def twin(x, kernel, bias=None):
+        if not KC.tf32_takes(x.shape[3]):
+            return conv3x3_plain(x, kernel, bias)
+        replayed.append(x.shape[3])
+        return U.tf_replay(x, KC.pack_tf32x3(kernel), kernel.shape[3], bias)
+
+    g = dict(np.load(GOLDEN_DIR / "forward_golden.npz"))
+    variables = load_npz(ARTIFACTS / "roomnet_params.npz", device="cpu")
+    monkeypatch.setattr(M, "conv3x3", twin)
+    monkeypatch.setattr(M, "conv3x3_autograd", twin)
+    with torch.no_grad():
+        logits = M.forward(variables, M.normalize_bgr_uint8(T(g["x_uint8_bgr"])), M.DEFAULT_CONFIG).numpy()
+    assert replayed == [cin for _, cin, _ in U.CONV_SITES[1:]]
+    np.testing.assert_array_equal(logits.argmax(-1), g["argmax"])
+    assert np.abs(logits - g["logits"]).max() <= 1e-4
 
 
 # -- relu6_pool_bn -----------------------------------------------------------

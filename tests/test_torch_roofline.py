@@ -67,3 +67,27 @@ def test_scales_linearly_with_batch():
     a, b = R.summarize(DEFAULT_CONFIG, 128), R.summarize(DEFAULT_CONFIG, 256)
     np.testing.assert_allclose(2 * a["total_gflops"], b["total_gflops"], rtol=0.01)
     np.testing.assert_allclose(2 * a["total_hbm_GB"], b["total_hbm_GB"], rtol=0.01)
+
+
+def test_f32_forward_counts_the_three_pass_convs_at_their_rate():
+    """With the f32 conv's rule (three TF32 passes at 495 TFLOP/s where the
+    port takes the Cin, the f32 peak at conv 0), a forward of 18 ms (a time
+    given, not measured) faster than the CUDA cores' ideal reads under 100%
+    of the three-pass ideal and of its operations' least time."""
+    from roomnet_tpu_torch.ops.kernels.conv3x3 import tf32_takes
+
+    def rule(cin):
+        return R.H100_TF32_PEAK_FLOPS / R.TF32X3_PASSES if tf32_takes(cin) else R.H100_F32_PEAK_FLOPS
+
+    assert R.conv_inputs(DEFAULT_CONFIG) == {"b1.conv0": 3, "b2.conv0": 8, "b2.conv1": 32, "b2.conv2": 32,
+                                            "b3.conv0": 32, "b3.conv1": 64, "b4.conv0": 64, "b5.conv0": 128,
+                                            "b5.conv1": 16, "b5.conv2": 16}
+    f32 = dict(dtype_bytes=4, peak_flops=R.H100_F32_PEAK_FLOPS, measured_s=0.018)
+    cores = R.summarize(DEFAULT_CONFIG, 256, **f32)
+    three = R.summarize(DEFAULT_CONFIG, 256, conv_peak_flops=rule, **f32)
+    assert R.H100_TF32_PEAK_FLOPS == 495e12 and R.TF32X3_PASSES == 3
+    assert three["ideal_ms"] < 18 < cores["ideal_ms"] and three["total_gflops"] == cores["total_gflops"]
+    assert cores["pct_of_ideal"] > 100
+    assert 0 < three["pct_bf16_roofline"] < three["pct_of_ideal"] < 100
+    # No rule: the JAX module's summary, as before.
+    assert R.summarize(DEFAULT_CONFIG, 256, conv_peak_flops=None, **f32) == cores

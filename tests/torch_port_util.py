@@ -300,3 +300,123 @@ def wg_replay(x: torch.Tensor, packed: torch.Tensor, cout: int, bias=None) -> to
         nr, nc = min(th, ho - r0), min(WG_TW, wo - c0)
         y[bi, r0:r0 + nr, c0:c0 + nc] = out[:nr, :nc]
     return y
+
+
+# -- a twin of the f32 conv's TF32 path over a hi/lo split (csrc/conv3x3.cu, namespace tf)
+
+TF_KB = 2  # 4-channel TMA boxes of one K chunk (8 input channels)
+
+
+def tf_layout(nsp: int, nt: int, mi: int, stages: int) -> dict:
+    """tf::layout: the shared-memory plan of one launch, bytes from the
+    block's 1024-aligned base."""
+    p = {"mi": mi, "stages": stages, "th": 4 * mi, "nt": nt, "nsp": nsp}
+    p["box_bytes"] = (4 * mi + 2) * WG_HWD * 16
+    p["chunk_bytes"] = TF_KB * p["box_bytes"]
+    p["off_lo"] = WG_GROUPS * stages * p["chunk_bytes"]
+    p["off_w"] = p["off_lo"] + WG_GROUPS * p["chunk_bytes"]
+    p["off_bar"] = p["off_w"] + 2 * nsp * nt * 16
+    p["smem"] = 1024 + p["off_bar"] + 8 * WG_GROUPS * stages
+    return p
+
+
+def tf_plan(cin: int, cout: int) -> dict:
+    """tf::plan for the packed NT (ops/kernels/conv3x3.py:tf32_nt): the
+    most m64 blocks the accumulators allow (64 a thread), then 4 stages
+    before 3 and 2; plus the K chunks and the Cout tiles."""
+    from roomnet_tpu_torch.ops.kernels.conv3x3 import tf32_nt
+
+    nt, nsp = tf32_nt(cin, cout), 9 * cin // 4
+    mi_max = 2 if nt >= 64 else 4
+    for mi in (m for m in (4, 2, 1) if m <= mi_max):
+        for stages in (4, 3, 2):
+            p = tf_layout(nsp, nt, mi, stages)
+            if p["smem"] <= WG_MAX_SMEM:
+                return {**p, "chunks": cin // 8, "cout_tiles": -(-cout // nt)}
+    raise ValueError(f"conv3x3: no TF32 split plan fits Cin {cin}, Cout {cout}")
+
+
+def desc_offset32(desc: dict, row, k):
+    """Byte offset of f32 element (row, k) of a K-major no-swizzle operand
+    whose descriptor is `desc`: core matrix (row // 8, k // 4) of 8 rows x 16
+    bytes (4 TF32 values)."""
+    return desc["start"] + (row // 8) * desc["sbo"] + (k // 4) * desc["lbo"] + (row % 8) * 16 + (k % 4) * 4
+
+
+def tf_a_descriptor(p: dict, tap: int, blk: int) -> dict:
+    """The A descriptor of m64 block `blk` at `tap` over a stage (or its lo
+    twin) at offset 0, in bytes: the 64 halo pixels from line 4 * blk
+    shifted by the tap, the second k half (box 1) one box on, 8 pixels
+    128 bytes apart. The same at every chunk: the taps are the kernel's
+    unrolled loop, no arithmetic on Cin."""
+    return {"start": blk * 64 * 16 + _toff(tap) * 16, "lbo": p["box_bytes"], "sbo": 128}
+
+
+def tf_b_descriptor(p: dict, chunk: int, tap: int, lo: bool) -> dict:
+    """The B descriptor of (chunk, tap) in bytes from one Cout tile's packed
+    image: slices (chunk * 9 + tap) * 2 and the next, NT * 16 bytes apart,
+    groups of 8 output channels 128 apart; lo a whole hi image on."""
+    nt = p["nt"]
+    start = (p["nsp"] * nt * 16 if lo else 0) + (chunk * 9 + tap) * TF_KB * nt * 16
+    return {"start": start, "lbo": nt * 16, "sbo": 128}
+
+
+def tf_replay(x: torch.Tensor, packed: torch.Tensor, cout: int, bias=None, passes: int = 4) -> torch.Tensor:
+    """The TF32 split path replayed with its own index arithmetic, all tiles
+    at once: per K chunk each tile's halo stage (two 4-channel TMA boxes,
+    zero past the image, NaN past the stage, where the shifted A of the 2
+    discarded columns reads), split by the kernel's rna rule into hi and a
+    lo twin; per tap and m64 block A read at the A descriptor's offsets, B
+    (hi and lo of every Cout tile) at the B descriptor's; lo_a*lo_b +
+    lo_a*hi_b + hi_a*lo_b + hi_a*hi_b summed in f32 (`passes=3`: without
+    lo_a*lo_b; `passes=1`: hi_a*hi_b alone, the one-pass mutant), each
+    chunk's sums then added to the tile's in f32 as
+    the kernel adds them; the tile's 14 columns clipped at the edge, plus
+    the bias. f32 x (B,H,W,Cin) with tf32_takes(Cin), packed by pack_tf32x3."""
+    from roomnet_tpu_torch.ops.kernels.conv3x3 import tf32_split
+
+    b_, h, w, cin = x.shape
+    p = tf_plan(cin, cout)
+    th, nt, mi = p["th"], p["nt"], p["mi"]
+    ho, wo = h - 2, w - 2
+    tiles = np.array(wg_tiles(ho, wo, b_, th))
+    xs = x.float().numpy()
+    wflat = packed.float().numpy().reshape(p["cout_tiles"], -1)
+    box_f, chunk_f = p["box_bytes"] // 4, p["chunk_bytes"] // 4
+    hr, hc = np.meshgrid(np.arange(th + 2), np.arange(WG_HWD), indexing="ij")
+    gh, gw = tiles[:, 1, None, None] + hr, tiles[:, 2, None, None] + hc
+    inside = (gh < h) & (gw < w)
+    rows, ks = np.meshgrid(np.arange(64), np.arange(8), indexing="ij")
+    nn, kk = np.meshgrid(np.arange(nt), np.arange(8), indexing="ij")
+    acc = np.zeros((len(tiles), mi, 64, p["cout_tiles"] * nt), np.float32)
+    for k in range(p["chunks"]):
+        vals = np.zeros((len(tiles), th + 2, WG_HWD, 8), np.float32)
+        vals[inside] = xs[np.broadcast_to(tiles[:, 0, None, None], gh.shape)[inside], gh[inside], gw[inside],
+                          8 * k:8 * k + 8]
+        stage = np.concatenate([vals[..., 4 * c:4 * c + 4].reshape(len(tiles), box_f) for c in range(TF_KB)], 1)
+        hi, lo = (np.concatenate([t.numpy(), np.full((len(tiles), 8), np.nan, np.float32)], 1)
+                  for t in tf32_split(torch.from_numpy(stage)))
+        assert hi.shape[1] == chunk_f + 8
+        # A rows of every tap of each block, the taps along K as the kernel issues them.
+        offs = np.stack([np.stack([desc_offset32(tf_a_descriptor(p, tap, blk), rows, ks) // 4 for tap in range(9)], 1)
+                         for blk in range(mi)])  # (mi, 64, 9, 8) floats
+        bmats = {}
+        for lo_b in (False, True):
+            bmats[lo_b] = np.concatenate([
+                np.concatenate([wflat[y][desc_offset32(tf_b_descriptor(p, k, tap, lo_b), nn, kk) // 4].T
+                                for y in range(p["cout_tiles"])], 1)
+                for tap in range(9)], 0)  # (9 * 8, cout_tiles * nt)
+        for blk in range(mi):  # the chunk's sums, then added to the tile's
+            a_hi = hi[:, offs[blk]].reshape(len(tiles) * 64, 72)
+            a_lo = lo[:, offs[blk]].reshape(len(tiles) * 64, 72)
+            pairs = [(a_lo, bmats[True]), (a_lo, bmats[False]), (a_hi, bmats[True]), (a_hi, bmats[False])][-passes:]
+            chunk = np.concatenate([a for a, _ in pairs], 1) @ np.concatenate([b for _, b in pairs], 0)
+            acc[:, blk] += chunk.reshape(len(tiles), 64, -1)
+    out = torch.from_numpy(acc.reshape(len(tiles), th, WG_HWD, -1)[:, :, :WG_TW, :cout].copy())
+    if bias is not None:
+        out = out + bias.float()
+    y = torch.zeros((b_, ho, wo, cout), dtype=torch.float32)
+    for t, (bi, r0, c0) in enumerate(tiles):
+        nr, nc = min(th, ho - r0), min(WG_TW, wo - c0)
+        y[bi, r0:r0 + nr, c0:c0 + nc] = out[t, :nr, :nc]
+    return y
