@@ -34,6 +34,7 @@ import logging
 import os
 import shutil
 import threading
+import time
 import warnings
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor, wait
@@ -48,7 +49,7 @@ from ..data.loader import center_crop, draw_crop_rect
 from ..models.roomnet import DEFAULT_CONFIG, fold_variables, forward_folded, normalize_bgr_uint8
 from ..ops.resize import resize_bilinear_half_pixel
 from ..parallel import collectives as C
-from ..utils.profiling import trace
+from ..utils.profiling import SPANS, trace
 from ..utils.xls import Workbook
 
 RING = 3  # host batches in flight: decode(i+2) ∥ H2D(i+1) ∥ forward(i)
@@ -316,7 +317,17 @@ class RoomNetClassifier:
         and e2e/wait_put (the compute stream made to wait for it); per call
         e2e/fetch (the one synchronize and the results' assembly). None of
         them adds a synchronize: on a CUDA device the per-batch spans time
-        the host's enqueue, not the device's work."""
+        the host's enqueue, not the device's work.
+
+        Beside them, outside e2e/* (`bench.py` reads every e2e/* entry as a
+        span), once per batch: the span stage/wait_fill, the part of the
+        main loop's e2e/wait_decode that overlaps the awaited batch's fill
+        call, from `time.perf_counter` stamps of the fill on the thread
+        that runs it and of the wait on the main thread (the rest of the
+        wait is the decode stage waiting for its ring slot's last forward,
+        the H2D enqueue and the hand-off); and the counter stage/fill_bytes,
+        the bytes fill wrote (kept rows x S*S*3), counted on the thread
+        that runs it."""
         bs = self.batch_size
         ids = np.full(n, -1, np.int64)
         confs = np.zeros((n, len(self.class_labels)), np.float32)
@@ -355,14 +366,17 @@ class RoomNetClassifier:
                 if released[slot] is not None:
                     released[slot].synchronize()
                 with trace("e2e/decode"):
+                    f0 = time.perf_counter()
                     kept = np.asarray(fill(b * bs, min(b * bs + bs, n), ring[slot].numpy()), np.int64)
+                    filled = (f0, time.perf_counter())
+                SPANS.count("stage/fill_bytes", kept.size * side * side * 3)
                 if kept.size == 0 or not cuda:
-                    return kept, ring[slot][: kept.size], None
+                    return kept, ring[slot][: kept.size], None, filled
                 with trace("e2e/device_put"), torch.cuda.stream(copy_stream):
                     x_dev = ring[slot][: kept.size].to(self.device, non_blocking=True)
                     copied = torch.cuda.Event()
                     copied.record(copy_stream)
-                return kept, x_dev, copied
+                return kept, x_dev, copied, filled
             except BaseException:
                 depth.release()  # the main loop will never release for us
                 raise
@@ -378,7 +392,10 @@ class RoomNetClassifier:
         try:
             for b in range(n_batches):
                 with trace("e2e/wait_decode"):
-                    kept, x, event = pending.popleft().result() if pending else stage_decode(b)
+                    w0 = time.perf_counter()
+                    kept, x, event, (f0, f1) = pending.popleft().result() if pending else stage_decode(b)
+                    w1 = time.perf_counter()
+                SPANS.add("stage/wait_fill", max(0.0, min(w1, f1) - max(w0, f0)))
                 if kept.size:
                     if event is not None:
                         with trace("e2e/wait_put"):

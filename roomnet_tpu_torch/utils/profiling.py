@@ -4,7 +4,6 @@
     profiler (`torch.profiler.record_function`, visible in a chrome trace)
     and adds its wall time to the process-wide registry `SPANS`;
   * `SPANS.count(name, value)`: accumulates a value (bytes shipped, ...);
-  * `StepTimer`: steps/s and images/s with an exponential moving average;
   * `trace_to(log_dir)`: a `torch.profiler` capture, written as a chrome trace;
   * `start_server(port)`: on-demand captures of a live process over HTTP
     (the counterpart of the JAX package's jax.profiler gRPC server).
@@ -202,32 +201,3 @@ def start_server(port: int = 9999, log_dir: str | None = None):
     threading.Thread(target=server.serve_forever, daemon=True, name="roomnet-profile-server").start()
     return server
 
-
-class StepTimer:
-    """steps/sec + images/sec counters with an exponential moving average."""
-
-    def __init__(self, ema: float = 0.9):
-        self.ema = ema
-        self._last: float | None = None
-        self.step_time_ema: float | None = None
-        self.total_steps = 0
-        self.total_images = 0
-        self._t0 = time.perf_counter()
-
-    def tick(self, batch_size: int) -> dict[str, float]:
-        now = time.perf_counter()
-        self.total_steps += 1
-        self.total_images += batch_size
-        out: dict[str, float] = {}
-        if self._last is not None:
-            dt = now - self._last
-            self.step_time_ema = (
-                dt if self.step_time_ema is None
-                else self.ema * self.step_time_ema + (1 - self.ema) * dt
-            )
-            out["step_ms"] = dt * 1e3
-            out["steps_per_sec"] = 1.0 / self.step_time_ema
-            out["images_per_sec"] = batch_size / self.step_time_ema
-        self._last = now
-        out["avg_images_per_sec"] = self.total_images / max(now - self._t0, 1e-9)
-        return out

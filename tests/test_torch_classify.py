@@ -12,6 +12,7 @@ argmax equal to the TF graph's, probs within 1e-5 of the port's `predict`.
 """
 
 import csv
+import json
 import os
 import sys
 import threading
@@ -21,6 +22,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch.profiler import record_function
 
 import chip_smoke
 from roomnet_tpu.data import dataset as jdataset
@@ -41,6 +43,7 @@ from roomnet_tpu_torch.ops.kernels import _build
 from roomnet_tpu_torch.ops.resize import resize_bilinear_half_pixel
 from roomnet_tpu_torch.params import schema as tschema
 from roomnet_tpu_torch.train import metrics as tmetrics
+from roomnet_tpu_torch.utils import profiling as tprof
 from roomnet_tpu_torch.utils import xls as txls
 from tests.conftest import ARTIFACTS, GOLDEN_DIR
 
@@ -356,6 +359,108 @@ def test_close_stops_the_decode_thread(weights, tmp_path):
     assert_same_predictions(tc.predict_paths(paths[:2]), tuple(a[:2] for a in before))
     with pytest.raises(RuntimeError, match="shutdown"):
         tc.predict_paths(paths)
+
+
+# -- the staging layer's span and counter ----------------------------------------
+
+
+def staging(call) -> dict:
+    """The span registry's summary of `call()` alone."""
+    tprof.SPANS.reset()
+    call()
+    return tprof.SPANS.summary()
+
+
+@pytest.mark.parametrize("n", [10, 3], ids=["three-batches", "one-batch"])
+def test_predict_records_the_fill_wait_and_bytes_once_per_batch(pair, n):
+    """stage/wait_fill and stage/fill_bytes once per batch, whether the
+    decode stage runs on the decode thread or (one batch) in the caller's;
+    the bytes are N*S*S*3 exactly, and the wait on the fill is a part of
+    e2e/wait_decode. A single batch is filled inside the caller's wait,
+    so all of its fill is waited on."""
+    _, tc = pair
+    side = tc.host_side
+    x = np.random.RandomState(0).randint(0, 256, (n, side, side, 3), np.uint8)
+    got = staging(lambda: tc.predict(x))
+    batches = -(-n // tc.batch_size)
+    assert got["stage/wait_fill"]["count"] == got["e2e/wait_decode"]["count"] == batches
+    assert got["stage/fill_bytes"] == {"total": n * side * side * 3, "count": batches}
+    assert got["stage/wait_fill"]["total_s"] <= got["e2e/wait_decode"]["total_s"]
+    assert batches > 1 or got["stage/wait_fill"]["total_s"] > 0
+
+
+@pytest.mark.parametrize("slow", ["fill", "forward"])
+def test_fill_wait_tells_the_hosts_fill_from_the_rest_of_the_wait(weights, monkeypatch, slow):
+    """A fill that sleeps 20 ms a batch sets the pace: the main loop waits
+    on it, and nearly all of e2e/wait_decode is stage/wait_fill. A forward
+    that sleeps 20 ms a batch sets it: the decode stage runs ahead, and the
+    wait on the fast fill is near 0, also where the decode thread is held
+    by other work before the call (as a ring slot's last forward holds it
+    on the card) and the main loop waits 100 ms for it."""
+    tc = TC.RoomNetClassifier(weights["tv"], weights["tcfg"], device="cpu", batch_size=4)
+    n_batches, pause = 6, 0.02
+    classes = len(tc.class_labels)
+
+    def forward(variables, x):
+        if slow == "forward":
+            time.sleep(pause)
+        return torch.zeros(x.shape[0], dtype=torch.int64), torch.zeros(x.shape[0], classes)
+
+    monkeypatch.setattr(tc, "_predict", forward)
+    x = np.zeros((4 * n_batches, tc.host_side, tc.host_side, 3), np.uint8)
+
+    def fill(start, stop, out):
+        if slow == "fill":
+            time.sleep(pause)
+        out[: stop - start] = x[start:stop]
+        return np.arange(stop - start)
+
+    def call():
+        held = tc._decoder.submit(time.sleep, 0.1 if slow == "forward" else 0.0)
+        tc.predict_stream(len(x), fill)
+        held.result()
+
+    try:
+        got = staging(call)
+    finally:
+        tc.close()
+    waited, on_fill = got["e2e/wait_decode"]["total_s"], got["stage/wait_fill"]["total_s"]
+    assert got["stage/wait_fill"]["count"] == n_batches
+    if slow == "fill":
+        assert waited >= 0.8 * n_batches * pause and on_fill >= 0.8 * waited
+    else:
+        assert waited >= 0.08 and on_fill < 0.1 * n_batches * pause
+
+
+def test_predict_paths_counts_the_bytes_of_the_kept_rows_alone(pair, tmp_path):
+    """An unreadable file fills no row of its batch: its bytes are not
+    counted."""
+    _, tc = pair
+    paths = write_images(str(tmp_path), 8)
+    paths.insert(3, write_corrupt(str(tmp_path)))
+    side = tc.host_side
+    got = staging(lambda: tc.predict_paths(paths))
+    assert got["stage/fill_bytes"] == {"total": 8 * side * side * 3, "count": 3}
+
+
+def test_all_thread_capture_puts_the_decode_thread_on_the_callers_clock(pair, tmp_path):
+    """Under `trace_to(all_threads=True)`, the capture server's path, the
+    chrome trace holds the decode thread's e2e/decode ranges, on another
+    thread than the caller's and inside the caller's own range: both on
+    the trace's one clock."""
+    _, tc = pair
+    x = np.zeros((12, tc.host_side, tc.host_side, 3), np.uint8)
+    tc.predict(x)  # the decode thread exists before the capture
+    with tprof.trace_to(str(tmp_path), all_threads=True):
+        with record_function("caller_range"):
+            tc.predict(x)
+    events = [e for e in json.load(open(tmp_path / "trace.json"))["traceEvents"] if "dur" in e]
+    outer = next(e for e in events if e["name"] == "caller_range")
+    decodes = [e for e in events if e["name"] == "e2e/decode"]
+    assert len(decodes) == 3
+    for e in decodes:
+        assert e["tid"] != outer["tid"]
+        assert outer["ts"] <= e["ts"] and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"]
 
 
 # -- device_resize_side --------------------------------------------------------
