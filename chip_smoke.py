@@ -34,7 +34,8 @@ kernels, in phases; any failure raises and the script exits non-zero:
      version runs eagerly (the residual's copies host arrays, which a graph
      cannot hold). Each site prints its launch plan: the conv's path
      (wgmma+TMA, mma.sync, the f32 TF32 split on wgmma+TMA or the f32
-     CUDA cores), rows per warp, tile, warpgroups, stages, wgmma shape, Cout
+     CUDA cores), rows per warp, tile, warpgroups, stages, wgmma shape (and
+     the TF32 split's wgmmas a tap and block, `tap_wgmmas`), Cout
      tiles, how the output is stored and shared
      memory (csrc/conv3x3.cu:rn_conv3x3_variant), the residual's strip, span, shared memory and
      blocks, the head's variant (resident or streamed, rows per block)
@@ -456,12 +457,22 @@ def parent_conv3x3(checkout: pathlib.Path):
     """Starts one nvcc on another checkout's csrc/conv3x3.cu, with this
     checkout's flags, into build/roomnet_tpu_torch/parent/. Returns a
     function that waits for it and gives a conv3x3(x, kernel, bias) through
-    that library's rn_conv3x3, which must take this checkout's C entry and
-    packed weights: pack_bf16's in bf16, pack_f32's (the CUDA cores') in
-    f32. Its launches count nowhere."""
+    that library's rn_conv3x3, which must take this checkout's C entry, on
+    weights packed by that checkout's ops/kernels/conv3x3.py (its
+    packed_kernel: pack_bf16 in bf16, pack_tf32x3 where its tf32_takes
+    admits Cin, else pack_f32; NT at dim 3 of pack_tf32x3's). Its launches
+    count nowhere."""
+    import importlib.util
+
     from roomnet_tpu_torch.ops.kernels import _build
     from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
 
+    # Loaded as a sibling of this checkout's module, so that its relative
+    # imports (blocks, _build) resolve here.
+    spec = importlib.util.spec_from_file_location("roomnet_tpu_torch.ops.kernels._parent_conv3x3",
+                                                  checkout / "roomnet_tpu_torch" / "ops" / "kernels" / "conv3x3.py")
+    PK = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(PK)
     out = _build.BUILD_DIR / "parent" / "libconv3x3.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     src = checkout / "roomnet_tpu_torch" / "csrc" / "conv3x3.cu"
@@ -478,10 +489,12 @@ def parent_conv3x3(checkout: pathlib.Path):
         def conv(x, kernel, bias=None):
             B, H, W, cin = x.shape
             bf16 = x.dtype == torch.bfloat16
-            packed = KC.packed_kernel(kernel, x.dtype)
+            tf32x3 = not bf16 and PK.tf32_takes(cin)
+            packed = PK.packed_kernel(kernel, x.dtype, tf32x3)
+            cp = packed.shape[1] if bf16 else packed.shape[3 if tf32x3 else -1]
             y = torch.empty((B, H - 2, W - 2, kernel.shape[3]), dtype=x.dtype, device=x.device)
             rc = fn(x.data_ptr(), packed.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
-                    B, H, W, cin, kernel.shape[3], packed.shape[1 if bf16 else -1], int(bf16), x.device.index,
+                    B, H, W, cin, kernel.shape[3], cp, int(bf16), x.device.index,
                     torch.cuda.current_stream(x.device).cuda_stream)
             if rc != 0:
                 raise RuntimeError(f"{src}: rn_conv3x3 returned CUDA error {rc}")
@@ -632,7 +645,8 @@ def main(argv=None) -> None:
         if v["path"] == "tf32x3 wgmma+TMA":
             return (f"{v['path']}, NT {v['cp']} ({v['cout_tiles']} Cout tiles), m64 blocks {v['sub']}, tile "
                     f"{v['rows']}x{v['cols']}, {v['warpgroups']} warpgroups, {v['stages']} stages of "
-                    f"{v['chunk']} channels, 4 x m64n{v['cp']}k8, lane stores, smem {v['smem']} B")
+                    f"{v['chunk']} channels, tap_wgmmas {v['tap_wgmmas']} x m64n{2 * v['cp']}k8 (B [hi | lo]), "
+                    f"lane stores, smem {v['smem']} B")
         s = f"{v['path']}, {names[0]} {v['cp']}, {names[1]} {v['sub']}, tile {v['rows']}x{v['cols']}"
         if v["path"] == "wgmma+TMA":
             s += (f", {v['warpgroups']} warpgroups, {v['stages']} stages, m64n{v['cp']}k16, "

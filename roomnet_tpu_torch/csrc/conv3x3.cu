@@ -52,22 +52,28 @@
 // wgmma over a hi/lo split, f32-accurate as the reference's
 // Precision.HIGHEST contraction (six bf16 passes of the TPU's MXU) is. Each
 // f32 operand is split into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna,
-// ties away from zero), and each k8 step sums lo_a*lo_b, lo_a*hi_b,
-// hi_a*lo_b and hi_a*hi_b, smallest first, into one f32 accumulator. Three
-// passes (without lo_a*lo_b, below f32's own rounding) are as accurate on
-// the card; the fourth is there for chip_smoke.py phase 10 (b), whose
-// moment gate failed with three (PERF.md §6). The halo, the descriptors
-// and the tile walk are the bf16 wgmma path's with a 4-channel TMA box (16
-// bytes a pixel, as the bf16 box of 8), so that 8 consecutive halo pixels
-// are again one core matrix at any tap offset. K runs in chunks of 8
-// channels, one halo stage each (Cin 128's whole halo would not fit beside
-// its weights): a warpgroup splits each stage in place into hi and a lo
-// twin once it lands, then issues the chunk's 9 taps x 4 passes x m64
-// blocks, and adds the chunk's sums into f32 registers rounded to nearest
-// (the tensor cores' own accumulation truncates: over a whole K of 1152 the
-// error reached the 1e-4 gate). B comes packed and split by
-// ops/kernels/conv3x3.py:pack_tf32x3 as
-// [Cout tile][hi, lo][slice][NT][4]; a block holds one Cout tile of NT
+// ties away from zero), and each k8 step computes the four products
+// lo_a*lo_b, lo_a*hi_b, hi_a*lo_b and hi_a*hi_b. Three (without lo_a*lo_b,
+// below f32's own rounding) are as accurate on the card; the fourth is there
+// for chip_smoke.py phase 10 (b), whose moment gate failed with three
+// (PERF.md §6). B is one operand of N = 2 * NT, the hi and lo weights of a
+// tile's NT output channels side by side ([hi | lo]), so the four products
+// are two wgmmas, lo_a*[hi | lo] and hi_a*[hi | lo], and each A tile is read
+// from shared memory twice, not four times: at NT 32 a k8 step reads 8 KB of
+// operands in its 64 tensor-core clocks, not 12 KB, within shared memory's
+// 128 bytes a clock (sites 1-9 at batch 256: 17.46 ms, four wgmmas of N = NT
+// 20.94; H100). The halo, the
+// descriptors and the tile walk are the bf16 wgmma path's with a 4-channel
+// TMA box (16 bytes a pixel, as the bf16 box of 8), so that 8 consecutive
+// halo pixels are again one core matrix at any tap offset. K runs in chunks
+// of 8 channels, one halo stage each (Cin 128's whole halo would not fit
+// beside its weights): a warpgroup splits each stage in place into hi and a
+// lo twin once it lands, then issues the chunk's 9 taps x 2 wgmmas x m64
+// blocks, and adds the chunk's sums into f32 registers rounded to nearest,
+// the lo-weight columns before the hi-weight ones (the tensor cores' own
+// accumulation truncates: over a whole K of 1152 the error reached the 1e-4
+// gate). B comes packed and split by ops/kernels/conv3x3.py:pack_tf32x3 as
+// [Cout tile][slice][hi, lo][NT][4]; a block holds one Cout tile of NT
 // channels (hi + lo at most 144 KB: Cin 64 takes NT 32, Cin 128 NT 16), the
 // Cout tiles over blockIdx.y. Each lane stores its output pairs (8 lanes of
 // a pixel fill 32-byte sectors). Bound: the tensor cores' TF32 rate over
@@ -143,9 +149,10 @@ cudaError_t fit(const void* k, int device, int smem_max, size_t smem, Fit& out) 
 // tile columns, dynamic shared memory bytes, consumer warpgroups (wgmma; else
 // 0), halo stages (buffers), 1 if TMA stores the output (else each lane stores
 // its values), the output staging's swizzle bytes (0: none), Cout tiles over
-// blockIdx.y and input channels per halo stage (tf32x3; else 0)}. A launch
-// given a report fills it and launches nothing.
-constexpr int REPORT = 12;
+// blockIdx.y and input channels per halo stage (tf32x3; else 0), wgmmas a tap
+// and m64 block issue for the TF32 products (tf32x3: 2, B [hi | lo]; else
+// 0)}. A launch given a report fills it and launches nothing.
+constexpr int REPORT = 13;
 enum Path : int { kF32 = 0, kMmaSync = 1, kWgmma = 2, kTf32x3 = 3 };
 
 void fill(int* report, std::initializer_list<int> v) {
@@ -944,8 +951,8 @@ constexpr int W_MAX = 147456;
 
 // The smem plan of one launch, byte offsets from the block's 1024-aligned
 // base: [warpgroup][stage][KB][box] halo (TMA; rewritten in place as hi) |
-// [warpgroup][KB][box] lo twin | hi then lo weights | one mbarrier per
-// warpgroup and stage.
+// [warpgroup][KB][box] lo twin | weights (pack_tf32x3's image of one Cout
+// tile) | one mbarrier per warpgroup and stage.
 struct Plan {
   int mi = 0, stages = 0;
   int box_bytes = 0, chunk_bytes = 0;  // one 4-channel box; the KB boxes of a stage
@@ -954,7 +961,7 @@ struct Plan {
 };
 
 struct Args {
-  const uint4* w;  // [Cout tile][hi, lo][slice][NT][4] f32 holding TF32 values
+  const uint4* w;  // [Cout tile][slice][hi, lo][NT][4] f32 holding TF32 values
   const float* bias;
   float* y;
   int Ho, Wo, Cout;
@@ -968,19 +975,6 @@ struct Args {
 // and B (8 x N) read from shared memory through the descriptors da and db,
 // both K-major (TF32 has no other).
 template <int N> struct Tf32;
-template <> struct Tf32<8> {
-  __device__ static void run(float (&d)[4], uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
-        "{"
-        "%0, %1, %2, %3}, "
-        "%4, %5, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
 template <> struct Tf32<16> {
   __device__ static void run(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
@@ -1025,6 +1019,29 @@ template <> struct Tf32<64> {
   }
 };
 
+template <> struct Tf32<128> {
+  __device__ static void run(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
 template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
@@ -1049,20 +1066,25 @@ __device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
 // behind the other, and each tile in K chunks of 8 input channels: one halo
 // stage per chunk (two 4-channel TMA boxes of 4*MI+2 lines of 16 pixels),
 // ring of `stages` per warpgroup. Once a stage lands, the warpgroup splits it
-// in place into hi and its lo twin, then issues, per tap and m64 block,
-// lo_a*lo_b, lo_a*hi_b, hi_a*lo_b and hi_a*hi_b into one f32 accumulator,
-// the chunk's first product overwriting it. It waits for the chunk (its
-// thread 0 then refills the stage) and adds the chunk's sums into f32
-// registers, rounded to nearest: the tensor cores' accumulation truncates,
-// and over Cin 128's 432 wgmmas of three passes the truncations summed to
-// 1e-4 (max |d| at site 7, H100); over a chunk's 36 they stay at f32's own
-// rounding. The other warpgroup's wgmmas fill the tensor cores meanwhile.
-// The block holds Cout tile blockIdx.y's hi and lo weights.
+// in place into hi and its lo twin, then issues, per tap and m64 block, the
+// four products lo_a*lo_b, lo_a*hi_b, hi_a*lo_b and hi_a*hi_b as two wgmmas
+// of N = 2 * NT over B = [hi | lo]: lo_a*[hi | lo], then hi_a*[hi | lo], each
+// reading its A tile once, the hi-weight products summed in the
+// accumulator's first NT columns and the lo-weight ones in the last NT, the
+// chunk's first product overwriting it. It waits for the chunk (its thread 0
+// then refills the stage) and adds the chunk's sums into f32 registers,
+// rounded to nearest, smallest first (the lo-weight columns, then the
+// hi-weight ones): the tensor cores' accumulation truncates, and over Cin
+// 128's 432 wgmmas of three passes the truncations summed to 1e-4 (max |d|
+// at site 7, H100); over a chunk's they stay at f32's own rounding. The
+// other warpgroup's wgmmas fill the tensor cores meanwhile. The block holds
+// Cout tile blockIdx.y's hi and lo weights.
 template <int NT, int MI>
 __global__ void __launch_bounds__(THREADS, 1) conv_tf32x3(const __grid_constant__ CUtensorMap xmap,
                                                           const Args a) {
   constexpr int TH = 4 * MI;
-  constexpr int NA = NT / 2;  // accumulators of one m64 x NT block per thread
+  constexpr int NB = 2 * NT;                // N of one wgmma: [hi | lo]
+  constexpr int NA = NB / 2, NS = NT / 2;  // a thread's accumulators of one m64 block; its f32 sums
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const Plan p = a.p;
   const uint32_t raw = smem_u32(smem_raw);
@@ -1091,8 +1113,8 @@ __global__ void __launch_bounds__(THREADS, 1) conv_tf32x3(const __grid_constant_
     for (int s = 0; s < p.stages; ++s) wg::mbar_init(bar0 + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // Weights: Cout tile ct's hi and lo images as they are (slice j = (chunk *
-  // 9 + tap) * KB + box, [NT][4] each).
+  // Weights: Cout tile ct's packed image as it is (slice j = (chunk * 9 +
+  // tap) * KB + box, [hi, lo][NT][4] each).
   const int wunits = 2 * a.nsp * NT;
   uint4* sw = reinterpret_cast<uint4*>(gen + p.off_w);
   for (int i = tid; i < wunits; i += THREADS) rn::cp_async16(sw + i, a.w + (size_t)ct * wunits + i, true);
@@ -1104,17 +1126,18 @@ __global__ void __launch_bounds__(THREADS, 1) conv_tf32x3(const __grid_constant_
   wg::fence_proxy_async();  // cp.async wrote the weights that wgmma reads
   __syncthreads();
 
-  // B of chunk k, tap: slices (k * 9 + tap) * KB and the next, NT * 16 bytes
-  // apart (the k halves), groups of 8 output channels 128 apart; lo a whole
-  // hi image on.
-  const uint64_t bhi = wg::desc(base + p.off_w, NT * 16, 128);
-  const uint64_t blo = bhi + (uint64_t)(a.nsp * NT);
+  // B of chunk k, tap: slices (k * 9 + tap) * KB and the next, NB * 16 bytes
+  // apart (the k halves), groups of 8 rows 128 apart: rows 0 to NT - 1 the hi
+  // weights of the tile's NT output channels, NT to 2 NT - 1 their lo.
+  const uint64_t bw = wg::desc(base + p.off_w, NB * 16, 128);
   const int g = lane >> 2, q = (lane & 3) * 2;
-  float acc[MI][NA], sum[MI][NA];  // one chunk's sums (wgmma); the tile's (f32, rounded to nearest)
+  float acc[MI][NA], sum[MI][NS];  // one chunk's sums (wgmma); the tile's (f32, rounded to nearest)
 #pragma unroll
   for (int i = 0; i < MI; ++i) {
 #pragma unroll
-    for (int n = 0; n < NA; ++n) acc[i][n] = sum[i][n] = 0.f;
+    for (int n = 0; n < NA; ++n) acc[i][n] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) sum[i][n] = 0.f;
   }
 
   if (wg == 1 && items > 0) asm volatile("bar.sync 3, 256;\n" ::: "memory");
@@ -1143,20 +1166,18 @@ __global__ void __launch_bounds__(THREADS, 1) conv_tf32x3(const __grid_constant_
       // apart. Rows of the 2 columns past the tile's 14 may read 2 pixels
       // past the last box: their sums are discarded.
       const uint64_t ah = wg::desc(base + hs, p.box_bytes, 128), al = wg::desc(base + ls, p.box_bytes, 128);
-      const uint64_t bk = (uint64_t)(k * 9 * KB * NT);
+      const uint64_t bk = (uint64_t)(k * 9 * KB * NB);
       // Nothing touches the accumulators between the fence and the commit
       // (ptxas would serialize the wgmmas otherwise, its info C7515).
       wg::wgmma_fence();
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) {
-        const uint64_t db = bk + (uint64_t)(tap * KB * NT);
+        const uint64_t db = bk + (uint64_t)(tap * KB * NB);
 #pragma unroll
         for (int i = 0; i < MI; ++i) {
           const uint64_t da = (uint64_t)((tap / 3) * HWD + tap % 3 + i * 64);
-          Tf32<NT>::run(acc[i], al + da, blo + db, tap > 0);
-          Tf32<NT>::run(acc[i], al + da, bhi + db, 1);
-          Tf32<NT>::run(acc[i], ah + da, blo + db, 1);
-          Tf32<NT>::run(acc[i], ah + da, bhi + db, 1);
+          Tf32<NB>::run(acc[i], al + da, bw + db, tap > 0);
+          Tf32<NB>::run(acc[i], ah + da, bw + db, 1);
         }
       }
       wg::wgmma_commit();
@@ -1166,12 +1187,14 @@ __global__ void __launch_bounds__(THREADS, 1) conv_tf32x3(const __grid_constant_
       wg::wgmma_wait_all();
 #pragma unroll
       for (int i = 0; i < MI; ++i) wg::fence_operands(acc[i]);
-      // The chunk is done with its stage: refill it; then add its sums.
+      // The chunk is done with its stage: refill it; then add its sums (the
+      // lo-weight columns n8 blocks NT / 8 on, registers NS on).
       if (lead && it + p.stages < items) load_item(it + p.stages, st);
 #pragma unroll
       for (int i = 0; i < MI; ++i) {
 #pragma unroll
-        for (int n = 0; n < NA; ++n) sum[i][n] = __fadd_rn(sum[i][n], acc[i][n]);
+        for (int n = 0; n < NS; ++n)
+          sum[i][n] = __fadd_rn(__fadd_rn(sum[i][n], acc[i][n + NS]), acc[i][n]);
       }
     }
 
@@ -1208,7 +1231,7 @@ __global__ void __launch_bounds__(THREADS, 1) conv_tf32x3(const __grid_constant_
 #pragma unroll
     for (int i = 0; i < MI; ++i) {
 #pragma unroll
-      for (int n = 0; n < NA; ++n) sum[i][n] = 0.f;
+      for (int n = 0; n < NS; ++n) sum[i][n] = 0.f;
     }
   }
 }
@@ -1225,10 +1248,17 @@ Plan layout(int nsp, int nt, int mi, int stages) {
   return p;
 }
 
-// Blocks per warpgroup and stages for the packed NT: the most m64 blocks the
-// accumulators allow (64 per thread, and as many f32 sums), then 4 stages
-// before 3 and 2 (mi 0 if nothing fits). Blocks before stages: 4 blocks and 3
-// stages beat 2 blocks and 4 by 3-10% at Cin 64 and 128 (H100).
+// Blocks per warpgroup and stages for the packed NT: the most m64 blocks
+// whose accumulators (NT a thread and block at N = 2 * NT) and f32 sums (NT /
+// 2) ptxas holds without spills, then 4 stages before 3 and 2 (mi 0 if
+// nothing fits). That is 192 registers of them at 4 blocks of NT 32 and at 2
+// of NT 64 (215 and 221 in all, no spills, sm_90a). On an H100 at batch 256,
+// 4 blocks beat 2 at sites 2, 3 and 5 (3.43 / 2.99 / 2.80 ms against 3.64 /
+// 3.28 / 2.90; site 6 1.37 against 1.53, site 1 alone the other way, 1.13
+// against 1.05: one K chunk a tile), sites 1-9 17.74 against 18.43 ms; 2
+// blocks beat 1 at site 4 (5.13 against 5.64). Blocks before stages: 4
+// blocks and 3 stages beat 2 blocks and 4 by 3-10% at Cin 64 and 128 (H100,
+// four wgmmas a tap).
 Plan plan(int nsp, int nt) {
   const int mi_max = nt >= 64 ? 2 : 4;
   for (int m = mi_max; m >= 1; m /= 2)
@@ -1245,7 +1275,7 @@ int launch(Args a, const void* x, int B, int H, int W, int Cin, cudaStream_t s, 
   constexpr int TH = 4 * MI;
   const int ny = (a.Cout + NT - 1) / NT;
   if (report != nullptr) {
-    fill(report, {kTf32x3, NT, MI, TH, TW, (int)p.smem, WARPGROUPS, p.stages, 0, 0, ny, 4 * KB});
+    fill(report, {kTf32x3, NT, MI, TH, TW, (int)p.smem, WARPGROUPS, p.stages, 0, 0, ny, 4 * KB, 2});
     return cudaSuccess;
   }
   CUtensorMap xmap{};

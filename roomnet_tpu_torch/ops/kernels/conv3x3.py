@@ -24,12 +24,15 @@ and cached beside it:
     layout without swizzle for its B operand: core matrices of 8 output
     channels x 16 bytes, the two slices of a k16 step Cout_p * 16 bytes
     apart, groups of 8 channels 128.
-  * f32, TF32 split: [Cout tile][hi, lo][slice][NT][4], slice j =
-    (chunk * 9 + tap) * 2 + b the channels 4c..4c+3 with c = 2 * chunk + b
-    (K chunks of 8 channels, the kernel's halo stages), hi = tf32(k) and lo
-    = tf32(k - hi) (`tf32_split`), NT = `tf32_nt(Cin, Cout)` output channels
-    per block: the widest whose hi + lo fit TF32_W_MAX bytes. Each image is
-    wgmma's K-major B as in bf16, 4 f32 where bf16 has 8.
+  * f32, TF32 split: [Cout tile][slice][hi, lo][NT][4], slice j = (chunk *
+    9 + tap) * 2 + b the channels 4c..4c+3 with c = 2 * chunk + b (K chunks
+    of 8 channels, the kernel's halo stages), hi = tf32(k) and lo = tf32(k -
+    hi) (`tf32_split`), NT = `tf32_nt(Cin, Cout)` output channels per block:
+    the widest whose hi + lo fit TF32_W_MAX bytes. A tile's image is
+    wgmma's K-major B as in bf16, 4 f32 where bf16 has 8, of N = 2 * NT: the
+    hi weights in rows 0..NT-1 and the lo in NT..2NT-1 ([hi | lo]; the two
+    slices of a k8 step 2 * NT * 16 bytes apart), so that one wgmma
+    multiplies an A tile by both.
   * f32, CUDA cores: [Cout tile][chunk][tap][4][NT], chunk c the channels
     4c..4c+3, NT = min(64, Cout_p) output channels per block.
 
@@ -62,10 +65,12 @@ _ARGS = [P, P, P, P, I, I, I, I, I, I, I, I, P]
 COUT_STEPS = (8, 16, 32, 64, 128)
 F32_NT = 64  # output channels of one f32 CUDA-core block
 TF32_NTS = (64, 32, 16, 8)  # output channels of one TF32 split block, widest first
-TF32_W_MAX = 147456  # hi + lo weights of one TF32 split Cout tile, bytes (csrc/conv3x3.cu:tf::W_MAX)
+# Hi + lo weights of one TF32 split Cout tile, bytes (csrc/conv3x3.cu:tf::W_MAX),
+# side by side in one wgmma operand of N = 2 * NT.
+TF32_W_MAX = 147456
 # rn_conv3x3_variant's report, in order (csrc/conv3x3.cu:fill).
 VARIANT_FIELDS = ("path", "cp", "sub", "rows", "cols", "smem", "warpgroups", "stages", "tma_store",
-                  "out_swizzle", "cout_tiles", "chunk")
+                  "out_swizzle", "cout_tiles", "chunk", "tap_wgmmas")
 PATHS = ("f32 CUDA cores", "mma.sync", "wgmma+TMA", "tf32x3 wgmma+TMA")
 
 _packed = WeakIdKeyDictionary()  # kernel tensor -> {(dtype, tf32x3): (version, packed)}
@@ -150,14 +155,14 @@ def tf32_split(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def pack_tf32x3(kernel: torch.Tensor) -> torch.Tensor:
-    """HWIO (3,3,Cin,Cout) f32 -> [Cout tile][hi, lo][slice][NT][4], Cin a
+    """HWIO (3,3,Cin,Cout) f32 -> [Cout tile][slice][hi, lo][NT][4], Cin a
     multiple of 8 (`tf32_takes`)."""
     _, _, cin, cout = kernel.shape
     nt = tf32_nt(cin, cout)
     tiles = -(-cout // nt)
     k = _zero_padded(kernel.float(), cin, tiles * nt)
     k = k.reshape(9, cin // 8, 2, 4, tiles, nt).permute(4, 1, 0, 2, 5, 3).reshape(tiles, 9 * cin // 4, nt, 4)
-    return torch.stack(tf32_split(k), 1).contiguous()
+    return torch.stack(tf32_split(k), 2).contiguous()
 
 
 def packed_kernel(kernel: torch.Tensor, dtype: torch.dtype, tf32x3: bool = False) -> torch.Tensor:

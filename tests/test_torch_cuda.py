@@ -247,17 +247,20 @@ def test_cuda_conv3x3_dispatch_by_shape(cuda_device, site):
     with the twin's plan (rows per warp, stages, tile, shared memory, the
     output's stores). f32: Cin = 3 stays on the CUDA cores, the others take
     TF32 passes over a hi/lo split with the twin's plan (NT, m64 blocks, stages, Cout
-    tiles, 8 channels a stage, shared memory)."""
+    tiles, 8 channels a stage, shared memory, the 2 wgmmas a tap and block
+    issue over B = [hi | lo]); the other paths report 0 such wgmmas."""
     h, cin, cout = U.CONV_SITES[site]
     v = KC.variant((256, h, h, cin), cout, torch.bfloat16)
     f = KC.variant((256, h, h, cin), cout, torch.float32)
+    assert v["tap_wgmmas"] == 0
     if not KC.tf32_takes(cin):
-        assert f["path"] == "f32 CUDA cores"
+        assert f["path"] == "f32 CUDA cores" and f["tap_wgmmas"] == 0
     else:
         t = U.tf_plan(cin, cout)
         assert f["path"] == "tf32x3 wgmma+TMA" and f["warpgroups"] == U.WG_GROUPS and not f["tma_store"]
-        assert (f["cp"], f["sub"], f["stages"], f["rows"], f["cols"], f["smem"], f["cout_tiles"], f["chunk"]) == (
-            t["nt"], t["mi"], t["stages"], t["th"], U.WG_TW, t["smem"], t["cout_tiles"], 8)
+        assert (f["cp"], f["sub"], f["stages"], f["rows"], f["cols"], f["smem"], f["cout_tiles"], f["chunk"],
+                f["tap_wgmmas"]) == (t["nt"], t["mi"], t["stages"], t["th"], U.WG_TW, t["smem"], t["cout_tiles"],
+                                     8, t["tap_wgmmas"])
     if not U.wg_takes(cin):
         assert v["path"] == "mma.sync"
         return

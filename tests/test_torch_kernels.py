@@ -364,6 +364,15 @@ def _outside_gate(got, want, tol=1e-4):
     return int(((got - want).abs() > tol + tol * want.abs()).sum())
 
 
+def _tf_b_columns(p, wflat_tile, chunk, tap):
+    """(8, 2 * NT): B element (k, n) of (chunk, tap), read at the [hi | lo]
+    descriptor's offsets of one Cout tile's packed image."""
+    d = U.tf_b_descriptor(p, chunk, tap)
+    assert d["lbo"] == p["nb"] * 16 and d["lbo"] >> 4 < 1 << 14 and d["start"] % 16 == 0
+    nn, kk = np.meshgrid(np.arange(p["nb"]), np.arange(8), indexing="ij")
+    return wflat_tile[U.desc_offset32(d, nn, kk) // 4].T
+
+
 def test_conv3x3_tf32_takes_multiples_of_8_up_to_256():
     """The path admits Cin % 8 == 0 up to 256 (csrc/conv3x3.cu:tf::takes),
     and every such Cin has a plan at Cout 8, 16 and 128; conv 0's 3 channels
@@ -409,27 +418,25 @@ def test_conv3x3_tf32_a_descriptor_reads_the_shifted_halo(cin):
 @pytest.mark.parametrize("cin,cout", TF_PAIRS)
 def test_conv3x3_tf32_b_descriptor_reads_the_split_kernel(cin, cout):
     """Every (chunk, tap) B element (k, n) of every Cout tile, read from
-    pack_tf32x3's bytes at the descriptor's K-major offsets, is the hi (and
-    lo) part of the HWIO weight of channel 8 * chunk + k, output channel
-    tile * NT + n (zero past Cout)."""
+    pack_tf32x3's bytes at the [hi | lo] descriptor's K-major offsets, is
+    the hi (n < NT) or lo part of the HWIO weight of channel 8 * chunk + k,
+    output channel tile * NT + n % NT (zero past Cout)."""
     _, kern, _ = _relu6_range_operands((1, 3, 3), cin, cout, seed=60 + cin + cout)
     packed = KC.pack_tf32x3(kern)
     p = U.tf_plan(cin, cout)
-    assert packed.shape == (p["cout_tiles"], 2, p["nsp"], p["nt"], 4)
-    nt = p["nt"]
-    wflat = packed.numpy().reshape(p["cout_tiles"], -1)
-    hwio = np.zeros((9, cin, p["cout_tiles"] * nt), np.float32)
+    tiles, nsp, nt = p["cout_tiles"], p["nsp"], p["nt"]
+    assert packed.shape == (tiles, nsp, 2, nt, 4)
+    wflat = packed.numpy().reshape(tiles, -1)
+    hwio = np.zeros((9, cin, tiles * nt), np.float32)
     hwio[..., :cout] = kern.numpy().reshape(9, cin, cout)
     hi, lo = (t.numpy() for t in KC.tf32_split(T(hwio)))
-    nn, kk = np.meshgrid(np.arange(nt), np.arange(8), indexing="ij")
-    for y in range(p["cout_tiles"]):
+    for y in range(tiles):
         for k in range(p["chunks"]):
             for tap in range(9):
-                for part, want in ((False, hi), (True, lo)):
-                    d = U.tf_b_descriptor(p, k, tap, part)
-                    assert d["lbo"] >> 4 < 1 << 14
-                    got = wflat[y][U.desc_offset32(d, nn, kk) // 4]  # (n, k)
-                    assert np.array_equal(got.T, want[tap, 8 * k:8 * k + 8, y * nt:(y + 1) * nt]), (y, k, tap)
+                got = _tf_b_columns(p, wflat[y], k, tap)
+                for part, want in ((0, hi), (1, lo)):
+                    assert np.array_equal(got[:, part * nt:(part + 1) * nt],
+                                          want[tap, 8 * k:8 * k + 8, y * nt:(y + 1) * nt]), (y, k, tap, part)
 
 
 @pytest.mark.parametrize("site", range(1, len(U.CONV_SITES)))
@@ -445,12 +452,37 @@ def test_conv3x3_pack_tf32x3_unpacks_to_hwio(site):
     tiles, nt = p["cout_tiles"], p["nt"]
     bits = packed.view(torch.int32)
     assert not (bits & 0x1FFF).any()
-    # [tile][part][chunk][tap][b][n][e] -> (tap, chunk, b, e) = Cin, (tile, n) = Cout.
-    parts = packed.reshape(tiles, 2, cin // 8, 9, 2, nt, 4).permute(1, 3, 2, 4, 6, 0, 5).reshape(2, 9, cin, -1)
+    # [tile][chunk][tap][b][part][n][e] -> (tap, chunk, b, e) = Cin, (tile, n) = Cout.
+    parts = packed.reshape(tiles, cin // 8, 9, 2, 2, nt, 4).permute(4, 2, 1, 3, 6, 0, 5).reshape(2, 9, cin, -1)
     back = (parts[0].double() + parts[1].double())[..., :cout].reshape(3, 3, cin, cout)
     torch.testing.assert_close(back, kern.double(), rtol=2.0 ** -23, atol=0)
     assert torch.equal(parts[0][..., :cout].reshape(3, 3, cin, cout), KC.tf32(kern))
     assert not parts[:, ..., cout:].any()
+
+
+@pytest.mark.parametrize("site", range(1, len(U.CONV_SITES)))
+def test_conv3x3_tf32_cat_b_descriptor_reads_hi_then_lo(site):
+    """At each main-path site, the B that each (chunk, tap) issues is one
+    operand of N = 2 * NT, a wgmma width, whose columns 0..NT-1 are the hi
+    and NT..2NT-1 the lo part of the same HWIO weights (hi the rna rounding,
+    hi + lo within 2^-23 of the weight): two wgmmas a tap and m64 block."""
+    _, cin, cout = U.CONV_SITES[site]
+    _, kern, _ = _relu6_range_operands((1, 3, 3), cin, cout, seed=110 + site)
+    p = U.tf_plan(cin, cout)
+    tiles, nt = p["cout_tiles"], p["nt"]
+    assert (p["nb"], p["tap_wgmmas"]) == (2 * nt, 2)
+    assert p["nb"] % 8 == 0 and p["nb"] <= 256
+    wflat = KC.pack_tf32x3(kern).numpy().reshape(tiles, -1)
+    hwio = np.zeros((9, cin, tiles * nt), np.float32)
+    hwio[..., :cout] = kern.numpy().reshape(9, cin, cout)
+    for y in range(tiles):
+        for k in range(p["chunks"]):
+            for tap in range(9):
+                got = _tf_b_columns(p, wflat[y], k, tap)
+                want = hwio[tap, 8 * k:8 * k + 8, y * nt:(y + 1) * nt]
+                assert np.array_equal(got[:, :nt], KC.tf32(T(want)).numpy()), (y, k, tap)
+                np.testing.assert_allclose(got[:, :nt].astype(np.float64) + got[:, nt:], want, rtol=2.0 ** -23,
+                                           atol=0)
 
 
 def test_conv3x3_tf32x3_packed_kernel_is_cached_per_tensor_and_version():
@@ -504,6 +536,22 @@ def test_conv3x3_tf32_one_pass_mutant_fails_the_gate(site):
     for passes in (4, 3):
         assert _outside_gate(U.tf_replay(x, KC.pack_tf32x3(k), cout, bias, passes=passes), want) == 0
     assert _outside_gate(U.tf_replay(x, KC.pack_tf32x3(k), cout, bias, passes=1), want) > 0
+
+
+@pytest.mark.parametrize("site", range(1, len(U.CONV_SITES)))
+def test_conv3x3_tf32_two_accumulator_replay_within_the_gate(site):
+    """With the kernel's order (B = [hi | lo]: the lo-weight products summed
+    in their own NT columns and added to the f32 sums before the hi-weight
+    ones) the twin stays within the gate at every main-path site; without
+    the lo-weight products (a * hi_b alone) it falls outside: the gate sees
+    those columns."""
+    _, cin, cout = U.CONV_SITES[site]
+    x, k, bias = _relu6_range_operands(TF_SHAPES[1], cin, cout, seed=120 + site)
+    packed, want = KC.pack_tf32x3(k), conv3x3_plain(x, k, bias)
+    got = U.tf_replay(x, packed, cout, bias)
+    assert got.shape == want.shape and _outside_gate(got, want) == 0
+    without_lo_b = U.tf_replay(x, packed, cout, bias, passes=(("lo", "hi"), ("hi", "hi")))
+    assert _outside_gate(without_lo_b, want) > 0
 
 
 @pytest.mark.parametrize("cin,cout", [(8, 32), (32, 64), (64, 128), (128, 16)])

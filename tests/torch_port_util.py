@@ -305,6 +305,9 @@ def wg_replay(x: torch.Tensor, packed: torch.Tensor, cout: int, bias=None) -> to
 # -- a twin of the f32 conv's TF32 path over a hi/lo split (csrc/conv3x3.cu, namespace tf)
 
 TF_KB = 2  # 4-channel TMA boxes of one K chunk (8 input channels)
+# The four TF32 products (A part, B part) of a k8 step; the kernel issues
+# them as lo_a * [hi | lo], then hi_a * [hi | lo].
+TF_PRODUCTS = (("lo", "lo"), ("lo", "hi"), ("hi", "lo"), ("hi", "hi"))
 
 
 def tf_layout(nsp: int, nt: int, mi: int, stages: int) -> dict:
@@ -322,8 +325,11 @@ def tf_layout(nsp: int, nt: int, mi: int, stages: int) -> dict:
 
 def tf_plan(cin: int, cout: int) -> dict:
     """tf::plan for the packed NT (ops/kernels/conv3x3.py:tf32_nt): the
-    most m64 blocks the accumulators allow (64 a thread), then 4 stages
-    before 3 and 2; plus the K chunks and the Cout tiles."""
+    most m64 blocks the accumulators allow (NT a thread and block at N = 2 *
+    NT, and NT / 2 f32 sums: 192 at 4 blocks below NT 64, at 2 from it),
+    then 4 stages before 3 and 2; plus the K chunks, the Cout tiles, a
+    wgmma's N (`nb`, B = [hi | lo]) and the wgmmas a tap and block issue
+    (`tap_wgmmas`)."""
     from roomnet_tpu_torch.ops.kernels.conv3x3 import tf32_nt
 
     nt, nsp = tf32_nt(cin, cout), 9 * cin // 4
@@ -332,7 +338,7 @@ def tf_plan(cin: int, cout: int) -> dict:
         for stages in (4, 3, 2):
             p = tf_layout(nsp, nt, mi, stages)
             if p["smem"] <= WG_MAX_SMEM:
-                return {**p, "chunks": cin // 8, "cout_tiles": -(-cout // nt)}
+                return {**p, "chunks": cin // 8, "cout_tiles": -(-cout // nt), "nb": 2 * nt, "tap_wgmmas": 2}
     raise ValueError(f"conv3x3: no TF32 split plan fits Cin {cin}, Cout {cout}")
 
 
@@ -352,27 +358,29 @@ def tf_a_descriptor(p: dict, tap: int, blk: int) -> dict:
     return {"start": blk * 64 * 16 + _toff(tap) * 16, "lbo": p["box_bytes"], "sbo": 128}
 
 
-def tf_b_descriptor(p: dict, chunk: int, tap: int, lo: bool) -> dict:
+def tf_b_descriptor(p: dict, chunk: int, tap: int) -> dict:
     """The B descriptor of (chunk, tap) in bytes from one Cout tile's packed
-    image: slices (chunk * 9 + tap) * 2 and the next, NT * 16 bytes apart,
-    groups of 8 output channels 128 apart; lo a whole hi image on."""
-    nt = p["nt"]
-    start = (p["nsp"] * nt * 16 if lo else 0) + (chunk * 9 + tap) * TF_KB * nt * 16
-    return {"start": start, "lbo": nt * 16, "sbo": 128}
+    image: the operand [hi | lo] of N = 2 * NT (rows 0..NT-1 the hi weights,
+    NT..2NT-1 the lo), slices (chunk * 9 + tap) * 2 and the next N * 16
+    bytes apart, groups of 8 rows 128 apart."""
+    nb = p["nb"]
+    return {"start": (chunk * 9 + tap) * TF_KB * nb * 16, "lbo": nb * 16, "sbo": 128}
 
 
-def tf_replay(x: torch.Tensor, packed: torch.Tensor, cout: int, bias=None, passes: int = 4) -> torch.Tensor:
+def tf_replay(x: torch.Tensor, packed: torch.Tensor, cout: int, bias=None, passes=4) -> torch.Tensor:
     """The TF32 split path replayed with its own index arithmetic, all tiles
     at once: per K chunk each tile's halo stage (two 4-channel TMA boxes,
     zero past the image, NaN past the stage, where the shifted A of the 2
     discarded columns reads), split by the kernel's rna rule into hi and a
     lo twin; per tap and m64 block A read at the A descriptor's offsets, B
-    (hi and lo of every Cout tile) at the B descriptor's; lo_a*lo_b +
-    lo_a*hi_b + hi_a*lo_b + hi_a*hi_b summed in f32 (`passes=3`: without
-    lo_a*lo_b; `passes=1`: hi_a*hi_b alone, the one-pass mutant), each
-    chunk's sums then added to the tile's in f32 as
-    the kernel adds them; the tile's 14 columns clipped at the edge, plus
-    the bias. f32 x (B,H,W,Cin) with tf32_takes(Cin), packed by pack_tf32x3."""
+    (hi and lo of every Cout tile) at the [hi | lo] descriptor's; the
+    products lo_a*lo_b, lo_a*hi_b, hi_a*lo_b and hi_a*hi_b summed in f32 per
+    chunk into two accumulators, the lo-weight products and the hi-weight
+    ones, each chunk's then added to the tile's sums in f32, the lo-weight
+    first; the tile's 14 columns clipped at the edge, plus the bias.
+    `passes`: the last n of TF_PRODUCTS (3: without lo_a*lo_b; 1: hi_a*hi_b
+    alone, the one-pass mutant), or a tuple of them. f32 x (B,H,W,Cin) with
+    tf32_takes(Cin), packed by pack_tf32x3."""
     from roomnet_tpu_torch.ops.kernels.conv3x3 import tf32_split
 
     b_, h, w, cin = x.shape
@@ -387,7 +395,8 @@ def tf_replay(x: torch.Tensor, packed: torch.Tensor, cout: int, bias=None, passe
     gh, gw = tiles[:, 1, None, None] + hr, tiles[:, 2, None, None] + hc
     inside = (gh < h) & (gw < w)
     rows, ks = np.meshgrid(np.arange(64), np.arange(8), indexing="ij")
-    nn, kk = np.meshgrid(np.arange(nt), np.arange(8), indexing="ij")
+    nn, kk = np.meshgrid(np.arange(p["nb"]), np.arange(8), indexing="ij")
+    products = TF_PRODUCTS[-passes:] if isinstance(passes, int) else passes
     acc = np.zeros((len(tiles), mi, 64, p["cout_tiles"] * nt), np.float32)
     for k in range(p["chunks"]):
         vals = np.zeros((len(tiles), th + 2, WG_HWD, 8), np.float32)
@@ -400,18 +409,20 @@ def tf_replay(x: torch.Tensor, packed: torch.Tensor, cout: int, bias=None, passe
         # A rows of every tap of each block, the taps along K as the kernel issues them.
         offs = np.stack([np.stack([desc_offset32(tf_a_descriptor(p, tap, blk), rows, ks) // 4 for tap in range(9)], 1)
                          for blk in range(mi)])  # (mi, 64, 9, 8) floats
-        bmats = {}
-        for lo_b in (False, True):
-            bmats[lo_b] = np.concatenate([
-                np.concatenate([wflat[y][desc_offset32(tf_b_descriptor(p, k, tap, lo_b), nn, kk) // 4].T
-                                for y in range(p["cout_tiles"])], 1)
-                for tap in range(9)], 0)  # (9 * 8, cout_tiles * nt)
-        for blk in range(mi):  # the chunk's sums, then added to the tile's
-            a_hi = hi[:, offs[blk]].reshape(len(tiles) * 64, 72)
-            a_lo = lo[:, offs[blk]].reshape(len(tiles) * 64, 72)
-            pairs = [(a_lo, bmats[True]), (a_lo, bmats[False]), (a_hi, bmats[True]), (a_hi, bmats[False])][-passes:]
-            chunk = np.concatenate([a for a, _ in pairs], 1) @ np.concatenate([b for _, b in pairs], 0)
-            acc[:, blk] += chunk.reshape(len(tiles), 64, -1)
+        # Each tap's [hi | lo] of every Cout tile: hi its first NT columns, lo the last.
+        cat = [np.concatenate([wflat[y][desc_offset32(tf_b_descriptor(p, k, tap), nn, kk) // 4].T
+                               for tap in range(9)], 0) for y in range(p["cout_tiles"])]  # (9 * 8, 2 * nt) each
+        bmats = {"hi": np.concatenate([c[:, :nt] for c in cat], 1),
+                 "lo": np.concatenate([c[:, nt:] for c in cat], 1)}  # (9 * 8, cout_tiles * nt)
+        for blk in range(mi):  # the chunk's two accumulators, then added to the tile's sums
+            a = {"hi": hi[:, offs[blk]].reshape(len(tiles) * 64, 72),
+                 "lo": lo[:, offs[blk]].reshape(len(tiles) * 64, 72)}
+            for part in ("lo", "hi"):  # the lo-weight columns first, as the kernel adds them
+                pairs = [(pa, pb) for pa, pb in products if pb == part]
+                if pairs:
+                    chunk = np.concatenate([a[pa] for pa, _ in pairs], 1) @ np.concatenate(
+                        [bmats[pb] for _, pb in pairs], 0)
+                    acc[:, blk] += chunk.reshape(len(tiles), 64, -1)
     out = torch.from_numpy(acc.reshape(len(tiles), th, WG_HWD, -1)[:, :, :WG_TW, :cout].copy())
     if bias is not None:
         out = out + bias.float()
