@@ -2,8 +2,11 @@
 
 A frozen, independent statement of the model (ironhide23586/RoomNet
 network.py:125-244), written from the published graph and not from the
-program under test: it imports torch and numpy only.
+program under test: it imports torch and numpy only (and cv2 to read an
+image file).
 
+    a file: cv2.imread (BGR) -> centre square crop -> cv2.resize to S
+                                                            network.py:137-152
     input (B,S,S,3) uint8 BGR -> RGB in [-1, 1]            network.py:148-159
     per block: conv3x3 VALID, no bias -> ReLU6 -> avg pool VALID -> BN
                (the first layer's output is the block's shortcut)
@@ -24,6 +27,9 @@ network stores its tensors: the input, each conv kernel, each conv output,
 each pool + BN output, the residual's row pass and its BN output. Every
 sum stays in float32 and the dense head in float32. `"tf32"` runs the f32
 forward with TF32 on.
+
+`TINY` is the configuration the benchmark's tests run RoomNet's cells at
+on the CPU, in each cell's own precision.
 """
 
 from __future__ import annotations
@@ -36,6 +42,10 @@ import torch.nn.functional as F
 
 BN_EPS = 1e-3
 LOGIT_MEAN = 3.0  # calibrate: the logits sit inside ReLU6's (0, 6)
+
+TINY = {"name": "roomnet-tiny", "arch": "roomnet", "num_classes": 6, "im_side": 32, "block_filters": [8, 16],
+        "block_depths": [1, 2], "block_pools": [[3, 1], [4, 2]], "kernel_size": 3, "dense_units": [16, 8],
+        "bn_eps": 0.001}
 
 
 def geometry(cfg: dict) -> list[dict]:
@@ -153,6 +163,21 @@ def bn_affine(v: dict, prefix: str):
     inv = torch.rsqrt(v[f"{prefix}/var"] + BN_EPS)
     w = v[f"{prefix}/scale"] * inv
     return w, v[f"{prefix}/bias"] - v[f"{prefix}/mean"] * w
+
+
+def read_image(path: str, side: int) -> np.ndarray:
+    """(side, side, 3) uint8 BGR of an image file, as the published
+    inference reads one (network.py:137-152): cv2.imread, the centred square
+    crop of the longer axis, cv2.resize (bilinear) of the uint8 crop."""
+    import cv2
+
+    im = cv2.imread(path)
+    if im is None:
+        raise ValueError(f"cv2 cannot read {path}")
+    h, w = im.shape[:2]
+    off = abs((w - h) // 2)
+    im = im[:, off: off + h] if h < w else im[off: off + w] if w < h else im
+    return np.ascontiguousarray(cv2.resize(im, (side, side)))
 
 
 def normalize(x_bgr_uint8: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,7 @@ kernel; BN scale 1 and bias 0, the last dense bias 0. With identity moving
 statistics the activations shrink block by block and the ReLU6-clipped
 logits sit near 0 (about 0.01, four of six clipped), so the probabilities
 are flat and a comparison of them sees little. So the reference calibrates
-the dense head on a seeded batch (`reference.model.calibrate`): each of its
+the dense head on a seeded batch (`reference.calibrate`): each of its
 BNs takes its input's mean and variance, as a trained model's would, and
 the last layer is scaled so that each logit sits inside ReLU6's (0, 6).
 Calibrating the conv blocks' BNs too made the forward chaotic: rounding's
@@ -23,8 +23,9 @@ import math
 
 import torch
 
-from ..reference import model as ref
-from . import images
+from benchmark.lib import images
+
+from . import reference as ref
 
 
 def glorot(cfg: dict, seed: int, device) -> dict:

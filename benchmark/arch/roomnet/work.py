@@ -30,21 +30,18 @@ per batch-256 forward) where a bilinear resize reads two taps per axis
 (about 3 GFLOP), and so overstates the forward's work by about 28%; its
 per-group bytes leave out weights and count whole pool inputs.
 
-Peaks: one NVIDIA H100 SXM, NVIDIA's data sheet, dense: 989 TFLOP/s bf16,
-495 TFLOP/s TF32, 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s HBM,
-at the 700 W power limit.
+Peaks: benchmark/lib/peaks.py (989 TFLOP/s bf16, 495 TFLOP/s TF32, 67
+TFLOP/s f32 outside the tensor cores, 3.35 TB/s HBM).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..reference import model as ref
+from benchmark.lib.peaks import HBM_BYTES_PER_S, PEAK_BF16, PEAK_F32, PEAK_TF32
 
-PEAK_BF16 = 989e12
-PEAK_TF32 = 495e12
-PEAK_F32 = 67e12
-HBM_BYTES_PER_S = 3.35e12
+from . import reference as ref
+
 TF32X3_PASSES = 3
 F32_BYTES, BF16_BYTES = 4, 2
 

@@ -40,7 +40,7 @@ def readings(cell, seed: int, kind: str, seconds: float, device) -> dict:
     if kind == "program":
         out = driver.run(ctx)
     else:
-        with faults.planted(kind.split(":", 1)[1]):
+        with faults.planted(kind.split(":", 1)[1], cell.arch):
             out = driver.run(ctx)
     return dict(out.readings.numbers)
 

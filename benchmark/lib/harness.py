@@ -4,7 +4,14 @@ result line.
 A cell's pieces are found by the names in BENCHMARK.json, so a cell, a
 configuration or a per-layer metric is added with files and entries alone:
 
-  * the configuration: the `file` of its `configs` entry;
+  * the configuration: the `file` of its `configs` entry, whose "arch"
+    names benchmark/arch/<arch>/, the folder of everything that knows the
+    model's equations: `reference.py` (the plain float32 forward, its
+    lower precisions, `param_paths`, the CPU tests' `TINY`), `weights.py`
+    (seeded weights, `nest` into the program's tree), `work.py` (the work
+    counts of the roofline and MFU readers) and `program.py` (the
+    architecture's only import of the program: its configuration and
+    classifier), handed to drivers and readers as `cell.arch`;
   * the traffic: benchmark/workloads/<cell>.json, whose "driver" names
     benchmark/drivers/<driver>.py and whose "traffic" holds its parameters
     ("name" as BENCHMARK.json's `traffic`) and "limits" the numbers that
@@ -20,14 +27,18 @@ metrics/<base>.py where there is no metrics/<base>.<part>.py. A split
 is made with entries alone.
 
 A driver's `run(ctx)` builds the cell's traffic, weights and program,
-warms up, calls `ctx.window()` around its measured loop, checks what the
-timed path produced, and returns an `Outcome`.
+warms up, runs its measured loop from `ctx.window()` on (a closed loop of
+one caller: `window.closed_loop`), checks what the timed path produced,
+and returns an `Outcome`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
+import importlib
+import importlib.machinery
 import importlib.util
 import json
 import math
@@ -70,6 +81,25 @@ def load_module(path: pathlib.Path, name: str) -> types.ModuleType:
     return mod
 
 
+ARCH_MODULES = ("reference", "weights", "work", "program")
+
+
+def load_arch(arch: str, root: pathlib.Path = ROOT) -> types.SimpleNamespace:
+    """The modules of benchmark/arch/<arch>/ (ARCH_MODULES), as attributes
+    of one namespace. They are imported as one package, once per folder
+    and process, so that they import one another relatively and every
+    caller shares them (faults.py patches `program` there)."""
+    folder = root / "benchmark" / "arch" / arch
+    if not (folder / "reference.py").is_file():
+        raise FileNotFoundError(f"no architecture {arch!r}: {folder} holds no reference.py")
+    package = "bench_arch_" + hashlib.sha256(str(folder.resolve()).encode()).hexdigest()[:16]
+    if package not in sys.modules:
+        spec = importlib.machinery.ModuleSpec(package, None, is_package=True)
+        spec.submodule_search_locations = [str(folder)]
+        sys.modules[package] = importlib.util.module_from_spec(spec)
+    return types.SimpleNamespace(name=arch, **{m: importlib.import_module(f"{package}.{m}") for m in ARCH_MODULES})
+
+
 @dataclasses.dataclass
 class Cell:
     name: str
@@ -78,6 +108,7 @@ class Cell:
     workload: dict  # benchmark/workloads/<name>.json
     end_to_end: list  # the metrics entries this cell reports
     per_layer: list
+    arch: types.SimpleNamespace  # load_arch(config["arch"])
     root: pathlib.Path = ROOT  # the checkout whose files it was found in
 
 
@@ -109,7 +140,10 @@ def resolve(name: str, root: pathlib.Path = ROOT) -> Cell:
     entry = entries[name]
     workload = json.loads((root / "benchmark" / "workloads" / f"{name}.json").read_text())
     configs = {c["name"]: c for c in manifest["configs"]}
-    config = json.loads((root / configs[entry["config"]]["file"]).read_text())
+    config_file = configs[entry["config"]]["file"]
+    config = json.loads((root / config_file).read_text())
+    if "arch" not in config:
+        raise KeyError(f"{config_file} names no \"arch\": the folder benchmark/arch/<arch>/ of its model")
     if not (root / "benchmark" / "drivers" / f"{workload['driver']}.py").is_file():
         raise FileNotFoundError(f"{name}: no driver {workload['driver']!r} under benchmark/drivers")
     if workload["traffic"]["name"] != entry["traffic"]:
@@ -118,7 +152,7 @@ def resolve(name: str, root: pathlib.Path = ROOT) -> Cell:
     e2e = [m for m in manifest["end_to_end"] if "workloads" not in m or name in m["workloads"]]
     names = {m["name"] for m in e2e}
     per_layer = [m for m in manifest["per_layer"] if metric_applies(m, name, names)]
-    return Cell(name, entry, config, workload, e2e, per_layer, root)
+    return Cell(name, entry, config, workload, e2e, per_layer, load_arch(config["arch"], root), root)
 
 
 @dataclasses.dataclass
@@ -140,11 +174,12 @@ class Outcome:
 
 
 class Context:
-    """What a driver gets: the cell, its seed, window length and trace
-    flag, the device, and the set-up clock (`part`, `window`)."""
+    """What a driver gets: the cell, its architecture's modules, its seed,
+    window length and trace flag, the device, and the set-up clock (`part`,
+    `window`)."""
 
     def __init__(self, cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: float, log=None):
-        self.cell, self.seed, self.seconds, self.trace = cell, seed, seconds, trace
+        self.cell, self.arch, self.seed, self.seconds, self.trace = cell, cell.arch, seed, seconds, trace
         self.cfg, self.traffic, self.limits = cell.config, cell.workload["traffic"], cell.workload["limits"]
         self.device = device
         self.t_start = t_start

@@ -5,10 +5,14 @@ generator (tools/make_synth_dataset.py), so the traffic never changes under
 the program's feet. A pool is a few such base images per class, varied on
 the device: each image of the pool is a base with its own seeded noise and
 its own flips, so every row differs while the pool is made in a few large
-calls (numpy draws each base; the card draws the variations).
+calls (numpy draws each base; the card draws the variations). Files of
+such images are written as JPEGs by `jpeg_files`.
 """
 
 from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -86,18 +90,53 @@ def bases(seed: int, n: int, h: int, w: int) -> tuple[np.ndarray, np.ndarray]:
     return ims, (np.arange(n) % N_CLASSES).astype(np.int32)
 
 
-def pool(seed: int, n: int, side: int, n_bases: int, noise: int, device) -> tuple[np.ndarray, np.ndarray]:
-    """(n, side, side, 3) uint8 BGR host images and their int32 classes.
-    Image i is base i % n_bases, flipped left-right and up-down by a seeded
-    coin each, plus uniform noise in [-noise, noise], clipped."""
-    ims, cls = bases(seed, n_bases, side, side)
-    g = torch_generator(seed, 2, device)
-    b = torch.from_numpy(ims).to(device)
-    idx = torch.arange(n, device=device) % n_bases
-    flips = torch.randint(0, 2, (n, 2), generator=g, device=device, dtype=torch.uint8)
+def vary(b: torch.Tensor, idx: torch.Tensor, noise: int, g: torch.Generator) -> np.ndarray:
+    """(len(idx), h, w, 3) uint8 host images: base idx[i] of the device
+    batch `b`, flipped left-right and up-down by a seeded coin each, plus
+    uniform noise in [-noise, noise], clipped."""
+    flips = torch.randint(0, 2, (len(idx), 2), generator=g, device=b.device, dtype=torch.uint8)
     x = b[idx].to(torch.int16)
     x = torch.where(flips[:, 0].view(-1, 1, 1, 1).bool(), x.flip(2), x)
     x = torch.where(flips[:, 1].view(-1, 1, 1, 1).bool(), x.flip(1), x)
-    x = x + torch.randint(-noise, noise + 1, x.shape, generator=g, device=device, dtype=torch.int16)
-    out = x.clamp_(0, 255).to(torch.uint8).cpu().numpy()
-    return out, cls[idx.cpu().numpy()]
+    x = x + torch.randint(-noise, noise + 1, x.shape, generator=g, device=b.device, dtype=torch.int16)
+    return x.clamp_(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def pool(seed: int, n: int, side: int, n_bases: int, noise: int, device) -> tuple[np.ndarray, np.ndarray]:
+    """(n, side, side, 3) uint8 BGR host images and their int32 classes.
+    Image i is base i % n_bases, varied (`vary`)."""
+    ims, cls = bases(seed, n_bases, side, side)
+    g = torch_generator(seed, 2, device)
+    idx = torch.arange(n, device=device) % n_bases
+    return vary(torch.from_numpy(ims).to(device), idx, noise, g), cls[idx.cpu().numpy()]
+
+
+def jpeg_files(seed: int, n: int, h: int, w: int, n_bases: int, noise: int, quality: int, directory: str,
+               device, chunk: int = 128) -> list[str]:
+    """Write n (h, w) JPEG files of baseline quality `quality` into
+    `directory` and return their paths, file i from base i % n_bases, varied
+    (`vary`) on the device a chunk at a time and encoded by cv2 on a thread
+    pool (cv2 lets go of the interpreter's lock while it encodes). Each file
+    is flushed to disk before this returns, so that the kernel's writeback
+    of them does not fall into a measured window; the page cache keeps
+    them."""
+    import cv2
+
+    ims, _ = bases(seed, n_bases, h, w)
+    b = torch.from_numpy(ims).to(device)
+    g = torch_generator(seed, 4, device)
+    paths = [os.path.join(directory, f"{i:05d}.jpg") for i in range(n)]
+
+    def write(path: str, im: np.ndarray) -> None:
+        ok, buf = cv2.imencode(".jpg", im, [cv2.IMWRITE_JPEG_QUALITY, quality])
+        if not ok:
+            raise RuntimeError(f"cv2 could not encode {path}")
+        with open(path, "wb") as f:
+            f.write(buf.tobytes())
+            os.fsync(f.fileno())
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        for at in range(0, n, chunk):
+            x = vary(b, torch.arange(at, min(at + chunk, n), device=device) % n_bases, noise, g)
+            list(ex.map(write, paths[at: at + len(x)], x))
+    return paths

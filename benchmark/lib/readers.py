@@ -1,8 +1,9 @@
 """Shared arithmetic of the per-layer readers (benchmark/metrics/*.py).
 
-A reader takes its cell driver's readings (a namespace: `cfg`, `window_s`,
-`spans` as the program's span registry before and after the window,
-`trace`, and the counts its driver has) and returns its metric, or None
+A reader takes its cell driver's readings (a namespace: `cfg`, `arch` (the
+cell's architecture: `arch.work` holds its work counts), `window_s`, `spans`
+as the program's span registry before and after the window, `trace`, and
+the counts its driver has) and returns its metric, or None
 where there is nothing to read. A share of a roofline or of a peak is never
 0: with no time measured there is no share.
 """
@@ -11,8 +12,6 @@ from __future__ import annotations
 
 import json
 import pathlib
-
-from . import work
 
 
 def patterns(reader_file: str) -> dict:
@@ -37,7 +36,7 @@ def roofline_pct(r, reader_file: str) -> float | None:
     spent = r.trace.kernel_s(p["kernels"])
     if spent <= 0:
         return None
-    return 100.0 * work.bound_s(r.cfg, r.batch, p["launches_of"]) * r.forwards / spent
+    return 100.0 * r.arch.work.bound_s(r.cfg, r.batch, p["launches_of"]) * r.forwards / spent
 
 
 def idle_pct(r) -> float | None:

@@ -1,7 +1,8 @@
-"""Shared pieces of the benchmark's tests: the tiny configuration that lets
-every cell run end to end on the CPU, where each kernel wrapper runs its
-plain PyTorch version, at the small traffic its driver names
-(`TEST_TRAFFIC`). The cells are BENCHMARK.json's: no test names one."""
+"""Shared pieces of the benchmark's tests: each cell at its architecture's
+tiny configuration (`reference.TINY`), which lets every cell run end to end
+on the CPU, where each kernel wrapper runs its plain PyTorch version, at
+the small traffic its driver names (`TEST_TRAFFIC`). The cells are
+BENCHMARK.json's: no test names one."""
 
 from __future__ import annotations
 
@@ -14,10 +15,6 @@ import pytest
 import torch
 
 from benchmark.lib import harness
-
-TINY = {"name": "roomnet-tiny", "num_classes": 6, "im_side": 32, "block_filters": [8, 16],
-        "block_depths": [1, 2], "block_pools": [[3, 1], [4, 2]], "kernel_size": 3, "dense_units": [16, 8],
-        "bn_eps": 0.001}
 
 
 def manifest(root: pathlib.Path = harness.ROOT) -> dict:
@@ -33,9 +30,10 @@ CELLS = cells()
 
 def tiny_cell(name: str, root: pathlib.Path = harness.ROOT) -> harness.Cell:
     """The cell as BENCHMARK.json defines it (driver, limits, metrics), at
-    roomnet-tiny in its configuration's precision, with small traffic."""
+    its architecture's tiny configuration in its configuration's precision,
+    with small traffic."""
     cell = harness.resolve(name, root)
-    cell.config = dict(TINY, precision=cell.config["precision"])
+    cell.config = dict(cell.arch.reference.TINY, precision=cell.config["precision"])
     cell.workload = copy.deepcopy(cell.workload)
     cell.workload["traffic"].update(harness.load_driver(cell).TEST_TRAFFIC["cpu"])
     return cell

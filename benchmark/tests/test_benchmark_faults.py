@@ -17,7 +17,7 @@ CASES = [(name, fault) for name in CELLS
 @pytest.mark.parametrize("name,fault", CASES)
 def test_a_planted_fault_makes_the_run_not_correct(name, fault):
     cell = tiny_cell(name)
-    with faults.planted(fault):
+    with faults.planted(fault, cell.arch):
         result = run_tiny(cell)
     assert result["correct"] is False, result["checks"]
     over = [k for k, c in result["checks"].items() if not c["value"] <= c["limit"]]
@@ -25,9 +25,8 @@ def test_a_planted_fault_makes_the_run_not_correct(name, fault):
 
 
 def test_planting_restores_the_program():
-    from benchmark.lib import program
-
-    before = program.classifier
-    with faults.planted("altered"):
-        assert program.classifier is not before
-    assert program.classifier is before
+    arch = tiny_cell(CELLS[0]).arch
+    before = arch.program.classifier
+    with faults.planted("altered", arch):
+        assert arch.program.classifier is not before
+    assert arch.program.classifier is before

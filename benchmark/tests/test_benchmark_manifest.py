@@ -16,9 +16,8 @@ import sys
 import pytest
 
 from benchmark.lib import harness
-from benchmark.reference import model as ref
 
-from .conftest import CELLS, TINY, cells, manifest, run_tiny, tiny_cell
+from .conftest import CELLS, cells, manifest, run_tiny, tiny_cell
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -117,8 +116,21 @@ def test_configuration_files_hold_what_their_entries_say(name):
     entry = next(c for c in manifest()["configs"] if c["name"] == name)
     cfg = json.loads((harness.ROOT / entry["file"]).read_text())
     assert cfg["name"] == name and cfg["source"] == entry["source"] and cfg["reduced"] == entry["reduced"]
+    assert NAME.match(cfg["arch"])
+    ref = harness.load_arch(cfg["arch"]).reference
     assert sum(math.prod(s) for s in ref.param_paths(cfg).values()) == cfg["params"]
     assert cfg["precision"] in ("bf16", "f32")
+
+
+def test_a_configuration_without_an_arch_is_refused(tmp_path):
+    root = copy_benchmark(tmp_path)
+    cfg_file = root / manifest(root)["configs"][0]["file"]
+    cfg = json.loads(cfg_file.read_text())
+    del cfg["arch"]
+    cfg_file.write_text(json.dumps(cfg))
+    name = next(w["name"] for w in manifest(root)["workloads"] if w["config"] == cfg["name"])
+    with pytest.raises(KeyError, match="arch"):
+        harness.resolve(name, root)
 
 
 def copy_benchmark(dst: pathlib.Path) -> pathlib.Path:
@@ -133,7 +145,8 @@ def test_a_cell_config_and_metric_are_added_with_files_and_entries_alone(tmp_pat
     before = {p: p.read_bytes() for p in (root / "benchmark").rglob("*") if p.is_file()}
     template = tiny_cell(CELLS[0])
     (root / "benchmark" / "configs" / "roomnet-tiny-bf16.json").write_text(
-        json.dumps({**TINY, "name": "roomnet-tiny-bf16", "precision": "bf16", "reduced": []}))
+        json.dumps({**template.arch.reference.TINY, "name": "roomnet-tiny-bf16", "precision": "bf16",
+                    "reduced": []}))
     wl = json.loads((root / "benchmark" / "workloads" / f"{CELLS[0]}.json").read_text())
     wl["traffic"].update(template.workload["traffic"], name="tiny-traffic")
     (root / "benchmark" / "workloads" / "tiny-cell.json").write_text(json.dumps(wl))
@@ -156,6 +169,156 @@ def test_a_cell_config_and_metric_are_added_with_files_and_entries_alone(tmp_pat
     traced = run_tiny(cell, trace=True)
     assert plain["correct"] and set(plain["metrics"]) == {moved["name"], "setup_s"}
     assert traced["metrics"]["window_s.tiny"]["value"] > 0
+    after = {p: p.read_bytes() for p in before}
+    assert after == before, "no file of the benchmark was edited"
+
+
+# A second architecture as a later change would add it: a small plain-torch
+# convnet (conv3x3 with zero padding, ReLU, global mean, dense, softmax)
+# with its reference, weights, work counts, TINY and a program of its own.
+STANDIN = {
+    "reference.py": """
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+TINY = {"name": "standin-tiny", "arch": "standin", "num_classes": 4, "im_side": 16, "width": 8}
+
+
+def param_paths(cfg):
+    return {"conv": (3, 3, 3, cfg["width"]), "dense/kernel": (cfg["width"], cfg["num_classes"]),
+            "dense/bias": (cfg["num_classes"],)}
+
+
+def rounder(prec):
+    return (lambda x: x.to(torch.bfloat16).float()) if prec in ("bf16", "fp8") else (lambda x: x)
+
+
+@torch.no_grad()
+def probs(v, x, cfg, prec="f32", rows=256):
+    q, out = rounder(prec), []
+    for at in range(0, len(x), rows):
+        xb = torch.as_tensor(x[at: at + rows]).to(v["conv"].device).float().permute(0, 3, 1, 2) / 127.5 - 1
+        h = F.relu(q(F.conv2d(xb, q(v["conv"]).permute(3, 2, 0, 1), padding=1))).mean((2, 3))
+        out.append(torch.softmax(h @ v["dense/kernel"] + v["dense/bias"], -1).double().cpu().numpy())
+    return np.concatenate(out)
+""",
+    "weights.py": """
+import torch
+
+from benchmark.lib import images
+
+from . import reference
+
+
+def make(cfg, seed, calib_x, device):
+    g = images.torch_generator(seed, 3, device)
+    return {p: torch.randn(s, generator=g, device=device) for p, s in reference.param_paths(cfg).items()}
+
+
+def nest(flat, cfg):
+    return flat
+""",
+    "work.py": """
+from benchmark.lib.peaks import HBM_BYTES_PER_S, PEAK_F32
+
+
+def launches(cfg, batch):
+    s, c = cfg["im_side"], cfg["width"]
+    macs = batch * s * s * 27 * c
+    return [{"kernel": "conv", "bytes": 4 * batch * s * s * (3 + c), "ops": 2 * macs, "flops": 2 * macs}]
+
+
+def bound_s(cfg, batch, kernel):
+    return sum(max(x["bytes"] / HBM_BYTES_PER_S, x["ops"] / PEAK_F32)
+               for x in launches(cfg, batch) if x["kernel"] == kernel)
+
+
+def forward_flops(cfg, batch):
+    return float(sum(x["flops"] for x in launches(cfg, batch)))
+
+
+def forward_ideal_s(cfg, batch):
+    return forward_flops(cfg, batch) / PEAK_F32
+""",
+    "program.py": """
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+class Classifier:
+    def __init__(self, variables, cfg, batch_size, device):
+        self.variables, self.batch_size, self.device = variables, batch_size, device
+
+    def _predict(self, variables, x):
+        x = x.float().permute(0, 3, 1, 2) / 127.5 - 1
+        h = F.relu(F.conv2d(x, variables["conv"].permute(3, 2, 0, 1), padding=1)).mean((2, 3))
+        probs = torch.softmax(h @ variables["dense/kernel"] + variables["dense/bias"], -1)
+        return probs.argmax(-1), probs
+
+    def predict(self, x):
+        out = [self._predict(self.variables, torch.as_tensor(x[at: at + self.batch_size]).to(self.device))
+               for at in range(0, len(x), self.batch_size)]
+        return (np.concatenate([i.cpu().numpy() for i, _ in out]),
+                np.concatenate([p.cpu().numpy() for _, p in out]))
+
+    def close(self):
+        pass
+
+
+def classifier(variables, cfg, batch_size, device):
+    return Classifier(variables, cfg, batch_size, device)
+""",
+}
+
+
+def test_a_second_architecture_is_added_with_files_and_entries_alone(tmp_path):
+    """In a copy: a stand-in architecture's folder, a configuration, a cell
+    and a per-layer metric split of an existing reader; it resolves, runs
+    end to end on the CPU with and without the trace, and the copy passes
+    the manifest tests and the driver tests of its cell, with no file of
+    the benchmark edited."""
+    root = copy_benchmark(tmp_path)
+    (root / "roomnet_tpu_torch").symlink_to(harness.ROOT / "roomnet_tpu_torch")
+    shutil.copy(harness.ROOT / "pyproject.toml", root / "pyproject.toml")
+    before = {p: p.read_bytes() for p in (root / "benchmark").rglob("*") if p.is_file()}
+    folder = root / "benchmark" / "arch" / "standin"
+    folder.mkdir()
+    for name, source in STANDIN.items():
+        (folder / name).write_text(source.lstrip())
+    (root / "benchmark" / "configs" / "standin-16.json").write_text(json.dumps(
+        {"name": "standin-16", "arch": "standin", "source": "https://example.org/standin", "num_classes": 4,
+         "im_side": 16, "width": 8, "precision": "f32", "params": 27 * 8 + 8 * 4 + 4, "reduced": []}))
+    (root / "benchmark" / "workloads" / "standin-cell.json").write_text(json.dumps(
+        {"driver": "infer_closed", "limits": {"max_prob_gap": 1e-4},
+         "traffic": {"name": "standin-traffic", "batch_size": 8, "images_per_call": 32, "bases": 4, "noise": 16,
+                     "calib_images": 8}}))
+    m = json.loads((root / "BENCHMARK.json").read_text())
+    m["configs"].append({"name": "standin-16", "source": "https://example.org/standin",
+                         "file": "benchmark/configs/standin-16.json", "reduced": [], "why": "a test"})
+    m["workloads"].append({"name": "standin-cell", "config": "standin-16", "traffic": "standin-traffic",
+                           "chips": 1, "why": "a test"})
+    m["end_to_end"].insert(0, {"name": "infer_img_per_s.standin", "unit": "img/s", "better": "higher",
+                               "bound": 0.1, "source": "host_clock", "workloads": ["standin-cell"]})
+    m["per_layer"].append({"name": "device_idle_pct.standin", "unit": "%", "better": "lower",
+                           "source": "device_trace", "layer": "device", "moves": "infer_img_per_s.standin",
+                           "workloads": ["standin-cell"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(m))
+
+    cell = harness.resolve("standin-cell", root)
+    assert cell.arch.name == "standin" and cell.config["width"] == 8
+    small = tiny_cell("standin-cell", root)
+    assert small.config["name"] == "standin-tiny"
+    plain, traced = run_tiny(small), run_tiny(small, trace=True)
+    assert plain["correct"] and set(plain["metrics"]) == {"infer_img_per_s.standin", "setup_s"}
+    assert traced["correct"] and set(traced["metrics"]) == set()  # its one reader needs the card's trace
+    env = {**clean_env(), "PYTHONDONTWRITEBYTECODE": "1"}
+    for args in (["benchmark/tests/test_benchmark_manifest.py", "-k", "not second_architecture"],
+                 ["benchmark/tests/test_benchmark_drivers.py", "-k", "standin"]):
+        proc = subprocess.run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", *args], cwd=root,
+                              env=env, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0 and " passed" in proc.stdout, proc.stdout[-3000:] + proc.stderr[-2000:]
     after = {p: p.read_bytes() for p in before}
     assert after == before, "no file of the benchmark was edited"
 

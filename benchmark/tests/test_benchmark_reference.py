@@ -1,5 +1,6 @@
-"""The reference against the program's plain path on the CPU (where the
-port's kernel wrappers run their plain PyTorch versions), and its parts."""
+"""RoomNet's reference (benchmark/arch/roomnet/reference.py) against the
+program's plain path on the CPU (where the port's kernel wrappers run their
+plain PyTorch versions), and its parts."""
 
 from __future__ import annotations
 
@@ -9,13 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.lib import harness, images, program, weights
-from benchmark.reference import compare
-from benchmark.reference import model as ref
+from benchmark.lib import compare, harness, images
 
-from .conftest import TINY
-
-F32_TINY = dict(TINY, precision="f32")
+ROOMNET = harness.load_arch("roomnet")
+ref, weights, program = ROOMNET.reference, ROOMNET.weights, ROOMNET.program
+F32_TINY = dict(ref.TINY, precision="f32")
 
 
 def f32_224() -> dict:
@@ -74,6 +73,6 @@ def test_the_same_seed_gives_the_same_inputs_and_weights():
     b = images.pool(2**35 + 3, 8, 32, 4, 16, "cpu")
     assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
     assert not np.array_equal(a[0], images.pool(2**35 + 4, 8, 32, 4, 16, "cpu")[0])
-    wa, wb = weights.glorot(TINY | {"precision": "f32"}, 9, "cpu"), weights.glorot(F32_TINY, 9, "cpu")
+    wa, wb = weights.glorot(ref.TINY | {"precision": "f32"}, 9, "cpu"), weights.glorot(F32_TINY, 9, "cpu")
     assert all(torch.equal(wa[k], wb[k]) for k in wa)
     assert len({tuple(r.tobytes() for r in a[0])}) == 1 and len({r.tobytes() for r in a[0]}) == 8

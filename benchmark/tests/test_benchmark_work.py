@@ -1,5 +1,6 @@
-"""The frozen work counts against hand counts, and against the kernel
-table's bounds (chip_smoke.py phase 3, PERF.md)."""
+"""RoomNet's frozen work counts (benchmark/arch/roomnet/work.py) against hand
+counts, and against the kernel table's bounds (chip_smoke.py phase 3,
+PERF.md)."""
 
 from __future__ import annotations
 
@@ -7,8 +8,11 @@ import json
 
 import pytest
 
-from benchmark.lib import harness, work
-from benchmark.reference import model as ref
+from benchmark.lib import harness
+from benchmark.lib.peaks import PEAK_BF16, PEAK_F32, PEAK_TF32
+
+ROOMNET = harness.load_arch("roomnet")
+work, ref = ROOMNET.work, ROOMNET.reference
 
 
 def config(name: str) -> dict:
@@ -29,10 +33,10 @@ def test_one_conv_site_by_hand():
     assert c["flops"] == 2 * macs and c["ops"] == 2 * macs
     assert c["bytes"] == 2 * (256 * 215 * 215 * 32 + 9 * 32 * 32 + 256 * 213 * 213 * 32)
     f = site(F32, "b1.conv1")
-    assert f["ops"] == 3 * 2 * macs and f["peak"] == work.PEAK_TF32  # the TF32 split: three products
+    assert f["ops"] == 3 * 2 * macs and f["peak"] == PEAK_TF32  # the TF32 split: three products
     assert f["bytes"] == 2 * c["bytes"]
     first = site(F32, "b0.conv0")  # Cin 3: the CUDA cores' f32
-    assert first["peak"] == work.PEAK_F32 and first["ops"] == first["flops"]
+    assert first["peak"] == PEAK_F32 and first["ops"] == first["flops"]
 
 
 def test_one_pool_site_by_hand():
@@ -72,7 +76,7 @@ def test_forward_work():
     assert conv / 1e9 == pytest.approx(1148.516352)
     assert work.forward_flops(BF16, 256) / 1e9 == pytest.approx(1180.168, abs=1e-3)
     # bf16: all at 989 TFLOP/s.
-    assert work.forward_ideal_s(BF16, 256) == pytest.approx(work.forward_flops(BF16, 256) / work.PEAK_BF16)
+    assert work.forward_ideal_s(BF16, 256) == pytest.approx(work.forward_flops(BF16, 256) / PEAK_BF16)
     # f32: the convs with Cin % 8 == 0 at 495 / 3 TFLOP/s, conv 0 and the rest at 67.
     tf32 = sum(x["flops"] for x in work.launches(F32, 256) if x["kernel"] == "conv3x3" and x["site"] != "b0.conv0")
     rest = work.forward_flops(F32, 256) - tf32
