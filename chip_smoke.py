@@ -276,6 +276,20 @@ kernels, in phases; any failure raises and the script exits non-zero:
      bf16 alone, and its counts are one total: null on the f32 rows),
      valset_launches (b)'s by dtype.
 
+ 15. ResNet-50 v1.5 (models/resnet.py, `resnet50-v1.5-224-bf16`): the conv1x1
+     library's SASS must hold HGMMA and UTMALDG lines; at each of its 16
+     3x3 and 36 1x1 conv sites at batch 256 (random operands, the site's
+     stride, padding, bias, ReLU and residual) the streamed conv3x3 path
+     (conv_wg_stream) and the conv1x1 GEMM (conv1x1_bn_kernel) against
+     their plain versions within one bf16 ulp, then timed in turns with
+     cuDNN (F.conv2d on channels-last bf16 with the bias, then the
+     residual add and the ReLU as PyTorch ops), beside the site's bound
+     (benchmark/arch/resnet50/work.py's arithmetic: each operand read
+     once, bf16 at 989 TFLOP/s, 3.35 TB/s), each summed per forward; then
+     one batch-256 forward through RoomNetClassifier._predict (launches 16
+     conv3x3 and 36 conv1x1) and its device time. `--only-phase15` runs
+     phase 1 and this phase alone.
+
 Phase 5 also prints utils/roofline.py's summary of the batch-256 device
 forward, bf16 (2 bytes, the bf16 peak) and f32 (4 bytes, the f32 peak; the
 convs on the TF32 split at a third of the TF32 peak).
@@ -584,6 +598,8 @@ def timed_fill(fill, spent: list):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one NVIDIA GPU.")
+    ap.add_argument("--only-phase15", action="store_true",
+                    help="run phase 1 (the card, the build) and phase 15 (ResNet-50's kernels) alone")
     ap.add_argument("--parent", type=pathlib.Path, metavar="DIR",
                     help="another checkout whose csrc/conv3x3.cu phase 3 also checks and times at the "
                          "conv sites (bf16 and f32), in the same turns")
@@ -636,6 +652,11 @@ def main(argv=None) -> None:
     log(f"  sass conv3x3: {sass}")
     if not (sass["HGMMA"] and sass["UTMALDG"] and sass["UTMASTG"] and sass["HGMMA_TF32"]):
         raise AssertionError(f"conv3x3: the library's SASS lacks wgmma, TMA or the f32 path's TF32 wgmma: {sass}")
+    if opts.only_phase15:
+        log(json.dumps({"card": smi, "resnet50": phase15(dev)}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return
 
     def conv_variant(dt: str, args) -> str:
         """The conv kernel's variant for one launch (csrc/conv3x3.cu:rn_conv3x3_variant)."""
@@ -963,13 +984,17 @@ def main(argv=None) -> None:
     bench_valset = phase14(counts, zero_counts, per_forward, serving, dev, smi)
     bv_launches = bench_valset.pop("launches")
 
+    # -- phase 15: ResNet-50's kernels -------------------------------------------
+    resnet50 = phase15(dev)
+
     for dt in cfgs:
         log(f"max |d| against plain [{dt}]: " + ", ".join(
             f"{n} {max_err[(n, dt, 8)]:.3g} (batch 8) {max_err[(n, dt, 256)]:.3g} (batch 256)"
             for n in kernels))
     log(json.dumps({"card": smi, "serving": serving, "directory": directory, "training": training,
                     "server": server, "trainer": trainer, "scale_out": scale_out, "server_mesh": server_mesh,
-                    "tensor_parallel": tensor_parallel, "curriculum": curriculum, "bench_valset": bench_valset}))
+                    "tensor_parallel": tensor_parallel, "curriculum": curriculum, "bench_valset": bench_valset,
+                    "resnet50": resnet50}))
     log(f"wall: {time.perf_counter() - wall0:.1f} s from start to the result lines")
     rows = []
     for dt in cfgs:
@@ -3763,6 +3788,87 @@ def bench_forwards(burst_calls: int, **sizes) -> int:
     return ((1 + n["infer_iters"] + 1 + n["latency_calls"]) + 2 * (1 + n["chains"] * n["train_iters"])
             + (1 + n["e2e_runs"] * math.ceil(n["e2e_images"] / n["batch"]))
             + (n["serve_batch"].bit_length() + 2 + 2 * n["serve_pairs"] + burst_calls))
+
+
+def phase15(dev) -> dict:
+    """ResNet-50 v1.5's kernels (docstring phase 15). Returns per site and
+    per kernel the kernel's, cuDNN's and the bound's ms at batch 256, and the
+    classifier's forward."""
+    from roomnet_tpu_torch.infer.classify import RoomNetClassifier
+    from roomnet_tpu_torch.models import registry
+    from roomnet_tpu_torch.models import resnet as R
+    from roomnet_tpu_torch.ops.kernels import _build
+    from roomnet_tpu_torch.ops.kernels import conv1x1 as K1
+    from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
+
+    sass = sass_counts(_build.library_path("conv1x1"))
+    log(f"phase 15: sass conv1x1: {sass}")
+    if not (sass["HGMMA"] and sass["UTMALDG"]):
+        raise AssertionError(f"conv1x1: the library's SASS lacks wgmma or TMA loads: {sass}")
+    cfg, batch = registry.get("resnet50-v1.5-224-bf16"), 256
+    g = torch.Generator(device=dev).manual_seed(15)
+    sites, per_forward = [], {k: {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0} for k in ("conv3x3", "conv1x1")}
+    for site in cfg.conv_sites():
+        k, side, cin, cout, s = (3 if site["kernel"] == "conv3x3" else 1), site["side"], site["cin"], site["cout"], \
+            site["stride"]
+        so = (side - 1) // s + 1
+        x = torch.randn(batch, side, side, cin, generator=g, device=dev).bfloat16()
+        w = (torch.randn(k, k, cin, cout, generator=g, device=dev) / (k * cin ** 0.5)).bfloat16()
+        bias = torch.randn(cout, generator=g, device=dev)
+        res = torch.randn(batch, so, so, cout, generator=g, device=dev).bfloat16() if site["residual"] else None
+        kw = {"stride": s, "relu": site["relu"], "residual": res}
+        if k == 3:
+            kern, plain, kw = KC.conv3x3, KC.conv3x3_plain, dict(kw, padding=1)
+        else:
+            kern, plain = K1.conv1x1, K1.conv1x1_plain
+        got, want = kern(x, w, bias, **kw).float(), plain(x, w, bias, **kw).float()
+        d = (got - want).abs()
+        if (d > 2.0 ** -7 * (8 + want.abs())).any() or not torch.isfinite(got).all():
+            raise AssertionError(f"{site['kernel']} {site['site']}: kernel disagrees with plain, max |d| "
+                                 f"{d.max().item():.3g}")
+        err = d.max().item()
+        del got, want, d
+        xl, rl = x.permute(0, 3, 1, 2), None if res is None else res.permute(0, 3, 1, 2)
+        wl, bl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last), bias.bfloat16()
+
+        def library():
+            y = F.conv2d(xl, wl, bl, stride=s, padding=k // 2)
+            if rl is not None:
+                y = y.add_(rl)
+            return y.relu_() if site["relu"] else y
+
+        t = in_turns({"kernel": lambda: kern(x, w, bias, **kw), "library": library})
+        read = batch * (side * side if k == 3 else so * so) * cin
+        nb = 2 * (read + k * k * cin * cout + batch * so * so * cout * (2 if res is not None else 1)) + 4 * cout
+        ops = 2 * batch * so * so * cout * k * k * cin
+        bound = 1e3 * max(nb / HBM_BYTES_PER_S, ops / PEAK_BF16_TENSOR)
+        v = KC.variant(tuple(x.shape), cout, x.dtype, padding=1, stride=s) if k == 3 else \
+            K1.variant(tuple(x.shape), cout, stride=s)
+        log(f"  {site['kernel']} {site['site']} {side}x{side}x{cin}->{cout} s{s}: kernel {t['kernel']:.4f} ms, "
+            f"cuDNN {t['library']:.4f} ms, bound {bound:.4f} ms "
+            f"({'bytes' if nb / HBM_BYTES_PER_S >= ops / PEAK_BF16_TENSOR else 'operations'}), "
+            f"{100 * bound / t['kernel']:.1f}% of it, max |d| {err:.3g}; {v}")
+        sites.append({**site, "ms": t["kernel"], "library_ms": t["library"], "bound_ms": bound, "max_abs_err": err})
+        for key, val in (("ms", t["kernel"]), ("library_ms", t["library"]), ("bound_ms", bound)):
+            per_forward[site["kernel"]][key] += val
+        del x, w, res, xl, rl, wl
+    for name, s in per_forward.items():
+        log(f"phase 15: {name} per batch-256 forward: kernel {s['ms']:.4f} ms, cuDNN {s['library_ms']:.4f} ms, "
+            f"bound {s['bound_ms']:.4f} ms ({100 * s['bound_ms'] / s['ms']:.1f}% of it)")
+    clf = RoomNetClassifier(R.init_variables(torch.Generator(device=dev).manual_seed(0), cfg), cfg,
+                            batch_size=batch, device=dev)
+    x_u8 = torch.randint(0, 256, (batch, cfg.im_side, cfg.im_side, 3), dtype=torch.uint8, device=dev,
+                         generator=g)
+    before = (KC.conv3x3.launches, K1.conv1x1.launches)
+    clf._predict(clf.variables, x_u8)
+    torch.cuda.synchronize()
+    launches = {"conv3x3": KC.conv3x3.launches - before[0], "conv1x1": K1.conv1x1.launches - before[1]}
+    if launches != {"conv3x3": 16, "conv1x1": 36}:
+        raise AssertionError(f"phase 15: a ResNet-50 forward launched {launches}, not 16 conv3x3 and 36 conv1x1")
+    forward_ms = cuda_ms(lambda: clf._predict(clf.variables, x_u8))
+    clf.close()
+    log(f"phase 15: RoomNetClassifier._predict, batch 256: {forward_ms:.3f} ms device time, launches {launches}")
+    return {"sites": sites, "per_forward": per_forward, "forward_ms": forward_ms, "launches": launches}
 
 
 def phase14(counts, zero_counts, per_forward, serving, dev, smi) -> dict:

@@ -43,10 +43,11 @@ from glob import glob
 import numpy as np
 import torch
 
-from .. import CLASS_LABELS, default_device
+from .. import CLASS_LABELS, default_device  # noqa: F401 (RoomNet's labels, as this module has always named them)
 from ..data import native
 from ..data.loader import center_crop, draw_crop_rect
-from ..models.roomnet import DEFAULT_CONFIG, fold_variables, forward_folded, normalize_bgr_uint8
+from ..models import family
+from ..models.roomnet import DEFAULT_CONFIG
 from ..ops.resize import resize_bilinear_half_pixel
 from ..parallel import collectives as C
 from ..utils.profiling import SPANS, trace
@@ -95,7 +96,9 @@ def load_fill(items, load, pool: ThreadPoolExecutor):
 
 
 class RoomNetClassifier:
-    """Batched classifier over converted params (optimized-inference mode)."""
+    """Batched classifier over converted params (optimized-inference mode),
+    of any model family (models/family.py): the configuration picks the
+    fold, the forward, the input normalisation and the class labels."""
 
     def __init__(
         self,
@@ -132,8 +135,9 @@ class RoomNetClassifier:
         self.mesh = mesh
         self._group = mesh.group("data") if mesh is not None else None
         self.cfg = cfg
+        self._family = family.of(cfg)
         self.batch_size = batch_size
-        self.class_labels = class_labels or CLASS_LABELS
+        self.class_labels = class_labels or self._family.class_labels(cfg)
         self.decode_workers = decode_workers or min(32, (os.cpu_count() or 8) * 2)
         if device_resize_side is not None and device_resize_side <= cfg.im_side:
             raise ValueError(
@@ -170,7 +174,7 @@ class RoomNetClassifier:
     @variables.setter
     def variables(self, variables):
         tree = _to_device(variables, self.device)
-        self._weights = (tree, fold_variables(tree, self.cfg, uint8_input=False))
+        self._weights = (tree, self._family.fold_variables(tree, self.cfg))
 
     def _predict(self, variables, x_uint8_bgr: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """One device batch: (ids, probs) tensors on the device, from a uint8
@@ -178,8 +182,9 @@ class RoomNetClassifier:
         fold serves the call) or another tree, folded for this call alone
         (the serving daemon's reload probe)."""
         published, folded = self._weights
+        model = self._family
         if variables is not published:
-            folded = fold_variables(_to_device(variables, self.device), self.cfg, uint8_input=False)
+            folded = model.fold_variables(_to_device(variables, self.device), self.cfg)
         n, group = x_uint8_bgr.shape[0], self._group
         if group is not None:
             # This rank's rows of the batch, cycle-padded to a multiple of
@@ -192,7 +197,7 @@ class RoomNetClassifier:
             xr = resize_bilinear_half_pixel(x_uint8_bgr.float(), (side, side))
             # Back to uint8, as cv2's resize would give (to one level).
             x_uint8_bgr = xr.round().clamp(0, 255).to(torch.uint8)
-        _, probs = forward_folded(folded, normalize_bgr_uint8(x_uint8_bgr), self.cfg)
+        _, probs = model.forward_folded(folded, model.normalize(x_uint8_bgr, self.cfg), self.cfg)
         probs = C.gather(probs, group)[:n]
         return probs.argmax(dim=-1), probs
 
@@ -422,6 +427,9 @@ class RoomNetClassifier:
                 ids[idx] = res_ids[rows].numpy()
                 confs[idx] = res_probs[rows].numpy()
         return ids, confs, ids >= 0
+
+
+Classifier = RoomNetClassifier  # the model-neutral name
 
 
 def dir_images(imgs_dir: str) -> list[str]:

@@ -87,6 +87,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..models import family
 from ..parallel import collectives as C
 from ..params import schema
 from ..params.checkpoint import open_store
@@ -191,6 +192,7 @@ class ClassifierServer:
         A classifier on a mesh makes this a mesh server (module docstring):
         every rank constructs it with the same arguments and calls
         `serve_forever`; rank 0 serves, the others follow."""
+        family.require_roomnet(classifier.cfg, "ClassifierServer")
         self.classifier = classifier
         mesh = getattr(classifier, "mesh", None)
         self.rank = 0 if mesh is None else mesh.rank

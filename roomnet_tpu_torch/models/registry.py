@@ -1,20 +1,28 @@
-"""Model registry: named RoomNet variants (port of roomnet_tpu/models/registry.py).
+"""Model registry: named model configurations (port of
+roomnet_tpu/models/registry.py, which holds RoomNet's alone).
 
-The reference tried 300x300 and 600x600 inputs before settling on 224
-(README.md:32); variants differ only in `im_side` (and so `flat_len`).
-`roomnet-tiny` is the small test variant.
+RoomNet: the reference tried 300x300 and 600x600 inputs before settling on
+224 (README.md:32); variants differ only in `im_side` (and so `flat_len`).
+`roomnet-tiny` is the small test variant. ResNet-50 v1.5
+(models/resnet.py): `resnet50-v1.5-224-bf16` at its published widths, and
+`resnet50-tiny`, the CPU tests' (a stride-2 stage and projection shortcuts
+at 32 pixels).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
+from .resnet import RESNET50, ResNetConfig
 from .roomnet import DEFAULT_CONFIG, FAST_CONFIG, RoomNetConfig
 
-_REGISTRY: dict[str, RoomNetConfig] = {}
+Config = RoomNetConfig | ResNetConfig
+_REGISTRY: dict[str, Config] = {}
 
 
-def register(name: str, cfg: RoomNetConfig) -> RoomNetConfig:
+def register(name: str, cfg: Config) -> Config:
     if name in _REGISTRY:
         raise KeyError(f"model '{name}' already registered")
     validate(cfg)
@@ -22,7 +30,7 @@ def register(name: str, cfg: RoomNetConfig) -> RoomNetConfig:
     return cfg
 
 
-def get(name: str) -> RoomNetConfig:
+def get(name: str) -> Config:
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -33,7 +41,28 @@ def names() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def validate(cfg: RoomNetConfig) -> None:
+def validate(cfg: Config) -> None:
+    """Reject geometries the model cannot run: one check per family."""
+    if isinstance(cfg, ResNetConfig):
+        _validate_resnet(cfg)
+    else:
+        _validate_roomnet(cfg)
+
+
+def _validate_resnet(cfg: ResNetConfig) -> None:
+    """Every stage has a width and a depth, and the input survives the
+    stem's two halvings and the stages' (one each past the first)."""
+    if not (len(cfg.mid_widths) == len(cfg.depths) >= 1 and min(cfg.depths) >= 1 and min(cfg.mid_widths) >= 1):
+        raise ValueError(f"mid_widths {cfg.mid_widths} and depths {cfg.depths} do not make stages")
+    s = (cfg.im_side - 1) // 2 + 1  # the stem's conv
+    s = (s - 1) // 2 + 1  # its max pool
+    for _ in cfg.depths[1:]:
+        s = (s - 1) // 2 + 1
+    if cfg.im_side < 1 or s < 1:
+        raise ValueError(f"im_side {cfg.im_side}: the network collapses below 1x1")
+
+
+def _validate_roomnet(cfg: RoomNetConfig) -> None:
     """Reject geometries where a conv/pool window exceeds its input."""
     s = cfg.im_side
     for bi in range(len(cfg.block_filters)):
@@ -66,6 +95,9 @@ register("roomnet-224-bf16", FAST_CONFIG)
 for _side in (300, 600):
     register(f"roomnet-{_side}", dataclasses.replace(DEFAULT_CONFIG, im_side=_side))
     register(f"roomnet-{_side}-bf16", dataclasses.replace(FAST_CONFIG, im_side=_side))
+register("resnet50-v1.5-224-bf16", RESNET50)
+register("resnet50-tiny", ResNetConfig(num_classes=10, im_side=32, stem_width=8, mid_widths=(4, 8),
+                                       depths=(2, 1), compute_dtype=torch.float32))
 register(
     "roomnet-tiny",
     RoomNetConfig(

@@ -33,7 +33,7 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "roomnet_tpu_torch"
-SOURCES = ("conv3x3", "relu6_pool_bn", "residual_bn", "dense_head")
+SOURCES = ("conv3x3", "conv1x1", "relu6_pool_bn", "residual_bn", "dense_head")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -50,6 +50,7 @@ import torch
 from .. import default_device
 from ..data.dataset import extract_fpaths
 from ..data.loader import TrainFeeder, on_stream, to_device_async
+from ..models import family
 from ..models.roomnet import DEFAULT_CONFIG, RoomNetConfig, forward, init_variables, normalize_bgr_uint8
 from ..ops import blocks as B
 from ..params import schema
@@ -174,6 +175,7 @@ class Trainer:
 
     def __init__(self, tc: TrainConfig = TrainConfig(), cfg: RoomNetConfig = DEFAULT_CONFIG,
                  device=None, mesh=None):
+        family.require_roomnet(cfg, "Trainer")
         if tc.img_side != cfg.im_side:
             raise ValueError(
                 f"TrainConfig.img_side={tc.img_side} (data pipeline) != "

@@ -25,6 +25,7 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..models import family
 from ..models.roomnet import DEFAULT_CONFIG, RoomNetConfig, forward, normalize_bgr_uint8, update_moving_stats
 from ..ops import blocks as B
 from ..parallel import collectives as C
@@ -158,6 +159,7 @@ def make_train_step(hp: TrainHParams = TrainHParams(), cfg: RoomNetConfig = DEFA
     gradient is summed over the ranks that hold the same slice, and Adam,
     the gate and the moving stats run unchanged on the local tensors.
     """
+    family.require_roomnet(cfg, "make_train_step")
     opt = _optimizer(hp)
 
     def step_fn(state: TrainState, x_bgr_uint8, y, generator=None, row_mask=None, *, mark=None):

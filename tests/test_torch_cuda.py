@@ -8,7 +8,11 @@ steps, its staging under slow steps and slow copies, its stall checkpoint
 while steps are in flight, and `device_prefetch` under a slow consumer;
 two ranks on the one card over gloo against one rank, and the DCP store
 with tensors on the card; the mesh server (a world of one over NCCL, and
-two ranks on the card over gloo) against the server without a mesh.
+two ranks on the card over gloo) against the server without a mesh;
+ResNet-50's streamed conv3x3 path and conv1x1 GEMM against their plain
+versions at every site, RoomNet's conv variants pinned to the report they
+had before the streamed path, and the benchmark's ResNet-50 reference
+against torchvision's where torchvision is installed.
 
 Every test here is marked `cuda` and skips where no GPU is present. The file
 imports neither JAX nor roomnet_tpu, so it runs on a machine without them:
@@ -1197,3 +1201,139 @@ def test_cuda_two_rank_mesh_server_on_one_card(cuda_device, tmp_path):
     for r in (r0, r1):
         n = len(r["sizes"])
         assert r["launches"] == {"conv3x3": 3 * n, "relu6_pool_bn": 3 * n, "residual_bn": n, "dense_head": n}
+
+
+# ResNet-50 v1.5's convs (models/resnet.py): the streamed conv3x3 path and
+# the conv1x1 GEMM (csrc/igemm.cuh) against their plain versions at each of
+# the 16 3x3 and 36 1x1 sites at batch 8, and at batch 256 at each stage's
+# first block, within one bf16 ulp, with the site's bias, ReLU and residual.
+R50_SITES = registry.get("resnet50-v1.5-224-bf16").conv_sites()
+R50_FIRST = [i for i, s in enumerate(R50_SITES) if "/0/" in s["site"] and not s["site"].endswith("conv1")]
+
+
+def _r50_case(device, site, batch, seed):
+    from roomnet_tpu_torch.ops.kernels import conv1x1 as K1
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    side, cin, cout, stride, k = site["side"], site["cin"], site["cout"], site["stride"], 3 \
+        if site["kernel"] == "conv3x3" else 1
+    so = (side - 1) // stride + 1
+    x = torch.randn(batch, side, side, cin, generator=g, device=device).to(torch.bfloat16)
+    w = (torch.randn(k, k, cin, cout, generator=g, device=device) / (k * cin ** 0.5)).to(torch.bfloat16)
+    bias = torch.randn(cout, generator=g, device=device)
+    res = torch.randn(batch, so, so, cout, generator=g, device=device).to(torch.bfloat16) if site["residual"] \
+        else None
+    kw = {"stride": stride, "relu": site["relu"], "residual": res}
+    if k == 3:
+        return conv3x3, conv3x3_plain, (x, w, bias), dict(kw, padding=1)
+    return K1.conv1x1, K1.conv1x1_plain, (x, w, bias), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,site", [(8, i) for i in range(len(R50_SITES))] + [(256, i) for i in R50_FIRST],
+                         ids=[f"b8-{s['site']}" for s in R50_SITES] + [f"b256-{R50_SITES[i]['site']}"
+                                                                         for i in R50_FIRST])
+def test_cuda_resnet50_convs_match_plain(cuda_device, batch, site):
+    kern, plain, args, kwargs = _r50_case(cuda_device, R50_SITES[site], batch, seed=site)
+    before = kern.launches
+    got, want = kern(*args, **kwargs), plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_ULP, atol=BF16_ULP * 8)
+
+
+@pytest.mark.cuda
+def test_cuda_streamed_paths_refuse_what_they_do_not_take(cuda_device):
+    from roomnet_tpu_torch.ops.kernels import conv1x1 as K1
+
+    x = torch.zeros((1, 8, 8, 64), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(TypeError):
+        conv3x3(x.float(), torch.zeros((3, 3, 64, 64), device=cuda_device), padding=1)
+    with pytest.raises(ValueError):
+        conv3x3(x[..., :48].contiguous(), torch.zeros((3, 3, 48, 64), device=cuda_device), padding=1)
+    with pytest.raises(TypeError):
+        K1.conv1x1(x.float(), torch.zeros((1, 1, 64, 64), device=cuda_device))
+    with pytest.raises(ValueError):
+        K1.conv1x1(x, torch.zeros((1, 1, 64, 96), device=cuda_device))
+
+
+# What conv3x3.variant() reported at RoomNet's 10 sites (tests/torch_port_util.py
+# CONV_SITES, batch 256) before the streamed path was added: their paths,
+# tiles and plans stay as they were.
+ROOMNET_VARIANTS = {  # VARIANT_FIELDS, one tuple a site
+    "torch.bfloat16": [
+        ('mma.sync', 8, 4, 32, 16, 20912, 0, 2, 0, 0, 0, 0, 0),
+        ('wgmma+TMA', 32, 4, 16, 14, 62512, 2, 3, 1, 64, 0, 0, 0),
+        ('wgmma+TMA', 32, 2, 8, 14, 95280, 2, 3, 1, 64, 0, 0, 0),
+        ('wgmma+TMA', 32, 2, 8, 14, 95280, 2, 3, 1, 64, 0, 0, 0),
+        ('wgmma+TMA', 64, 2, 8, 14, 107552, 2, 2, 1, 128, 0, 0, 0),
+        ('wgmma+TMA', 64, 2, 8, 14, 226352, 2, 3, 1, 128, 0, 0, 0),
+        ('wgmma+TMA', 128, 1, 4, 14, 226336, 2, 2, 1, 128, 0, 0, 0),
+        ('wgmma+TMA', 16, 2, 8, 14, 209952, 2, 2, 1, 32, 0, 0, 0),
+        ('wgmma+TMA', 16, 4, 16, 14, 75312, 2, 3, 1, 32, 0, 0, 0),
+        ('wgmma+TMA', 16, 4, 16, 14, 75312, 2, 3, 1, 32, 0, 0, 0),
+    ],
+    "torch.float32": [
+        ('f32 CUDA cores', 8, 32, 64, 32, 74112, 0, 2, 0, 0, 0, 0, 0),
+        ('tf32x3 wgmma+TMA', 32, 4, 16, 14, 111680, 2, 4, 0, 0, 1, 8, 2),
+        ('tf32x3 wgmma+TMA', 32, 4, 16, 14, 166976, 2, 4, 0, 0, 1, 8, 2),
+        ('tf32x3 wgmma+TMA', 32, 4, 16, 14, 166976, 2, 4, 0, 0, 1, 8, 2),
+        ('tf32x3 wgmma+TMA', 64, 2, 8, 14, 199744, 2, 4, 0, 0, 1, 8, 2),
+        ('tf32x3 wgmma+TMA', 32, 4, 16, 14, 222256, 2, 3, 0, 0, 2, 8, 2),
+        ('tf32x3 wgmma+TMA', 32, 4, 16, 14, 222256, 2, 3, 0, 0, 4, 8, 2),
+        ('tf32x3 wgmma+TMA', 16, 4, 16, 14, 222256, 2, 3, 0, 0, 1, 8, 2),
+        ('tf32x3 wgmma+TMA', 16, 4, 16, 14, 111680, 2, 4, 0, 0, 1, 8, 2),
+        ('tf32x3 wgmma+TMA', 16, 4, 16, 14, 111680, 2, 4, 0, 0, 1, 8, 2),
+    ],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_conv3x3_roomnet_variants_are_pinned(cuda_device, dtype):
+    got = [KC.variant((256, h, h, cin), cout, dtype) for h, cin, cout in U.CONV_SITES]
+    assert [tuple(v[f] for f in KC.VARIANT_FIELDS) for v in got] == ROOMNET_VARIANTS[str(dtype)]
+
+
+def _torchvision_state(v: dict) -> dict:
+    """The reference's flat variables under torchvision's resnet50 names
+    (conv kernels HWIO -> OIHW, the FC's (in, out) -> (out, in))."""
+    field = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+    state = {}
+    for path, t in v.items():
+        parts = path.split("/")
+        if parts[0] == "fc":
+            state[f"fc.{'weight' if parts[1] == 'kernel' else 'bias'}"] = t.t() if parts[1] == "kernel" else t
+            continue
+        if parts[0] == "stem":
+            prefix, rest = ("conv1" if parts[1] == "conv" else "bn1"), parts[2:]
+        elif parts[2] == "proj":
+            prefix, rest = f"{parts[0]}.{parts[1]}.downsample.{0 if parts[3] == 'conv' else 1}", parts[4:]
+        else:
+            prefix, rest = ".".join(parts[:3]), parts[3:]
+        state[f"{prefix}.{field[rest[0]]}" if rest else f"{prefix}.weight"] = t if rest else t.permute(3, 2, 0, 1)
+    return state
+
+
+@pytest.mark.cuda
+def test_cuda_resnet50_reference_is_torchvisions(cuda_device):
+    """The benchmark's reference (benchmark/arch/resnet50/reference.py) and
+    torchvision's resnet50 (weights=None, loaded with the same seeded
+    weights) give the same logits, both in f32 with TF32 off. Skips where
+    torchvision is not installed; nothing is downloaded."""
+    tv = pytest.importorskip("torchvision")
+    import json
+
+    from benchmark.lib import harness, images
+
+    arch = harness.load_arch("resnet50")
+    cfg = json.loads((REPO / "benchmark" / "configs" / "resnet50-v1.5-224-bf16.json").read_text())
+    x, _ = images.pool(2**33 + 3, 16, 224, 4, 16, cuda_device)
+    v = arch.weights.make(cfg, 2**33 + 3, x, cuda_device)
+    model = tv.models.resnet50(weights=None).to(cuda_device).eval()
+    missing, unexpected = model.load_state_dict(_torchvision_state(v), strict=False)
+    assert not unexpected and all(k.endswith("num_batches_tracked") for k in missing), (unexpected, missing)
+    with arch.reference.precision("f32"), torch.no_grad():
+        want = model(arch.reference.normalize(torch.as_tensor(x).to(cuda_device), cfg))
+        got = arch.reference.forward(v, torch.as_tensor(x).to(cuda_device), cfg, "f32")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
