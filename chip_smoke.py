@@ -277,18 +277,21 @@ kernels, in phases; any failure raises and the script exits non-zero:
      valset_launches (b)'s by dtype.
 
  15. ResNet-50 v1.5 (models/resnet.py, `resnet50-v1.5-224-bf16`): the conv1x1
-     library's SASS must hold HGMMA and UTMALDG lines; at each of its 16
-     3x3 and 36 1x1 conv sites at batch 256 (random operands, the site's
-     stride, padding, bias, ReLU and residual) the streamed conv3x3 path
-     (conv_wg_stream) and the conv1x1 GEMM (conv1x1_bn_kernel) against
-     their plain versions within one bf16 ulp, then timed in turns with
-     cuDNN (F.conv2d on channels-last bf16 with the bias, then the
-     residual add and the ReLU as PyTorch ops), beside the site's bound
+     library's SASS must hold HGMMA, UTMALDG and UTMASTG lines; at each of
+     its 16 3x3 and 36 1x1 conv sites at batch 256 (random operands, the
+     site's stride, padding, bias, ReLU and residual) the streamed conv3x3
+     path (conv_wg_stream) and the persistent conv1x1 GEMM
+     (conv1x1_bn_kernel) against their plain versions within one bf16 ulp,
+     then timed in turns with cuDNN (F.conv2d on channels-last bf16 with
+     the bias, then the residual add and the ReLU as PyTorch ops) and, with
+     `--parent DIR`, DIR's conv1x1 at the 1x1 sites, beside the site's bound
      (benchmark/arch/resnet50/work.py's arithmetic: each operand read
-     once, bf16 at 989 TFLOP/s, 3.35 TB/s), each summed per forward; then
-     one batch-256 forward through RoomNetClassifier._predict (launches 16
-     conv3x3 and 36 conv1x1) and its device time. `--only-phase15` runs
-     phase 1 and this phase alone.
+     once, bf16 at 989 TFLOP/s, 3.35 TB/s), each summed per forward and,
+     for the 1x1, per stage; each 1x1 site's line gives its persistent
+     blocks and the tiles a block walks; then one batch-256 forward through
+     RoomNetClassifier._predict (launches 16 conv3x3 and 36 conv1x1, and
+     the plan's tiles and blocks on the conv1x1 counters) and its device
+     time. `--only-phase15` runs phase 1 and this phase alone.
 
 Phase 5 also prints utils/roofline.py's summary of the batch-256 device
 forward, bf16 (2 bytes, the bf16 peak) and f32 (4 bytes, the f32 peak; the
@@ -467,10 +470,31 @@ def sass_counts(lib) -> dict:
     return counts
 
 
-def parent_conv3x3(checkout: pathlib.Path):
-    """Starts one nvcc on another checkout's csrc/conv3x3.cu, with this
+def parent_library(checkout: pathlib.Path, name: str):
+    """Starts one nvcc on another checkout's csrc/<name>.cu, with this
     checkout's flags, into build/roomnet_tpu_torch/parent/. Returns a
-    function that waits for it and gives a conv3x3(x, kernel, bias) through
+    function that waits for it and loads the library (ctypes), or raises
+    with nvcc's log."""
+    from roomnet_tpu_torch.ops.kernels import _build
+
+    out = _build.BUILD_DIR / "parent" / f"lib{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    src = checkout / "roomnet_tpu_torch" / "csrc" / f"{name}.cu"
+    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{src}: build failed:\n{text}")
+        return ctypes.CDLL(str(out))
+
+    return finish
+
+
+def parent_conv3x3(checkout: pathlib.Path):
+    """Starts one nvcc on another checkout's csrc/conv3x3.cu (`parent_library`).
+    Returns a function that waits for it and gives a conv3x3(x, kernel, bias) through
     that library's rn_conv3x3, which must take this checkout's C entry, on
     weights packed by that checkout's ops/kernels/conv3x3.py (its
     packed_kernel: pack_bf16 in bf16, pack_tf32x3 where its tf32_takes
@@ -478,7 +502,6 @@ def parent_conv3x3(checkout: pathlib.Path):
     count nowhere."""
     import importlib.util
 
-    from roomnet_tpu_torch.ops.kernels import _build
     from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
 
     # Loaded as a sibling of this checkout's module, so that its relative
@@ -487,17 +510,10 @@ def parent_conv3x3(checkout: pathlib.Path):
                                                   checkout / "roomnet_tpu_torch" / "ops" / "kernels" / "conv3x3.py")
     PK = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(PK)
-    out = _build.BUILD_DIR / "parent" / "libconv3x3.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    src = checkout / "roomnet_tpu_torch" / "csrc" / "conv3x3.cu"
-    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    build = parent_library(checkout, "conv3x3")
 
     def finish():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"{src}: build failed:\n{text}")
-        fn = ctypes.CDLL(str(out)).rn_conv3x3
+        fn = build().rn_conv3x3
         fn.argtypes, fn.restype = KC._ARGS, ctypes.c_int
 
         def conv(x, kernel, bias=None):
@@ -511,7 +527,41 @@ def parent_conv3x3(checkout: pathlib.Path):
                     B, H, W, cin, kernel.shape[3], cp, int(bf16), x.device.index,
                     torch.cuda.current_stream(x.device).cuda_stream)
             if rc != 0:
-                raise RuntimeError(f"{src}: rn_conv3x3 returned CUDA error {rc}")
+                raise RuntimeError(f"{checkout}: rn_conv3x3 returned CUDA error {rc}")
+            return y
+
+        return conv
+
+    return finish
+
+
+def parent_conv1x1(checkout: pathlib.Path):
+    """Starts one nvcc on another checkout's csrc/conv1x1.cu (`parent_library`).
+    Returns a function that waits for it and gives a conv1x1(x, kernel,
+    bias, stride=, relu=, residual=) through that library's rn_conv1x1,
+    whose C entry must take the arguments it took before the persistent
+    kernel (no SM count), on weights packed by this checkout's pack_stream.
+    Its launches count nowhere."""
+    from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
+
+    build = parent_library(checkout, "conv1x1")
+
+    def finish():
+        fn = build().rn_conv1x1
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes, fn.restype = [P] * 5 + [I] * 9 + [P], ctypes.c_int
+
+        def conv(x, kernel, bias=None, *, stride=1, relu=False, residual=None):
+            B, H, W, cin = x.shape
+            cout = kernel.shape[3]
+            packed = KC.packed_kernel(kernel, x.dtype, layout="stream")
+            y = torch.empty((B, (H - 1) // stride + 1, (W - 1) // stride + 1, cout), dtype=x.dtype,
+                            device=x.device)
+            rc = fn(x.data_ptr(), packed.data_ptr(), None if bias is None else bias.data_ptr(),
+                    None if residual is None else residual.data_ptr(), y.data_ptr(), B, H, W, cin, cout, stride,
+                    int(relu), packed.shape[2], x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"{checkout}: rn_conv1x1 returned CUDA error {rc}")
             return y
 
         return conv
@@ -602,7 +652,8 @@ def main(argv=None) -> None:
                     help="run phase 1 (the card, the build) and phase 15 (ResNet-50's kernels) alone")
     ap.add_argument("--parent", type=pathlib.Path, metavar="DIR",
                     help="another checkout whose csrc/conv3x3.cu phase 3 also checks and times at the "
-                         "conv sites (bf16 and f32), in the same turns")
+                         "conv sites (bf16 and f32), and whose csrc/conv1x1.cu phase 15 times at the 1x1 "
+                         "sites, in the same turns")
     opts = ap.parse_args(argv)
     wall0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -636,10 +687,12 @@ def main(argv=None) -> None:
     log(f"card: {smi}")
     t0 = time.perf_counter()
     parent_build = parent_conv3x3(opts.parent.resolve()) if opts.parent else None
+    parent_build1 = parent_conv1x1(opts.parent.resolve()) if opts.parent else None
     _build.build()
     for name in _build.SOURCES:
         _build.load(name)
     parent_conv = parent_build() if parent_build else None
+    parent_conv1 = parent_build1() if parent_build1 else None
     log(f"build: {time.perf_counter() - t0:.2f} s for {len(_build.SOURCES)} kernels "
         f"into {_build.BUILD_DIR}")
     for name in _build.SOURCES:
@@ -653,7 +706,7 @@ def main(argv=None) -> None:
     if not (sass["HGMMA"] and sass["UTMALDG"] and sass["UTMASTG"] and sass["HGMMA_TF32"]):
         raise AssertionError(f"conv3x3: the library's SASS lacks wgmma, TMA or the f32 path's TF32 wgmma: {sass}")
     if opts.only_phase15:
-        log(json.dumps({"card": smi, "resnet50": phase15(dev)}))
+        log(json.dumps({"card": smi, "resnet50": phase15(dev, parent_conv1)}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
         return
@@ -985,7 +1038,7 @@ def main(argv=None) -> None:
     bv_launches = bench_valset.pop("launches")
 
     # -- phase 15: ResNet-50's kernels -------------------------------------------
-    resnet50 = phase15(dev)
+    resnet50 = phase15(dev, parent_conv1)
 
     for dt in cfgs:
         log(f"max |d| against plain [{dt}]: " + ", ".join(
@@ -3790,24 +3843,29 @@ def bench_forwards(burst_calls: int, **sizes) -> int:
             + (n["serve_batch"].bit_length() + 2 + 2 * n["serve_pairs"] + burst_calls))
 
 
-def phase15(dev) -> dict:
+def phase15(dev, parent_conv1=None) -> dict:
     """ResNet-50 v1.5's kernels (docstring phase 15). Returns per site and
-    per kernel the kernel's, cuDNN's and the bound's ms at batch 256, and the
-    classifier's forward."""
+    per kernel the kernel's, cuDNN's, the bound's and (given
+    `parent_conv1`, parent_conv1x1's conv) the parent's ms at batch 256,
+    the 1x1's per stage, and the classifier's forward."""
     from roomnet_tpu_torch.infer.classify import RoomNetClassifier
     from roomnet_tpu_torch.models import registry
     from roomnet_tpu_torch.models import resnet as R
     from roomnet_tpu_torch.ops.kernels import _build
     from roomnet_tpu_torch.ops.kernels import conv1x1 as K1
     from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
+    from roomnet_tpu_torch.utils.profiling import SPANS
 
     sass = sass_counts(_build.library_path("conv1x1"))
     log(f"phase 15: sass conv1x1: {sass}")
-    if not (sass["HGMMA"] and sass["UTMALDG"]):
-        raise AssertionError(f"conv1x1: the library's SASS lacks wgmma or TMA loads: {sass}")
+    if not (sass["HGMMA"] and sass["UTMALDG"] and sass["UTMASTG"]):
+        raise AssertionError(f"conv1x1: the library's SASS lacks wgmma, TMA loads or TMA stores: {sass}")
     cfg, batch = registry.get("resnet50-v1.5-224-bf16"), 256
     g = torch.Generator(device=dev).manual_seed(15)
-    sites, per_forward = [], {k: {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0} for k in ("conv3x3", "conv1x1")}
+    keys = ("ms", "library_ms", "bound_ms")
+    sites, per_stage = [], {}
+    per_forward = {"conv3x3": dict.fromkeys(keys, 0.0),
+                   "conv1x1": dict.fromkeys(keys + (("parent_ms",) if parent_conv1 else ()), 0.0)}
     for site in cfg.conv_sites():
         k, side, cin, cout, s = (3 if site["kernel"] == "conv3x3" else 1), site["side"], site["cin"], site["cout"], \
             site["stride"]
@@ -3837,38 +3895,73 @@ def phase15(dev) -> dict:
                 y = y.add_(rl)
             return y.relu_() if site["relu"] else y
 
-        t = in_turns({"kernel": lambda: kern(x, w, bias, **kw), "library": library})
+        fns = {"kernel": lambda: kern(x, w, bias, **kw), "library": library}
+        if k == 1 and parent_conv1 is not None:
+            fns["parent"] = lambda: parent_conv1(x, w, bias, **kw)
+        t = in_turns(fns)
         read = batch * (side * side if k == 3 else so * so) * cin
         nb = 2 * (read + k * k * cin * cout + batch * so * so * cout * (2 if res is not None else 1)) + 4 * cout
         ops = 2 * batch * so * so * cout * k * k * cin
         bound = 1e3 * max(nb / HBM_BYTES_PER_S, ops / PEAK_BF16_TENSOR)
-        v = KC.variant(tuple(x.shape), cout, x.dtype, padding=1, stride=s) if k == 3 else \
-            K1.variant(tuple(x.shape), cout, stride=s)
-        log(f"  {site['kernel']} {site['site']} {side}x{side}x{cin}->{cout} s{s}: kernel {t['kernel']:.4f} ms, "
-            f"cuDNN {t['library']:.4f} ms, bound {bound:.4f} ms "
+        if k == 3:
+            plan = v = KC.variant(tuple(x.shape), cout, x.dtype, padding=1, stride=s)
+        else:
+            v = K1.variant(tuple(x.shape), cout, stride=s, residual=res is not None)
+            plan = (f"{v['blocks']} blocks walk {v['tiles']} tiles ({v['tiles'] / v['blocks']:.2f} a block, at "
+                    f"most {v['tiles_per_block']}); {v}")
+        parent = f", parent {t['parent']:.4f} ms" if "parent" in t else ""
+        log(f"  {site['kernel']} {site['site']} {side}x{side}x{cin}->{cout} s{s}: kernel {t['kernel']:.4f} ms"
+            f"{parent}, cuDNN {t['library']:.4f} ms, bound {bound:.4f} ms "
             f"({'bytes' if nb / HBM_BYTES_PER_S >= ops / PEAK_BF16_TENSOR else 'operations'}), "
-            f"{100 * bound / t['kernel']:.1f}% of it, max |d| {err:.3g}; {v}")
-        sites.append({**site, "ms": t["kernel"], "library_ms": t["library"], "bound_ms": bound, "max_abs_err": err})
-        for key, val in (("ms", t["kernel"]), ("library_ms", t["library"]), ("bound_ms", bound)):
-            per_forward[site["kernel"]][key] += val
+            f"{100 * bound / t['kernel']:.1f}% of it, max |d| {err:.3g}; {plan}")
+        times = {"ms": t["kernel"], "library_ms": t["library"], "bound_ms": bound}
+        if "parent" in t:
+            times["parent_ms"] = t["parent"]
+        sites.append({**site, **times, "max_abs_err": err, "variant": v})
+        sums = [per_forward[site["kernel"]]]
+        if k == 1:
+            sums.append(per_stage.setdefault(site["site"].split("/")[0], dict.fromkeys(times, 0.0)))
+        for total in sums:
+            for key, val in times.items():
+                total[key] += val
         del x, w, res, xl, rl, wl
     for name, s in per_forward.items():
-        log(f"phase 15: {name} per batch-256 forward: kernel {s['ms']:.4f} ms, cuDNN {s['library_ms']:.4f} ms, "
-            f"bound {s['bound_ms']:.4f} ms ({100 * s['bound_ms'] / s['ms']:.1f}% of it)")
+        parent = f", parent {s['parent_ms']:.4f} ms" if "parent_ms" in s else ""
+        log(f"phase 15: {name} per batch-256 forward: kernel {s['ms']:.4f} ms{parent}, cuDNN "
+            f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms ({100 * s['bound_ms'] / s['ms']:.1f}% of it)")
+    for name, s in per_stage.items():
+        parent = f", parent {s['parent_ms']:.4f} ms" if "parent_ms" in s else ""
+        log(f"phase 15: conv1x1 {name}: kernel {s['ms']:.4f} ms{parent}, cuDNN {s['library_ms']:.4f} ms, bound "
+            f"{s['bound_ms']:.4f} ms ({100 * s['bound_ms'] / s['ms']:.1f}% of it)")
     clf = RoomNetClassifier(R.init_variables(torch.Generator(device=dev).manual_seed(0), cfg), cfg,
                             batch_size=batch, device=dev)
     x_u8 = torch.randint(0, 256, (batch, cfg.im_side, cfg.im_side, 3), dtype=torch.uint8, device=dev,
                          generator=g)
-    before = (KC.conv3x3.launches, K1.conv1x1.launches)
+    plans = [K1.variant((batch, st["side"], st["side"], st["cin"]), st["cout"], stride=st["stride"],
+                        residual=st["residual"]) for st in cfg.conv_sites() if st["kernel"] == "conv1x1"]
+    want = {"tiles": sum(v["tiles"] for v in plans), "blocks": sum(v["blocks"] for v in plans)}
+
+    def counted():
+        return {n: SPANS.summary().get(f"kernel/conv1x1.{n}", {}).get("total", 0) for n in want}
+
+    before = (KC.conv3x3.launches, K1.conv1x1.launches, counted())
     clf._predict(clf.variables, x_u8)
     torch.cuda.synchronize()
+    after = counted()
     launches = {"conv3x3": KC.conv3x3.launches - before[0], "conv1x1": K1.conv1x1.launches - before[1]}
     if launches != {"conv3x3": 16, "conv1x1": 36}:
         raise AssertionError(f"phase 15: a ResNet-50 forward launched {launches}, not 16 conv3x3 and 36 conv1x1")
+    moved = {n: after[n] - before[2][n] for n in want}
+    if moved != want:
+        raise AssertionError(f"phase 15: a ResNet-50 forward counted {moved} on the conv1x1 counters, its plans "
+                             f"{want}")
     forward_ms = cuda_ms(lambda: clf._predict(clf.variables, x_u8))
     clf.close()
-    log(f"phase 15: RoomNetClassifier._predict, batch 256: {forward_ms:.3f} ms device time, launches {launches}")
-    return {"sites": sites, "per_forward": per_forward, "forward_ms": forward_ms, "launches": launches}
+    log(f"phase 15: RoomNetClassifier._predict, batch 256: {forward_ms:.3f} ms device time, launches {launches}, "
+        f"conv1x1 tiles {moved['tiles']} over {moved['blocks']} blocks ({moved['tiles'] / moved['blocks']:.2f} a "
+        f"block)")
+    return {"sites": sites, "per_forward": per_forward, "per_stage": per_stage, "forward_ms": forward_ms,
+            "launches": launches, "conv1x1_counters": moved}
 
 
 def phase14(counts, zero_counts, per_forward, serving, dev, smi) -> dict:

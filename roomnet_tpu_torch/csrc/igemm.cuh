@@ -1,10 +1,11 @@
 // Implicit-GEMM convolution in bf16 on Hopper's wgmma and TMA, with the
 // epilogue y = relu?(conv(x, w) + bias + res?). It replaces no kernel of the
 // JAX package: ResNet-50 v1.5 (models/resnet.py) needs padded and strided 3x3
-// convs whose weights do not fit in shared memory, and 1x1 convs. Two
-// kernels instantiate `body` under their own names, so that a device trace
-// times them apart: conv3x3.cu's conv_wg_stream (k = 3) and conv1x1.cu's
-// conv1x1_bn_kernel (k = 1).
+// convs whose weights do not fit in shared memory, and 1x1 convs. The tile
+// plan, the input's tensor maps and the operand layout below serve both;
+// `body`, one block a tile, is conv3x3.cu's conv_wg_stream (k = 3) alone.
+// conv1x1.cu's conv1x1_bn_kernel (k = 1) walks the same tiles with a
+// persistent body of its own.
 //
 // NHWC x HWIO -> NHWC, zero padding `pad`, stride 1 or 2, Cin and Cout
 // multiples of 64. M = B*Ho*Wo output pixels, N = Cout, K = k*k*Cin in steps
@@ -14,9 +15,12 @@
 // HBM (they read and write activations at 64-2048 channels with 2*Cin or
 // 2*Cout operations a byte), the 3x3 convs by the tensor cores. So the bias,
 // the residual and the ReLU are applied in the epilogue, in registers, and
-// no pass outside the kernel re-reads the activations. This design re-reads
-// a tile's input once a tap (from L2), which a halo shared by the 9 taps
-// would spare the 3x3 convs.
+// no pass outside the kernel re-reads the activations. A 3x3 tile takes 9-72
+// K steps, which amortise `body`'s one epilogue a block; a 1x1 tile takes
+// 1-32, too few to hide an epilogue that waits on its residual reads and
+// stores, so conv1x1.cu loads the next tiles and the residual by TMA while
+// it finishes one. This design re-reads a tile's input once a tap (from
+// L2), which a halo shared by the 9 taps would spare the 3x3 convs.
 //
 // A tile is BM = 128 output pixels x BN = 64 or 128 output channels
 // (blockIdx.x: the N tile fastest, so the blocks of one pixel tile read its
@@ -310,22 +314,24 @@ __device__ __forceinline__ void body(const Maps& maps, const Args& a) {
   }
 }
 
-// Launches `kernel` (an instance of `body`) on the plan's grid; the first
-// launch of each kernel on a device raises its dynamic shared-memory limit.
-template <typename Kernel>
-int launch(Kernel kernel, const Maps& maps, const Args& a, const Plan& p, int device, cudaStream_t s) {
+// Raises `kernel`'s dynamic shared-memory limit to `smem` on its first
+// launch on `device`; later calls for the pair do nothing.
+inline int raise_smem(const void* kernel, int smem, int device) {
   static std::mutex mu;
   static std::set<std::pair<const void*, int>> raised;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    const auto key = std::make_pair(reinterpret_cast<const void*>(kernel), device);
-    if (raised.count(key) == 0) {
-      const cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
-      if (e != cudaSuccess) return e;
-      raised.insert(key);
-    }
-  }
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_pair(kernel, device);
+  if (raised.count(key) != 0) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) raised.insert(key);
+  return e;
+}
+
+// Launches `kernel` (an instance of `body`) on the plan's grid.
+template <typename Kernel>
+int launch(Kernel kernel, const Maps& maps, const Args& a, const Plan& p, int device, cudaStream_t s) {
+  const int e = raise_smem(reinterpret_cast<const void*>(kernel), (int)p.smem, device);
+  if (e != cudaSuccess) return e;
   const long long blocks = (long long)p.tiles_w * p.tiles_h * p.tiles_b * a.tiles_n;
   kernel<<<(unsigned)blocks, THREADS, p.smem, s>>>(maps, a);
   return cudaGetLastError();

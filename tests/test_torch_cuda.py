@@ -9,9 +9,11 @@ while steps are in flight, and `device_prefetch` under a slow consumer;
 two ranks on the one card over gloo against one rank, and the DCP store
 with tensors on the card; the mesh server (a world of one over NCCL, and
 two ranks on the card over gloo) against the server without a mesh;
-ResNet-50's streamed conv3x3 path and conv1x1 GEMM against their plain
-versions at every site, RoomNet's conv variants pinned to the report they
-had before the streamed path, and the benchmark's ResNet-50 reference
+ResNet-50's streamed conv3x3 path and persistent conv1x1 GEMM against their
+plain versions at every site and at the edges of the 1x1's tile walk, the
+1x1's tile and block counters over a forward, RoomNet's conv variants and
+ResNet-50's 3x3 variants pinned to the reports they had before the streamed
+path and the persistent 1x1, and the benchmark's ResNet-50 reference
 against torchvision's where torchvision is installed.
 
 Every test here is marked `cuda` and skips where no GPU is present. The file
@@ -1204,11 +1206,14 @@ def test_cuda_two_rank_mesh_server_on_one_card(cuda_device, tmp_path):
 
 
 # ResNet-50 v1.5's convs (models/resnet.py): the streamed conv3x3 path and
-# the conv1x1 GEMM (csrc/igemm.cuh) against their plain versions at each of
-# the 16 3x3 and 36 1x1 sites at batch 8, and at batch 256 at each stage's
-# first block, within one bf16 ulp, with the site's bias, ReLU and residual.
+# the persistent conv1x1 GEMM (csrc/conv1x1.cu) against their plain versions
+# at each of the 16 3x3 and 36 1x1 sites at batch 8, and at batch 256 at
+# each stage's first block's 3x3 and at every 1x1 site (batch 256 is where
+# a block walks many tiles), within one bf16 ulp, with the site's bias, ReLU
+# and residual.
 R50_SITES = registry.get("resnet50-v1.5-224-bf16").conv_sites()
 R50_FIRST = [i for i, s in enumerate(R50_SITES) if "/0/" in s["site"] and not s["site"].endswith("conv1")]
+R50_B256 = sorted(set(R50_FIRST) | {i for i, s in enumerate(R50_SITES) if s["kernel"] == "conv1x1"})
 
 
 def _r50_case(device, site, batch, seed):
@@ -1230,9 +1235,9 @@ def _r50_case(device, site, batch, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,site", [(8, i) for i in range(len(R50_SITES))] + [(256, i) for i in R50_FIRST],
+@pytest.mark.parametrize("batch,site", [(8, i) for i in range(len(R50_SITES))] + [(256, i) for i in R50_B256],
                          ids=[f"b8-{s['site']}" for s in R50_SITES] + [f"b256-{R50_SITES[i]['site']}"
-                                                                         for i in R50_FIRST])
+                                                                         for i in R50_B256])
 def test_cuda_resnet50_convs_match_plain(cuda_device, batch, site):
     kern, plain, args, kwargs = _r50_case(cuda_device, R50_SITES[site], batch, seed=site)
     before = kern.launches
@@ -1240,6 +1245,75 @@ def test_cuda_resnet50_convs_match_plain(cuda_device, batch, site):
     torch.cuda.synchronize()
     assert kern.launches == before + 1 and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=BF16_ULP, atol=BF16_ULP * 8)
+
+
+# The persistent 1x1 at the edges of its walk: a ragged last pixel tile
+# (batch 3 at 7x7: 147 pixels, one whole tile and 19 rows), fewer tiles than
+# blocks (batch 1 at layer4's 2048 -> 512: 4 tiles), and stride 2 at batch
+# 256 (layer3's projection; and layer2's input with a residual and a ReLU,
+# whose residual and output boxes are 4 rows of 28 pixels).
+CONV1X1_EDGES = {  # (B, H, W, Cin), Cout, stride, relu, residual
+    "ragged-b3-7x7": ((3, 7, 7, 512), 2048, 1, True, True),
+    "fewer-tiles-than-blocks-b1": ((1, 7, 7, 2048), 512, 1, True, False),
+    "stride2-proj-b256": ((256, 28, 28, 512), 1024, 2, False, False),
+    "stride2-residual-b256": ((256, 56, 56, 256), 512, 2, True, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CONV1X1_EDGES))
+def test_cuda_conv1x1_persistent_walk_matches_plain(cuda_device, case):
+    from roomnet_tpu_torch.ops.kernels import conv1x1 as K1
+
+    shape, cout, stride, relu, with_res = CONV1X1_EDGES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    B, H, W, cin = shape
+    so = (H - 1) // stride + 1
+    x = torch.randn(shape, generator=g, device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn(1, 1, cin, cout, generator=g, device=cuda_device) / cin ** 0.5).to(torch.bfloat16)
+    bias = torch.randn(cout, generator=g, device=cuda_device)
+    res = torch.randn(B, so, so, cout, generator=g, device=cuda_device).to(torch.bfloat16) if with_res else None
+    kw = {"stride": stride, "relu": relu, "residual": res}
+    got, want = K1.conv1x1(x, w, bias, **kw), K1.conv1x1_plain(x, w, bias, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_ULP, atol=BF16_ULP * 8)
+    v = K1.variant(shape, cout, stride=stride, residual=with_res)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert v["tiles"] == v["pixel_tiles"] * v["cout_tiles"] and v["blocks"] == min(v["tiles"], sms)
+    assert v["tiles_per_block"] == -(-v["tiles"] // v["blocks"]) and v["slots"] == (3 if with_res else 2)
+    if case == "ragged-b3-7x7":
+        assert (v["cols"], v["pixel_tiles"]) == (128, 2)
+    elif case == "fewer-tiles-than-blocks-b1":
+        assert v["tiles"] == v["blocks"] == 4 < sms
+    else:
+        assert v["cols"] == so and v["rows"] * so <= 128 and v["tiles_per_block"] > 1
+
+
+@pytest.mark.cuda
+def test_cuda_resnet50_forward_counts_conv1x1_tiles_and_blocks(cuda_device):
+    """One ResNet-50 forward (batch 8) moves kernel/launches.conv1x1 by 36 and
+    the persistent plan's counters by the sums of variant()'s tiles and
+    blocks over the 36 1x1 sites."""
+    from roomnet_tpu_torch.models import resnet as R
+    from roomnet_tpu_torch.ops.kernels import conv1x1 as K1
+    from roomnet_tpu_torch.utils.profiling import SPANS
+
+    cfg, batch = registry.get("resnet50-v1.5-224-bf16"), 8
+    sites = [s for s in cfg.conv_sites() if s["kernel"] == "conv1x1"]
+    plans = [K1.variant((batch, s["side"], s["side"], s["cin"]), s["cout"], stride=s["stride"],
+                        residual=s["residual"]) for s in sites]
+    clf = RoomNetClassifier(R.init_variables(torch.Generator(device=cuda_device).manual_seed(0), cfg), cfg,
+                            batch_size=batch, device=cuda_device)
+    x = torch.randint(0, 256, (batch, cfg.im_side, cfg.im_side, 3), dtype=torch.uint8, device=cuda_device)
+    names = ("kernel/launches.conv1x1", "kernel/conv1x1.tiles", "kernel/conv1x1.blocks")
+    before = SPANS.summary()
+    clf._predict(clf.variables, x)
+    torch.cuda.synchronize()
+    after = SPANS.summary()
+    clf.close()
+    moved = [after[n]["total"] - before.get(n, {}).get("total", 0) for n in names]
+    assert len(sites) == 36
+    assert moved == [36, sum(v["tiles"] for v in plans), sum(v["blocks"] for v in plans)]
 
 
 @pytest.mark.cuda
@@ -1255,6 +1329,25 @@ def test_cuda_streamed_paths_refuse_what_they_do_not_take(cuda_device):
         K1.conv1x1(x.float(), torch.zeros((1, 1, 64, 64), device=cuda_device))
     with pytest.raises(ValueError):
         K1.conv1x1(x, torch.zeros((1, 1, 64, 96), device=cuda_device))
+
+
+# What conv3x3.variant() reported at ResNet-50's 16 3x3 sites (batch 256)
+# before the 1x1 GEMM took a persistent body of its own: the streamed path
+# (igemm.cuh's `body`) keeps its tile, stages and shared memory.
+R50_3X3_VARIANTS = (  # VARIANT_FIELDS, one tuple a site, in conv_sites() order
+    [('wgmma streamed', 64, 1, 2, 56, 99392, 2, 4, 0, 0, 1, 64, 0)] * 3
+    + [('wgmma streamed', 128, 1, 4, 28, 99376, 2, 3, 0, 0, 1, 64, 0)] * 4
+    + [('wgmma streamed', 128, 1, 7, 14, 99376, 2, 3, 0, 0, 2, 64, 0)] * 6
+    + [('wgmma streamed', 128, 2, 7, 7, 99376, 2, 3, 0, 0, 4, 64, 0)] * 3
+)
+
+
+@pytest.mark.cuda
+def test_cuda_conv3x3_resnet50_variants_are_pinned(cuda_device):
+    sites = [s for s in R50_SITES if s["kernel"] == "conv3x3"]
+    got = [KC.variant((256, s["side"], s["side"], s["cin"]), s["cout"], torch.bfloat16, padding=1,
+                      stride=s["stride"]) for s in sites]
+    assert [tuple(v[f] for f in KC.VARIANT_FIELDS) for v in got] == R50_3X3_VARIANTS
 
 
 # What conv3x3.variant() reported at RoomNet's 10 sites (tests/torch_port_util.py

@@ -191,6 +191,17 @@ def test_conv1x1_plain_strides_and_fuses_its_epilogue(stride, dtype):
     assert _close(C1.conv1x1(x, k, bias, stride=stride, relu=True, residual=res), torch.relu(want + res.float()))
 
 
+def test_conv1x1_plain_counts_its_launch_and_no_tiles():
+    """`kernel/launches.conv1x1` counts every call; the persistent plan's
+    tile and block counters count the kernel's launches alone."""
+    names = ("kernel/launches.conv1x1", "kernel/conv1x1.tiles", "kernel/conv1x1.blocks")
+    before = SPANS.summary()
+    C1.conv1x1(torch.zeros(1, 4, 4, 64), torch.zeros(1, 1, 64, 64), relu=True)
+    after = SPANS.summary()
+    moved = [after.get(n, {}).get("total", 0) - before.get(n, {}).get("total", 0) for n in names]
+    assert moved == [1, 0, 0]
+
+
 def test_stream_packing_is_the_kernels_layout():
     """pack_stream: K step k = tap * Cin / 64 + chunk, row n (an output
     channel of the tile), its 16-byte chunk s of input channels at s ^ (n %
