@@ -5,7 +5,11 @@
 
 Drives the port's RoomNet serving forward at 224² on the converted
 reference checkpoint (artifacts/roomnet_params.npz) through its four CUDA
-kernels, in phases; any failure raises and the script exits non-zero:
+kernels, in phases; any failure raises and the script exits non-zero. A
+phase's launch counts are differences of the kernels' counters
+(`kernel/launches.<kernel>`) taken around the counted work by
+ops/kernels/_build.card_launches_since, which also fails the phase if a
+wrapper ran its plain version there; nothing zeroes them:
 
   1. The card's name and power limit; build the kernels from csrc/ (one
      nvcc per source, in parallel) and print the build time and ptxas usage;
@@ -58,14 +62,14 @@ kernels, in phases; any failure raises and the script exits non-zero:
      |dlogit| within BF16_DLOGIT; launch counts 10/10/3/1 per forward.
   5. The serving path: RoomNetClassifier.predict at batch 256 (throughput)
      and requests of batch 1, 3 and 8 (latency), bf16 and f32, with the
-     launch counters zeroed before and read after each dtype's run.
+     launches counted over each dtype's run.
   6. The directory path, the main path of a user: a directory of PNG files
      written here (standard library zlib only) from the 64 wide-golden
      images, each centred in a 224x300 or 300x224 canvas with random
      margins, 8 noisy 2x images in 448x600 canvases, a name with spaces, an
      extensionless copy and a corrupt file. classify_im_dir and
-     groundtruth_validation at batch 16, f32 and bf16, counters zeroed just
-     before and read just after: argmax equal to the TF graph's, f32 probs
+     groundtruth_validation at batch 16, f32 and bf16, launches counted
+     from just before to just after: argmax equal to the TF graph's, f32 probs
      within 1e-5 of phase 4's softmax, the corrupt file skipped, the .xls
      and .csv one row per readable file, 10/10/3/1 launches per forward;
      decoded crops equal to the golden pixels and 2x images within one gray
@@ -88,7 +92,7 @@ kernels, in phases; any failure raises and the script exits non-zero:
      autograd through its plain version on the operands of every site of a
      batch-8 training step, f32 and bf16: the forward at phase 2's
      tolerances, every input's gradient within GRAD_RTOL; (d) the launches
-     of one step, counters zeroed just before and read just after:
+     of one step, counted from just before to just after:
      10/10/3/1 with TrainHParams(), 10/10/3/0 with batch statistics; (e)
      times, nothing claimed: TrainHParams() steps in bf16 at batch 45 and
      128 and in f32 at batch 45, ms per step and img/s (median of 3 chains
@@ -104,8 +108,8 @@ kernels, in phases; any failure raises and the script exits non-zero:
      64 wide-golden crops as PNG bodies through /classify (class_id equal
      to the TF argmax, f32 probs within 1e-5 of phase 4's softmax), all 64
      through /classify_batch (two device calls) and ?stream=1 (64 NDJSON
-     lines), the same answers; launches, counters zeroed just before those
-     requests and read just after, 10/10/3/1 per serve/device_call of
+     lines), the same answers; launches, counted from just before those
+     requests to just after, 10/10/3/1 per serve/device_call of
      /metrics; `_predict` at every bucket (1-32) against the rows of the
      batch-256 forward; /reload of the rolled head (step 2: every class_id
      moves to TF argmax + 1 mod 6) and of a NaN tree (step 3: 409 from the
@@ -290,8 +294,9 @@ kernels, in phases; any failure raises and the script exits non-zero:
      for the 1x1, per stage; each 1x1 site's line gives its persistent
      blocks and the tiles a block walks; then one batch-256 forward through
      RoomNetClassifier._predict (launches 16 conv3x3 and 36 conv1x1, and
-     the plan's tiles and blocks on the conv1x1 counters) and its device
-     time. `--only-phase15` runs phase 1 and this phase alone.
+     the tiles a block walks over the forward, from conv1x1.variant's
+     plans) and its device time. `--only-phase15` runs phase 1 and this
+     phase alone.
 
 Phase 5 also prints utils/roofline.py's summary of the batch-256 device
 forward, bf16 (2 bytes, the bf16 peak) and f32 (4 bytes, the f32 peak; the
@@ -326,6 +331,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from roomnet_tpu_torch.ops.kernels import _build
 from roomnet_tpu_torch.utils.roofline import H100_BF16_PEAK_FLOPS as PEAK_BF16_TENSOR
 from roomnet_tpu_torch.utils.roofline import H100_F32_PEAK_FLOPS as PEAK_F32
 from roomnet_tpu_torch.utils.roofline import H100_HBM_BYTES_PER_S as HBM_BYTES_PER_S
@@ -453,8 +459,6 @@ def sass_counts(lib) -> dict:
     and stores (UTMALDG, UTMASTG), and the HGMMA lines of the TF32 kind in
     the f32 entry's TF32 split kernels (functions named conv_tf32x3:
     "HGMMA_TF32"). Raises where that toolkit has no cuobjdump."""
-    from roomnet_tpu_torch.ops.kernels import _build
-
     tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
     if not tool.exists():
         raise FileNotFoundError(f"no cuobjdump beside {_build._nvcc()}: the conv's SASS cannot be checked")
@@ -475,8 +479,6 @@ def parent_library(checkout: pathlib.Path, name: str):
     checkout's flags, into build/roomnet_tpu_torch/parent/. Returns a
     function that waits for it and loads the library (ctypes), or raises
     with nvcc's log."""
-    from roomnet_tpu_torch.ops.kernels import _build
-
     out = _build.BUILD_DIR / "parent" / f"lib{name}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     src = checkout / "roomnet_tpu_torch" / "csrc" / f"{name}.cu"
@@ -663,7 +665,6 @@ def main(argv=None) -> None:
 
     from roomnet_tpu_torch.infer.classify import RoomNetClassifier
     from roomnet_tpu_torch.models import roomnet as M
-    from roomnet_tpu_torch.ops.kernels import _build
     from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
     from roomnet_tpu_torch.ops.kernels import dense_head as KD
     from roomnet_tpu_torch.ops.kernels import pool as KP
@@ -908,17 +909,18 @@ def main(argv=None) -> None:
             + (f" (CUDA-core method: {t['cores_bound_ms']:.4f} ms)" if dt == "f32" else ""))
 
     # -- phase 4: full forward vs the TF-graph goldens, launches per forward --
-    def counts():
-        return {n: kernels[n][0].launches for n in kernels}
+    base = _build.launch_counts()
 
-    def zero_counts():
-        for n in kernels:
-            kernels[n][0].launches = 0
+    def counts():
+        return _build.card_launches_since(base, PER_FORWARD)
+
+    def start_counts():
+        base.update(_build.launch_counts())
 
     for label, gd in (("forward_golden", g), ("forward_golden_wide", gw)):
         xu8 = torch.from_numpy(gd["x_uint8_bgr"]).to(dev)
         for dt, cfg in cfgs.items():
-            zero_counts()
+            start_counts()
             logits = M.forward(variables, M.normalize_bgr_uint8(xu8), cfg).cpu().numpy()
             if (label, dt) == ("forward_golden_wide", "f32"):
                 wide_logits = logits
@@ -945,7 +947,7 @@ def main(argv=None) -> None:
         clf = RoomNetClassifier(variables, cfg, batch_size=256, device=dev)
         xb = torch.from_numpy(x256_u8).to(dev)
         fwd_ms = cuda_ms(lambda: clf._predict(clf.variables, xb))
-        zero_counts()
+        start_counts()
         forwards = 0
         for _ in range(2):
             clf.predict(x256_u8)
@@ -997,44 +999,44 @@ def main(argv=None) -> None:
         torch.cuda.empty_cache()
 
     # -- phase 6: the directory path ------------------------------------------
-    directory = phase6(variables, cfgs, gw, wide_logits, x256_u8, serving, counts, zero_counts,
+    directory = phase6(variables, cfgs, gw, wide_logits, x256_u8, serving, counts, start_counts,
                        per_forward, dev)
     launches = directory.pop("launches")
 
     # -- phase 7: the training step -------------------------------------------
     training = {"oracles": train_oracles(variables, dev)}
     grad_checks = train_function_checks(variables, cfgs, kernels, dev)
-    step_launches = train_launches(variables, cfgs, counts, zero_counts, dev)
+    step_launches = train_launches(variables, cfgs, counts, start_counts, dev)
     training["times"] = train_times(variables, cfgs, dev, smi)
 
     # -- phase 8: the serving daemon ------------------------------------------
-    server = phase8(variables, cfgs, gw, wide_logits, x256_u8, counts, zero_counts, per_forward, dev, smi)
+    server = phase8(variables, cfgs, gw, wide_logits, x256_u8, counts, start_counts, per_forward, dev, smi)
     serve_launches = server.pop("launches")
 
     # -- phase 9: the training loop -------------------------------------------
-    trainer = phase9(variables, cfgs, counts, zero_counts, per_forward, training["times"], dev, smi)
+    trainer = phase9(variables, cfgs, counts, start_counts, per_forward, training["times"], dev, smi)
     trainer_launches = trainer.pop("launches")
 
     # -- phase 10: scale-out ----------------------------------------------------
-    scale_out = phase10(variables, cfgs, counts, zero_counts, dev, smi)
+    scale_out = phase10(variables, cfgs, counts, start_counts, dev, smi)
     dp_launches = scale_out.pop("launches")
     dp_per_step = {"f32": scale_out["two_ranks_gloo"]["replicated"]["launches_per_rank_step"],
                    "bf16": scale_out["step_ms"]["per_step_launches"]}
 
     # -- phase 11: the server on a mesh -------------------------------------------
-    server_mesh = phase11(variables, cfgs, counts, zero_counts, per_forward, dev, smi)
+    server_mesh = phase11(variables, cfgs, counts, start_counts, per_forward, dev, smi)
     server_mesh.pop("launches")
 
     # -- phase 12: tensor parallelism ---------------------------------------------
-    tensor_parallel = phase12(variables, counts, zero_counts, dev, smi)
+    tensor_parallel = phase12(variables, counts, start_counts, dev, smi)
     tp_per_step = tensor_parallel.pop("launches")
 
     # -- phase 13: from scratch through the curriculum -----------------------------
-    curriculum = phase13(cfgs, counts, zero_counts, per_forward, dev, smi)
+    curriculum = phase13(cfgs, counts, start_counts, per_forward, dev, smi)
     curriculum_launches = curriculum.pop("launches")
 
     # -- phase 14: the bench and the val-scale parity run ---------------------------
-    bench_valset = phase14(counts, zero_counts, per_forward, serving, dev, smi)
+    bench_valset = phase14(counts, start_counts, per_forward, serving, dev, smi)
     bv_launches = bench_valset.pop("launches")
 
     # -- phase 15: ResNet-50's kernels -------------------------------------------
@@ -1082,7 +1084,7 @@ def main(argv=None) -> None:
                                              "count": torch.cuda.device_count()}}))
 
 
-def phase6(variables, cfgs, gw, wide_logits, x256_u8, serving, counts, zero_counts, per_forward, dev) -> dict:
+def phase6(variables, cfgs, gw, wide_logits, x256_u8, serving, counts, start_counts, per_forward, dev) -> dict:
     """The directory path (docstring phase 6). Returns its numbers, and under
     "launches" each dtype's counts from its classify_im_dir run."""
     from roomnet_tpu_torch import CLASS_LABELS
@@ -1165,7 +1167,7 @@ def phase6(variables, cfgs, gw, wide_logits, x256_u8, serving, counts, zero_coun
                 arrays = [None if n == layout["corrupt"] else crops[n] if n in golden else
                           resize_bilinear_half_pixel(torch.from_numpy(crops[n][None]).float(), (224, 224))
                           .round().clamp(0, 255).to(torch.uint8)[0].numpy() for n in names]
-                zero_counts()
+                start_counts()
                 with ThreadPoolExecutor(clf.decode_workers) as pool:
                     ids, confs, ok = clf.predict_stream(len(names), load_fill(arrays, lambda a: a, pool))
                 result["launches"][dt] = check_counts(f"predict_stream[{dt}]", n_fwd)
@@ -1174,7 +1176,7 @@ def phase6(variables, cfgs, gw, wide_logits, x256_u8, serving, counts, zero_coun
                     f"classified, argmax equal to the TF graph, max |dprob| {err:.3g}")
                 continue
             out_dir = os.path.join(root, f"out_{dt}")
-            zero_counts()
+            start_counts()
             xl = classify_im_dir(clf, d, overlay=False, out_dir=out_dir, progress=False)
             result["launches"][dt] = check_counts(f"classify_im_dir[{dt}]", n_fwd)
             cells = read_labels_biff2(xl)
@@ -1187,7 +1189,7 @@ def phase6(variables, cfgs, gw, wide_logits, x256_u8, serving, counts, zero_coun
             for n in want_names:
                 if not os.path.exists(os.path.join(out_dir, rows[n][0], n)):
                     raise AssertionError(f"classify_im_dir[{dt}]: {n} not in its class folder")
-            zero_counts()
+            start_counts()
             ids, confs, ok = clf.predict_paths(paths)
             check_counts(f"predict_paths[{dt}]", n_fwd)
             err = check_preds(f"predict_paths[{dt}]", ids, confs, ok, dt == "f32")
@@ -1199,7 +1201,7 @@ def phase6(variables, cfgs, gw, wide_logits, x256_u8, serving, counts, zero_coun
                 for n in names:
                     if n in golden or n == layout["corrupt"]:
                         f.write(f"{os.path.join(d, n)} {int(gw['argmax'][golden.get(n, 0)])}\n")
-            zero_counts()
+            start_counts()
             stats = groundtruth_validation(clf, lst)
             check_counts(f"groundtruth_validation[{dt}]", -(-(len(golden) + 1) // 16))
             if stats["accuracy"] != 1.0:
@@ -1226,7 +1228,7 @@ def phase6(variables, cfgs, gw, wide_logits, x256_u8, serving, counts, zero_coun
             else:
                 fill = clf.path_fill(bulk_paths, pool)
             clf.predict_stream(256, fill)  # warm-up
-            zero_counts()
+            start_counts()
             t0 = time.perf_counter()
             ids, _, ok = clf.predict_stream(1024, timed_fill(fill, decode_s))
             wall = time.perf_counter() - t0
@@ -1466,7 +1468,7 @@ def train_function_checks(variables, cfgs, kernels, dev) -> dict:
     return result
 
 
-def train_launches(variables, cfgs, counts, zero_counts, dev) -> dict:
+def train_launches(variables, cfgs, counts, start_counts, dev) -> dict:
     """(d) The kernel launches of one training step at batch 8, per BN mode
     and dtype: 10/10/3/1 with TrainHParams(), 10/10/3/0 with batch stats."""
     from roomnet_tpu_torch.train.step import TrainHParams, init_train_state, make_train_step
@@ -1482,7 +1484,7 @@ def train_launches(variables, cfgs, counts, zero_counts, dev) -> dict:
             hp = TrainHParams(compute_bn_mean_var=mode == "trainbn", update_bn_moving=mode == "trainbn")
             step_fn = make_train_step(hp, cfg)
             state = init_train_state(variables, hp)
-            zero_counts()
+            start_counts()
             state, metrics = step_fn(state, x, y)
             got = counts()
             if got != want[mode]:
@@ -1672,7 +1674,7 @@ class LoopProbe:
         self._loader.TrainFeeder.dequeue = self._real
 
 
-def phase9(variables, cfgs, counts, zero_counts, per_forward, step_times, dev, smi) -> dict:
+def phase9(variables, cfgs, counts, start_counts, per_forward, step_times, dev, smi) -> dict:
     """The training loop (docstring phase 9). Returns its numbers, and under
     "launches" each dtype's counts over its Trainer run ((b) f32, (c) bf16)."""
     import dataclasses
@@ -1724,7 +1726,7 @@ def phase9(variables, cfgs, counts, zero_counts, per_forward, step_times, dev, s
         with deterministic():
             states, want_losses = hand_driven(tr, 6)
             losses = record_losses(tr)
-            zero_counts()
+            start_counts()
             with contextlib.redirect_stdout(io.StringIO()):
                 state = tr.train(total_steps=6)
         got = counts()
@@ -1751,7 +1753,7 @@ def phase9(variables, cfgs, counts, zero_counts, per_forward, step_times, dev, s
         # (c) the loop learns: bf16, frozen BN, a fresh head on the converted tower.
         tc = config("c", save_freq=LOOP_SAVE, learn_rate=LOOP_LR, restore_head=False)
         tr = Trainer(tc, cfgs["bf16"])
-        zero_counts()
+        start_counts()
         with LoopProbe(tr) as probe, contextlib.redirect_stdout(io.StringIO()):
             state = tr.train(total_steps=LOOP_STEPS)
         got = counts()
@@ -1775,7 +1777,7 @@ def phase9(variables, cfgs, counts, zero_counts, per_forward, step_times, dev, s
         if not curve[steps[-1]] >= LOOP_ACC_GATE:
             raise AssertionError(f"loop (c): step-{steps[-1]} accuracy {curve[steps[-1]]} < {LOOP_ACC_GATE}")
         tr_r = Trainer(dataclasses.replace(tc, restore_head=True), cfgs["bf16"])
-        zero_counts()
+        start_counts()
         with contextlib.redirect_stdout(io.StringIO()) as out:
             state_r = tr_r.train(total_steps=LOOP_RESUME)
         if f"Model restored at step {steps[-1]}" not in out.getvalue() or int(state_r.step) != steps[-1] + LOOP_RESUME:
@@ -2023,17 +2025,6 @@ DP_WINDOWS = ("plain", "mesh", "mesh", "plain")  # (e): windows in turns
 DP_JOIN_S = 420.0  # (b), (c), (f): the spawned ranks' join limit
 
 
-def kernel_counters() -> dict:
-    """The four kernel wrappers, whose `launches` count their launches."""
-    from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
-    from roomnet_tpu_torch.ops.kernels import dense_head as KD
-    from roomnet_tpu_torch.ops.kernels import pool as KP
-    from roomnet_tpu_torch.ops.kernels import residual as KR
-
-    return {"conv3x3": KC.conv3x3, "relu6_pool_bn": KP.relu6_pool_bn, "residual_bn": KR.residual_bn,
-            "dense_head": KD.dense_head}
-
-
 class StepLaunches:
     """Wraps a Trainer's step function: the kernels' launches of each step
     call, by BN mode ("trainbn" with batch statistics, else "infbn"). A
@@ -2041,15 +2032,15 @@ class StepLaunches:
 
     def __init__(self, trainer):
         self.by_mode: dict = {}
-        kernels, real = kernel_counters(), trainer._step_fn
+        real = trainer._step_fn
 
         def step_fn(ph, **kw):
             fn = real(ph, **kw)
 
             def run(*args):
-                before = {n: k.launches for n, k in kernels.items()}
+                before = _build.launch_counts()
                 out = fn(*args)
-                got = {n: k.launches - before[n] for n, k in kernels.items()}
+                got = _build.card_launches_since(before, PER_FORWARD)
                 self.by_mode.setdefault("trainbn" if ph.compute_bn_mean_var else "infbn", []).append(got)
                 return out
             return run
@@ -2151,7 +2142,7 @@ def moment_share(got: dict, want: dict) -> float:
                for k in want if k.startswith(("opt/mu/", "opt/nu/")))
 
 
-def phase10(variables, cfgs, counts, zero_counts, dev, smi) -> dict:
+def phase10(variables, cfgs, counts, start_counts, dev, smi) -> dict:
     """Scale-out (docstring phase 10). Returns its numbers, and under
     "launches" the counts of its mesh runs in this process: f32 (a)'s
     Trainer, bf16 (e)'s mesh windows."""
@@ -2203,7 +2194,7 @@ def phase10(variables, cfgs, counts, zero_counts, dev, smi) -> dict:
             plain = state_tensors(Trainer(tc_plain, cfgs["f32"]).train(total_steps=DP_STEPS))
             tr = Trainer(tc_mesh, cfgs["f32"], mesh=mesh)
             probe = StepLaunches(tr)
-            zero_counts()
+            start_counts()
             meshed = state_tensors(tr.train(total_steps=DP_STEPS))
             got = counts()
         want = {"conv3x3": 70, "relu6_pool_bn": 70, "residual_bn": 21, "dense_head": 4}
@@ -2364,7 +2355,7 @@ def phase10(variables, cfgs, counts, zero_counts, dev, smi) -> dict:
     y45 = torch.arange(45, device=dev, dtype=torch.int32) % 6
     times, per_step = {}, {}
     mesh_launches = dict.fromkeys(counts(), 0)
-    zero_counts()
+    start_counts()
     for mode, hp in (("infbn", TrainHParams()),
                      ("trainbn", TrainHParams(compute_bn_mean_var=True, update_bn_moving=True))):
         steps = {"plain": make_train_step(hp, cfgs["bf16"]), "mesh": make_train_step(hp, cfgs["bf16"],
@@ -2426,7 +2417,7 @@ def http_json(port: int, method: str, path: str, body: bytes | None = None):
     return status, json.loads(data) if data else None
 
 
-def phase8(variables, cfgs, gw, wide_logits, x256_u8, counts, zero_counts, per_forward, dev, smi) -> dict:
+def phase8(variables, cfgs, gw, wide_logits, x256_u8, counts, start_counts, per_forward, dev, smi) -> dict:
     """The serving daemon (docstring phase 8). Returns its numbers, and under
     "launches" each dtype's counts from its classify requests."""
     import base64
@@ -2465,7 +2456,7 @@ def phase8(variables, cfgs, gw, wide_logits, x256_u8, counts, zero_counts, per_f
             store.save(variables, 1, suffix="1.0")
             trees = {"rolled": rolled, "nan": nan}
             result[dt] = serve_checks(dt, cfg, variables, trees, (store, mdir, edir, lst), (bodies, payload),
-                                      (tf_ids, want_probs), x256_u8, counts, zero_counts, per_forward, dev,
+                                      (tf_ids, want_probs), x256_u8, counts, start_counts, per_forward, dev,
                                       result["launches"])
         # The CLI once, as a user runs it: the bf16 default, from the repo root.
         t0 = time.perf_counter()
@@ -2487,7 +2478,7 @@ def phase8(variables, cfgs, gw, wide_logits, x256_u8, counts, zero_counts, per_f
     return result
 
 
-def serve_checks(dt, cfg, variables, trees, dirs, requests, golden, x256_u8, counts, zero_counts, per_forward,
+def serve_checks(dt, cfg, variables, trees, dirs, requests, golden, x256_u8, counts, start_counts, per_forward,
                  dev, launches) -> dict:
     """Phase 8 (a) for one dtype: `trees` the rolled-head and NaN flat
     dicts, `dirs` (store, its dir, the evaluation dir, the list file),
@@ -2545,7 +2536,7 @@ def serve_checks(dt, cfg, variables, trees, dirs, requests, golden, x256_u8, cou
                 raise AssertionError(f"server[{dt}] {where}: f32 probs {err:.3g} from phase 4's softmax")
             return err
 
-        zero_counts()
+        start_counts()
         c0 = device_calls()
         singles = classify_all()
         c1 = device_calls()
@@ -2648,7 +2639,7 @@ def serve_times(variables, cfg, dev, smi) -> dict:
                 raise AssertionError(f"serving times: /classify {status} {data[:200]}")
 
         classify()
-        SPANS.reset()
+        SPANS.reset()  # the spans of the timed requests only; no launch count spans this
         import http.client
 
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
@@ -2840,8 +2831,7 @@ def mesh_serve(clf, requests: dict, *, model_dir: str | None = None, reloads=(),
     from roomnet_tpu_torch.params.checkpoint import CheckpointStore
     from roomnet_tpu_torch.params.schema import flatten_variables
 
-    kernels = kernel_counters()
-    before = {n: k.launches for n, k in kernels.items()}
+    before = _build.launch_counts()
     sizes = count_predicts(clf)
     srv = ClassifierServer(clf, port=0, warmup=True, max_inflight=64, model_dir=model_dir, drain_s=drain_s)
     client: dict = {}
@@ -2880,7 +2870,8 @@ def mesh_serve(clf, requests: dict, *, model_dir: str | None = None, reloads=(),
     if thread is not None:
         thread.join(60.0)
         out["client"] = client
-    out.update(sizes=list(sizes), launches={n: k.launches - before[n] for n, k in kernels.items()},
+    since = _build.card_launches_since if clf.device.type == "cuda" else _build.launches_since
+    out.update(sizes=list(sizes), launches=since(before, PER_FORWARD),
                model_version=dict(srv.model_version), variables=flatten_variables(clf.variables))
     return out
 
@@ -2944,7 +2935,7 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def phase11(variables, cfgs, counts, zero_counts, per_forward, dev, smi) -> dict:
+def phase11(variables, cfgs, counts, start_counts, per_forward, dev, smi) -> dict:
     """The server on a mesh (docstring phase 11). Returns its numbers, and
     under "launches" the counts of (a)'s world-of-one requests by dtype."""
     import signal
@@ -2996,7 +2987,7 @@ def phase11(variables, cfgs, counts, zero_counts, per_forward, dev, smi) -> dict
         srv = server(dt, variables, mesh)
         try:
             sizes = count_predicts(srv.classifier)
-            zero_counts()
+            start_counts()
             got = classify_requests(srv.port, requests)
             launches = counts()
         finally:
@@ -3220,8 +3211,6 @@ TP_JOIN_S = 420.0  # (b)-(d): the spawned ranks' join limit
 def conv_couts(out: list):
     """Appends to `out` the Cout that every conv3x3 CUDA launch in the block
     passes to the kernel (csrc/conv3x3.cu:rn_conv3x3's ninth argument)."""
-    from roomnet_tpu_torch.ops.kernels import _build
-
     real = _build.entry
 
     def entry(name, symbol, argtypes):
@@ -3276,15 +3265,14 @@ def tp_steps(variables, mode: str, dev, mesh=None, *, reverse: bool = False) -> 
     local = {k: tuple(v.shape) for k, v in state.train_vars.items()}
     local.update({f"opt/mu/{k}": tuple(v.shape) for k, v in state.opt_state.mu.items()})
     step = make_train_step(hp, DEFAULT_CONFIG, group=group, tp=tp)
-    kernels = kernel_counters()
     launches, couts = [], []
     with deterministic():
         for _ in range(TP_STEPS):
-            before = {n: k.launches for n, k in kernels.items()}
+            before = _build.launch_counts()
             c = []
             with conv_couts(c):
                 state, metrics = step(state, x, y)
-            launches.append({n: k.launches - before[n] for n, k in kernels.items()})
+            launches.append(_build.card_launches_since(before, PER_FORWARD))
             couts.append(c)
         loss = float(metrics["loss"])
     if mesh is not None:
@@ -3343,7 +3331,7 @@ def tp_gap(got: dict, want: dict, mode: str, gates: dict | None = None) -> dict:
     return out
 
 
-def phase12(variables, counts, zero_counts, dev, smi) -> dict:
+def phase12(variables, counts, start_counts, dev, smi) -> dict:
     """Tensor parallelism (docstring phase 12). Returns its numbers, and
     under "launches" the per-rank-per-step counts: f32 from (b), bf16 from
     (e)'s mesh windows."""
@@ -3373,7 +3361,7 @@ def phase12(variables, counts, zero_counts, dev, smi) -> dict:
 
     one = {mode: tp_steps(variables, mode, dev) for mode in TP_MODES}
     # (a) A world of one over NCCL with tensor_parallel=True: the same bits as no mesh.
-    zero_counts()
+    start_counts()
     distributed.start_single(dev)
     if dist.get_backend() != "nccl":
         raise AssertionError(f"tensor parallel (a): the world of one runs {dist.get_backend()}, not nccl")
@@ -3395,7 +3383,7 @@ def phase12(variables, counts, zero_counts, dev, smi) -> dict:
     x45 = torch.from_numpy(np.random.RandomState(45).randint(0, 256, (45, 224, 224, 3), dtype=np.uint8)).to(dev)
     y45 = torch.arange(45, device=dev, dtype=torch.int32) % 6
     times, tp_per_step = {}, {}
-    zero_counts()
+    start_counts()
     for mode, extra in TP_MODES.items():
         hp = TrainHParams(**extra)
         base = init_train_state(variables, hp)
@@ -3530,13 +3518,9 @@ class CurriculumProbe:
     alone), the device's busy share over them by CUDA events."""
 
     def __init__(self, trainer, window=None):
-        kernels = kernel_counters()
         self.steps, self.validations, self.busy, self.overhead = [], [], {}, []
         self._window, self._calls = window, {}
         real_step, real_val, phases = trainer._step_fn, trainer.run_validation, trainer.tc.phases
-
-        def counts():
-            return {n: k.launches for n, k in kernels.items()}
 
         def step_fn(ph, **kw):
             fn = real_step(ph, **kw)
@@ -3548,18 +3532,18 @@ class CurriculumProbe:
                     t0 = time.perf_counter()
                     (self._start if i == window[0] else self._stop)(p)
                     self.overhead.append((t0, time.perf_counter()))
-                before, t = counts(), time.perf_counter()
+                before, t = _build.launch_counts(), time.perf_counter()
                 out = fn(*args)
-                self.steps.append((p, t, {n: c - before[n] for n, c in counts().items()}))
+                self.steps.append((p, t, _build.card_launches_since(before, PER_FORWARD)))
                 return out
             return run
 
         def validation(state, reader, use_batch_stats=False):
-            before, t0 = counts(), time.perf_counter()
+            before, t0 = _build.launch_counts(), time.perf_counter()
             out = real_val(state, reader, use_batch_stats=use_batch_stats)
             self.validations.append({"step": int(state.step), "batch_stats": use_batch_stats, "t0": t0,
                                      "t1": time.perf_counter(),
-                                     "launches": {n: c - before[n] for n, c in counts().items()}})
+                                     "launches": _build.card_launches_since(before, PER_FORWARD)})
             return out
 
         trainer._step_fn, trainer.run_validation = step_fn, validation
@@ -3607,7 +3591,7 @@ class CurriculumProbe:
         return out
 
 
-def phase13(cfgs, counts, zero_counts, per_forward, dev, smi) -> dict:
+def phase13(cfgs, counts, start_counts, per_forward, dev, smi) -> dict:
     """From scratch through the curriculum (docstring phase 13). Returns its
     numbers, and under "launches" each dtype's counts over its Trainer run
     and per step of each phase ((a) f32, (b) bf16)."""
@@ -3669,7 +3653,7 @@ def phase13(cfgs, counts, zero_counts, per_forward, dev, smi) -> dict:
             states, want_losses = hand_driven(tr, n_a)
             losses = record_losses(tr)
             probe = CurriculumProbe(tr)
-            zero_counts()
+            start_counts()
             with contextlib.redirect_stdout(io.StringIO()) as out:
                 state = tr.train(total_steps=n_a)
         got = counts()
@@ -3698,7 +3682,7 @@ def phase13(cfgs, counts, zero_counts, per_forward, dev, smi) -> dict:
         tr = Trainer(tc, cfgs["bf16"], device=dev)
         losses = record_losses(tr)
         probe = CurriculumProbe(tr, CURRICULUM_WINDOW)
-        zero_counts()
+        start_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             state = tr.train(total_steps=CURRICULUM_TOTAL, log_every=CURRICULUM_LOG_EVERY)
@@ -3851,10 +3835,8 @@ def phase15(dev, parent_conv1=None) -> dict:
     from roomnet_tpu_torch.infer.classify import RoomNetClassifier
     from roomnet_tpu_torch.models import registry
     from roomnet_tpu_torch.models import resnet as R
-    from roomnet_tpu_torch.ops.kernels import _build
     from roomnet_tpu_torch.ops.kernels import conv1x1 as K1
     from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
-    from roomnet_tpu_torch.utils.profiling import SPANS
 
     sass = sass_counts(_build.library_path("conv1x1"))
     log(f"phase 15: sass conv1x1: {sass}")
@@ -3939,32 +3921,22 @@ def phase15(dev, parent_conv1=None) -> dict:
                          generator=g)
     plans = [K1.variant((batch, st["side"], st["side"], st["cin"]), st["cout"], stride=st["stride"],
                         residual=st["residual"]) for st in cfg.conv_sites() if st["kernel"] == "conv1x1"]
-    want = {"tiles": sum(v["tiles"] for v in plans), "blocks": sum(v["blocks"] for v in plans)}
-
-    def counted():
-        return {n: SPANS.summary().get(f"kernel/conv1x1.{n}", {}).get("total", 0) for n in want}
-
-    before = (KC.conv3x3.launches, K1.conv1x1.launches, counted())
+    tiles, blocks = sum(v["tiles"] for v in plans), sum(v["blocks"] for v in plans)
+    before = _build.launch_counts()
     clf._predict(clf.variables, x_u8)
     torch.cuda.synchronize()
-    after = counted()
-    launches = {"conv3x3": KC.conv3x3.launches - before[0], "conv1x1": K1.conv1x1.launches - before[1]}
+    launches = {n: c for n, c in _build.card_launches_since(before).items() if c}
     if launches != {"conv3x3": 16, "conv1x1": 36}:
         raise AssertionError(f"phase 15: a ResNet-50 forward launched {launches}, not 16 conv3x3 and 36 conv1x1")
-    moved = {n: after[n] - before[2][n] for n in want}
-    if moved != want:
-        raise AssertionError(f"phase 15: a ResNet-50 forward counted {moved} on the conv1x1 counters, its plans "
-                             f"{want}")
     forward_ms = cuda_ms(lambda: clf._predict(clf.variables, x_u8))
     clf.close()
     log(f"phase 15: RoomNetClassifier._predict, batch 256: {forward_ms:.3f} ms device time, launches {launches}, "
-        f"conv1x1 tiles {moved['tiles']} over {moved['blocks']} blocks ({moved['tiles'] / moved['blocks']:.2f} a "
-        f"block)")
+        f"conv1x1 tiles {tiles} over {blocks} blocks ({tiles / blocks:.2f} a block; conv1x1.variant's plans)")
     return {"sites": sites, "per_forward": per_forward, "per_stage": per_stage, "forward_ms": forward_ms,
-            "launches": launches, "conv1x1_counters": moved}
+            "launches": launches, "conv1x1_plans": {"tiles": tiles, "blocks": blocks}}
 
 
-def phase14(counts, zero_counts, per_forward, serving, dev, smi) -> dict:
+def phase14(counts, start_counts, per_forward, serving, dev, smi) -> dict:
     """The bench and the val-scale parity run (docstring phase 14). Returns
     their numbers, and under "launches" the bench's counts (bf16) and each
     dtype's over the valset run."""
@@ -3976,7 +3948,7 @@ def phase14(counts, zero_counts, per_forward, serving, dev, smi) -> dict:
     t_phase = time.perf_counter()
     # (a) `python -m roomnet_tpu_torch bench`, in this process.
     out = io.StringIO()
-    zero_counts()
+    start_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         cli.main(["bench"])
@@ -4021,7 +3993,7 @@ def phase14(counts, zero_counts, per_forward, serving, dev, smi) -> dict:
 
     @contextlib.contextmanager
     def measure(dt: str):
-        zero_counts()
+        start_counts()
         yield
         launches[dt] = counts()
 

@@ -278,7 +278,7 @@ def run(device=None, *, cfg=None, variables=None, **overrides) -> dict:
                 clf.predict_paths(paths[:4])
                 relay_mbps = x.nbytes / 1e6 / float(np.median([host_to_device_s(x, dev) for _ in range(3)]))
                 log(f"pageable host->device copy: {relay_mbps:.1f} MB/s")
-                SPANS.reset()  # the timed runs' spans only
+                before = SPANS.summary()  # the timed runs' spans only
                 runs = []
                 for _ in range(n.e2e_runs):
                     t0 = clock()
@@ -289,8 +289,8 @@ def run(device=None, *, cfg=None, variables=None, **overrides) -> dict:
             finally:
                 clf.close()
             e2e_ips = float(np.median(runs))
-            e2e_stages = {k.split("/", 1)[1]: v["total_s"] / n.e2e_runs
-                          for k, v in SPANS.summary().items() if k.startswith("e2e/")}
+            e2e_stages = {k.split("/", 1)[1]: (v["total_s"] - before.get(k, {}).get("total_s", 0.0)) / n.e2e_runs
+                          for k, v in SPANS.summary().items() if k.startswith("e2e/") and v != before.get(k)}
             e2e_decode_ips = n.e2e_images / e2e_stages["decode"]
             ceiling = relay_mbps * 1e6 / (side * side * 3)
             e2e_vs_ceiling = e2e_ips / ceiling

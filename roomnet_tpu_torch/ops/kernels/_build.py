@@ -11,8 +11,9 @@ is rebuilt and a stale library is never loaded. All missing libraries are
 compiled together, one nvcc process per source. ``ptxas -v`` (registers,
 shared memory, spills) goes to ``<name>.log`` beside the library.
 
-Every C entry returns ``cudaGetLastError()`` after its launch; `check`
-raises on anything but 0. Pointers and the stream are ``c_void_p``.
+`launch` calls a C entry (bound once), counts ``kernel/launches.<name>`` (a plain
+version in its place also ``kernel/plain.<name>``) and raises on its return code,
+``cudaGetLastError()``. Pointers and the stream are `P`, sizes `I`.
 
 Host libraries (``csrc/<name>.cpp``, today the image decoder roomnet_io)
 build the same way with g++ (`build_host`), into the same directory:
@@ -45,9 +46,12 @@ NVCC_FLAGS = (
 GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared") + (
     ("-mfma",) if platform.machine() in ("x86_64", "AMD64") else ())
 HOST_LIBS = {"roomnet_io": ("-ljpeg", "-lpng")}
+P, I = ctypes.c_void_p, ctypes.c_int
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_entries: dict[str, ctypes._CFuncPtr] = {}
+_spans = None  # utils/profiling.SPANS
 
 
 def _nvcc() -> str:
@@ -138,9 +142,12 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def entry(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
-    fn = getattr(load(name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """C entry `symbol` of csrc/<name>.cu, bound at its first call: later ones take no lock."""
+    fn = _entries.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = argtypes, I
+        _entries[symbol] = fn
     return fn
 
 
@@ -150,10 +157,59 @@ def check(name: str, symbol: str, rc: int) -> None:
         raise RuntimeError(f"{symbol}: CUDA error {rc} ({msg})")
 
 
+def launch(name: str, symbol: str, argtypes: list, *args) -> None:
+    """Launch C entry `symbol` of csrc/<name>.cu on `args`, count it, then raise on its return code."""
+    rc = entry(name, symbol, argtypes)(*args)
+    count(name)
+    check(name, symbol, rc)
+
+
+def report(name: str, symbol: str, fields: tuple, *args: int) -> dict:
+    """{field: int} of a variant entry, which fills one int of its last argument per field."""
+    out = (I * len(fields))()
+    check(name, symbol, entry(name, symbol, [I] * len(args) + [P])(*args, out))
+    return dict(zip(fields, out))
+
+
+def count(name: str) -> None:
+    """One launch of kernel `name`: `kernel/launches.<name>` in utils/profiling.SPANS."""
+    global _spans
+    if _spans is None:  # imported at first use: this module needs no torch
+        from ...utils.profiling import SPANS as _spans
+    _spans.count(f"kernel/launches.{name}", 1)
+
+
+def count_plain(name: str) -> None:
+    """`count` of a plain version run in the launch's place, and `kernel/plain.<name>`."""
+    count(name)
+    _spans.count(f"kernel/plain.{name}", 1)
+
+
+def launch_counts() -> dict[str, int]:
+    """{counter: its total}: `kernel/launches.<name>` and `kernel/plain.<name>` of each of SOURCES."""
+    from ...utils.profiling import SPANS
+
+    return {c: int(SPANS.total(c)) for n in SOURCES for c in (f"kernel/launches.{n}", f"kernel/plain.{n}")}
+
+
+def launches_since(before: dict, names=SOURCES) -> dict[str, int]:
+    """{kernel of `names`: its launches and plain calls since `before`, a `launch_counts()`}."""
+    now = launch_counts()
+    return {n: now[f"kernel/launches.{n}"] - before[f"kernel/launches.{n}"] for n in names}
+
+
+def card_launches_since(before: dict, names=SOURCES) -> dict[str, int]:
+    """`launches_since`, raising if a plain version ran since `before`: each count a launch on the card."""
+    now = launch_counts()
+    if ran := {c: now[c] - before[c] for c in now if c.startswith("kernel/plain.") and now[c] != before[c]}:
+        raise AssertionError(f"plain versions ran in place of launches: {ran}")
+    return launches_since(before, names)
+
+
 def launch_args(kernel: str, x, *others) -> tuple[int, int, int]:
     """Validate the tensors of one launch and return (dtype code, device
     index, stream handle) for the C entry. `x` carries the io dtype (f32 or
-    bf16); every tensor must be a contiguous CUDA tensor on x's device."""
+    bf16); every tensor but None must be a contiguous CUDA tensor on x's device."""
     import torch
 
     codes = {torch.float32: 0, torch.bfloat16: 1}
@@ -162,6 +218,6 @@ def launch_args(kernel: str, x, *others) -> tuple[int, int, int]:
     if x.dtype not in codes:
         raise TypeError(f"{kernel}: io dtype must be float32 or bfloat16, got {x.dtype}")
     for t in (x, *others):
-        if t.device != x.device or not t.is_contiguous():
+        if t is not None and (t.device != x.device or not t.is_contiguous()):
             raise ValueError(f"{kernel}: every operand must be contiguous on {x.device}")
     return codes[x.dtype], x.device.index, torch.cuda.current_stream(x.device).cuda_stream

@@ -12,26 +12,21 @@ finishes one. Cin and Cout multiples of 64, the weights packed by
 conv3x3.pack_stream (`packed_kernel(..., layout="stream")`).
 
 On a CPU tensor `conv1x1` runs `conv1x1_plain`; on a CUDA tensor it launches
-the kernel or raises. Every call counts one launch into utils/profiling.SPANS
-as `kernel/launches.conv1x1` (the plain version's too); a launch of the
-kernel also counts its output tiles (`kernel/conv1x1.tiles`) and its
-persistent blocks (`kernel/conv1x1.blocks`), from its plan: their ratio over
-a window is the tiles a block walks.
+the kernel or raises. Either counts one launch (`_build`). `variant`
+reports a launch's persistent plan: its tiles, its blocks and the most tiles
+a block walks.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
-from ...utils.profiling import SPANS
 from . import _build
+from ._build import I, P
 from .conv3x3 import epilogue_plain, packed_kernel, stream_bn
 
-P = ctypes.c_void_p
-I = ctypes.c_int
 _ARGS = [P, P, P, P, P] + [I] * 10 + [P]
 # rn_conv1x1_variant's report, in order (csrc/conv1x1.cu:run): the tile, the
 # stages of its operand ring, then the persistent plan: the staging slots,
@@ -55,8 +50,8 @@ def conv1x1(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = N
     """x (B,H,W,Cin), kernel (1,1,Cin,Cout) -> (B,Ho,Wo,Cout) in x.dtype, Ho
     = (H - 1) // stride + 1; bias (Cout,) f32 or None; residual like the
     output or None. stride 1 or 2."""
-    SPANS.count("kernel/launches.conv1x1", 1)
     if x.device.type == "cpu":
+        _build.count_plain("conv1x1")
         return conv1x1_plain(x, kernel, bias, stride=stride, relu=relu, residual=residual)
     B, H, W, Cin = x.shape
     if tuple(kernel.shape[:3]) != (1, 1, Cin) or stride not in (1, 2):
@@ -74,21 +69,13 @@ def conv1x1(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = N
     if any(t.data_ptr() % 16 for t in (x, residual) if t is not None):
         raise ValueError("conv1x1: x and the residual must start on a 16-byte boundary")
     packed = packed_kernel(kernel, x.dtype, layout="stream")
-    dtype, device, stream = _build.launch_args("conv1x1", x, packed, *[t for t in (bias, residual) if t is not None])
-    sms, plan = _plan(B, H, W, Cin, Cout, stride, residual is not None, device)
+    dtype, device, stream = _build.launch_args("conv1x1", x, packed, bias, residual)
+    sms = _plan(B, H, W, Cin, Cout, stride, residual is not None, device)[0]
     y = torch.empty((B, Ho, Wo, Cout), dtype=x.dtype, device=x.device)
-    fn = _build.entry("conv1x1", "rn_conv1x1", _ARGS)
-    rc = fn(x.data_ptr(), packed.data_ptr(), None if bias is None else bias.data_ptr(),
-            None if residual is None else residual.data_ptr(), y.data_ptr(), B, H, W, Cin, Cout, stride, int(relu),
-            packed.shape[2], sms, device, stream)
-    conv1x1.launches += 1
-    _build.check("conv1x1", "rn_conv1x1", rc)
-    SPANS.count("kernel/conv1x1.tiles", plan["tiles"])
-    SPANS.count("kernel/conv1x1.blocks", plan["blocks"])
+    _build.launch("conv1x1", "rn_conv1x1", _ARGS, x.data_ptr(), packed.data_ptr(),
+                  None if bias is None else bias.data_ptr(), None if residual is None else residual.data_ptr(),
+                  y.data_ptr(), B, H, W, Cin, Cout, stride, int(relu), packed.shape[2], sms, device, stream)
     return y
-
-
-conv1x1.launches = 0
 
 
 def variant(shape: tuple, cout: int, *, stride: int = 1, residual: bool) -> dict:
@@ -104,10 +91,7 @@ def variant(shape: tuple, cout: int, *, stride: int = 1, residual: bool) -> dict
 @functools.lru_cache(maxsize=None)
 def _plan(B: int, H: int, W: int, cin: int, cout: int, stride: int, residual: bool, device: int) -> tuple[int, dict]:
     """(the device's SMs, `variant`'s report), made once per shape and
-    device: conv1x1 counts from the report at every launch."""
+    device: conv1x1 launches on the SMs."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    out = (ctypes.c_int * len(VARIANT_FIELDS))()
-    fn = _build.entry("conv1x1", "rn_conv1x1_variant", [I] * 9 + [P])
-    _build.check("conv1x1", "rn_conv1x1_variant",
-                 fn(B, H, W, cin, cout, stride, int(residual), stream_bn(cout), sms, out))
-    return sms, dict(zip(VARIANT_FIELDS, out))
+    return sms, _build.report("conv1x1", "rn_conv1x1_variant", VARIANT_FIELDS, B, H, W, cin, cout, stride,
+                              int(residual), stream_bn(cout), sms)

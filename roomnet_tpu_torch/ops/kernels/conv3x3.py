@@ -51,30 +51,24 @@ Every padded entry is zero. This module alone decides the layout: the
 wrapper passes its Cout_p (bf16) or NT (f32), read off the packed tensor, to
 the C entry, which only picks the tile that goes with it.
 
-On a CPU tensor `conv3x3` runs `conv3x3_plain`; on a CUDA tensor it
-launches the kernel or raises. Every call counts one launch into
-utils/profiling.SPANS as `kernel/launches.conv3x3` (the plain version's too:
-it stands in the launch's place). `conv3x3_autograd` is the same call under
-autograd: its forward is `conv3x3`, its backward one
-`aten.convolution_backward` in the io dtype (cuDNN on the card) on
-channels-last views of the NHWC tensors. The kernel's gradient is
-computed for the io-dtype kernel and cast to the kernel's own dtype, as
-`kernel.astype(x.dtype)` differentiates in JAX.
+On a CPU tensor `conv3x3` runs `conv3x3_plain`; on a CUDA tensor it launches
+the kernel or raises. Either counts one launch (`_build`).
+`conv3x3_autograd` is the same call under autograd: its forward is
+`conv3x3`, its backward one `aten.convolution_backward` in the io dtype
+(cuDNN on the card) on channels-last views of the NHWC tensors. The kernel's
+gradient is computed for the io-dtype kernel and cast to the kernel's own
+dtype, as `kernel.astype(x.dtype)` differentiates in JAX.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
-from ...utils.profiling import SPANS
 from .. import blocks
 from . import _build
+from ._build import I, P
 
-P = ctypes.c_void_p
-I = ctypes.c_int
 _ARGS = [P, P, P, P, I, I, I, I, I, I, I, I, P]
 _STREAM_ARGS = [P, P, P, P, P] + [I] * 10 + [P]
 COUT_STEPS = (8, 16, 32, 64, 128)
@@ -258,8 +252,8 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = N
     x.dtype, Ho = (H + 2 padding - 3) // stride + 1; bias (Cout,) f32 or
     None; then + residual (like the output) and the ReLU where given.
     padding 0 or 1, stride 1 or 2."""
-    SPANS.count("kernel/launches.conv3x3", 1)
     if x.device.type == "cpu":
+        _build.count_plain("conv3x3")
         return conv3x3_plain(x, kernel, bias, padding=padding, stride=stride, relu=relu, residual=residual)
     B, H, W, Cin = x.shape
     if tuple(kernel.shape[:3]) != (3, 3, Cin) or H + 2 * padding < 3 or W + 2 * padding < 3 \
@@ -275,21 +269,15 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = N
         return _conv3x3_stream(x, kernel, bias, padding, stride, relu, residual)
     tf32x3 = x.dtype == torch.float32 and tf32_takes(Cin)
     packed = packed_kernel(kernel, x.dtype, tf32x3)
-    operands = (packed,) if bias is None else (packed, bias)
-    dtype, device, stream = _build.launch_args("conv3x3", x, *operands)
+    dtype, device, stream = _build.launch_args("conv3x3", x, packed, bias)
     if x.data_ptr() % 16:
         raise ValueError("conv3x3: x must start on a 16-byte boundary")
     y = torch.empty((B, H - 2, W - 2, Cout), dtype=x.dtype, device=x.device)
     cp = packed.shape[1] if x.dtype == torch.bfloat16 else packed.shape[3 if tf32x3 else -1]
-    fn = _build.entry("conv3x3", "rn_conv3x3", _ARGS)
-    rc = fn(x.data_ptr(), packed.data_ptr(), None if bias is None else bias.data_ptr(),
-            y.data_ptr(), B, H, W, Cin, Cout, cp, dtype, device, stream)
-    conv3x3.launches += 1
-    _build.check("conv3x3", "rn_conv3x3", rc)
+    _build.launch("conv3x3", "rn_conv3x3", _ARGS, x.data_ptr(), packed.data_ptr(),
+                  None if bias is None else bias.data_ptr(), y.data_ptr(), B, H, W, Cin, Cout, cp, dtype, device,
+                  stream)
     return y
-
-
-conv3x3.launches = 0
 
 
 def _conv3x3_stream(x, kernel, bias, padding, stride, relu, residual):
@@ -301,19 +289,15 @@ def _conv3x3_stream(x, kernel, bias, padding, stride, relu, residual):
     Cout = kernel.shape[3]
     Ho, Wo = (H + 2 * padding - 3) // stride + 1, (W + 2 * padding - 3) // stride + 1
     packed = packed_kernel(kernel, x.dtype, layout="stream")
-    operands = [packed] + [t for t in (bias, residual) if t is not None]
-    dtype, device, stream = _build.launch_args("conv3x3", x, *operands)
+    dtype, device, stream = _build.launch_args("conv3x3", x, packed, bias, residual)
     if residual is not None and (residual.shape != (B, Ho, Wo, Cout) or residual.dtype != x.dtype):
         raise ValueError(f"conv3x3: residual {tuple(residual.shape)} {residual.dtype} is not the output's")
     if any(t.data_ptr() % 16 for t in (x, residual) if t is not None):
         raise ValueError("conv3x3: x and the residual must start on a 16-byte boundary")
     y = torch.empty((B, Ho, Wo, Cout), dtype=x.dtype, device=x.device)
-    fn = _build.entry("conv3x3", "rn_conv3x3_stream", _STREAM_ARGS)
-    rc = fn(x.data_ptr(), packed.data_ptr(), None if bias is None else bias.data_ptr(),
-            None if residual is None else residual.data_ptr(), y.data_ptr(), B, H, W, Cin, Cout, padding, stride,
-            int(relu), packed.shape[2], device, stream)
-    conv3x3.launches += 1
-    _build.check("conv3x3", "rn_conv3x3_stream", rc)
+    _build.launch("conv3x3", "rn_conv3x3_stream", _STREAM_ARGS, x.data_ptr(), packed.data_ptr(),
+                  None if bias is None else bias.data_ptr(), None if residual is None else residual.data_ptr(),
+                  y.data_ptr(), B, H, W, Cin, Cout, padding, stride, int(relu), packed.shape[2], device, stream)
     return y
 
 
@@ -327,21 +311,13 @@ def variant(shape: tuple, cout: int, dtype: torch.dtype, *, padding: int = 0, st
     step's input channels)."""
     B, H, W, cin = shape
     if padding or stride != 1 or cout > COUT_STEPS[-1]:
-        out = (ctypes.c_int * len(VARIANT_FIELDS))()
-        fn = _build.entry("conv3x3", "rn_conv3x3_stream_variant", [I] * 8 + [P])
-        _build.check("conv3x3", "rn_conv3x3_stream_variant",
-                     fn(B, H, W, cin, cout, padding, stride, stream_bn(cout), out))
-        got = dict(zip(VARIANT_FIELDS, out))
-        got["path"] = PATHS[got["path"]]
-        return got
-    if dtype == torch.bfloat16:
-        cp = cout_padded(cout)
+        symbol, args = "rn_conv3x3_stream_variant", (B, H, W, cin, cout, padding, stride, stream_bn(cout))
+    elif dtype == torch.bfloat16:
+        symbol, args = "rn_conv3x3_variant", (H, W, cin, cout, cout_padded(cout), 1)
     else:
         cp = tf32_nt(cin, cout) if tf32_takes(cin) else min(F32_NT, cout_padded(cout))
-    out = (ctypes.c_int * len(VARIANT_FIELDS))()
-    fn = _build.entry("conv3x3", "rn_conv3x3_variant", [I] * 6 + [P])
-    _build.check("conv3x3", "rn_conv3x3_variant", fn(H, W, cin, cout, cp, int(dtype == torch.bfloat16), out))
-    got = dict(zip(VARIANT_FIELDS, out))
+        symbol, args = "rn_conv3x3_variant", (H, W, cin, cout, cp, 0)
+    got = _build.report("conv3x3", symbol, VARIANT_FIELDS, *args)
     got["path"] = PATHS[got["path"]]
     return got
 

@@ -30,9 +30,8 @@ import torch
 
 from .. import blocks
 from . import _build
+from ._build import I, P
 
-P = ctypes.c_void_p
-I = ctypes.c_int
 _ARGS = [P, P, P, P, I, P, I, I, I, I, I, I, I, P]
 MAX_LAYERS = 8
 _KCHUNK = 4096  # streamed: f32 weights staged in shared memory at a time
@@ -104,6 +103,7 @@ def plan(widths: tuple[int, ...], n_params: int) -> Plan:
 def dense_head(x: torch.Tensor, packed: torch.Tensor, widths: tuple[int, ...]):
     """x (B, flat_len) in the io dtype -> (logits, probs), both (B, classes) f32."""
     if x.device.type == "cpu":
+        _build.count_plain("dense_head")
         return dense_head_plain(x, packed, widths)
     n = len(widths) - 1
     B, F = x.shape
@@ -118,16 +118,10 @@ def dense_head(x: torch.Tensor, packed: torch.Tensor, widths: tuple[int, ...]):
     logits = torch.empty((B, widths[-1]), dtype=torch.float32, device=x.device)
     probs = torch.empty_like(logits)
     dims = (ctypes.c_int * (n + 1))(*widths)
-    fn = _build.entry("dense_head", "rn_dense_head", _ARGS)
-    rc = fn(x.data_ptr(), packed.data_ptr(), logits.data_ptr(), probs.data_ptr(), B,
-            ctypes.cast(dims, P), n, packed.numel(), int(p.variant == "resident"), p.rows, _KCHUNK,
-            dtype, device, stream)
-    dense_head.launches += 1
-    _build.check("dense_head", "rn_dense_head", rc)
+    _build.launch("dense_head", "rn_dense_head", _ARGS, x.data_ptr(), packed.data_ptr(), logits.data_ptr(),
+                  probs.data_ptr(), B, ctypes.cast(dims, P), n, packed.numel(), int(p.variant == "resident"), p.rows,
+                  _KCHUNK, dtype, device, stream)
     return logits, probs
-
-
-dense_head.launches = 0
 
 
 class _DenseHead(torch.autograd.Function):

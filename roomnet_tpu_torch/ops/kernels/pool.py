@@ -21,15 +21,12 @@ pass of the pool) and db the sum of ``g``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import blocks
 from . import _build
+from ._build import I, P
 
-P = ctypes.c_void_p
-I = ctypes.c_int
 _ARGS = [P, P, P, P, I, I, I, I, I, I, I, I, P]
 KMAX = 4  # the widest window csrc/relu6_pool_bn.cu takes
 
@@ -46,28 +43,22 @@ def relu6_pool_bn(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, ksize: i
                   stride: int) -> torch.Tensor:
     """x (B,H,W,C) -> (B,(H-k)//s+1,(W-k)//s+1,C) in x.dtype; w, b (C,) f32."""
     if x.device.type == "cpu":
+        _build.count_plain("relu6_pool_bn")
         return relu6_pool_bn_plain(x, w, b, ksize=ksize, stride=stride)
     B, H, W, C = x.shape
     if ksize < 1 or stride < 1 or H < ksize or W < ksize:
         raise ValueError(f"relu6_pool_bn: window {ksize}/{stride} does not fit {tuple(x.shape)}")
     if ksize > KMAX:
         raise ValueError(f"relu6_pool_bn: the kernel takes windows up to {KMAX}, not {ksize}")
-    w = w.float().contiguous()
-    b = b.float().contiguous()
+    w, b = w.float().contiguous(), b.float().contiguous()
     if w.shape != (C,) or b.shape != (C,):
         raise ValueError(f"relu6_pool_bn: w, b must be ({C},)")
     dtype, device, stream = _build.launch_args("relu6_pool_bn", x, w, b)
     Ho, Wo = (H - ksize) // stride + 1, (W - ksize) // stride + 1
     y = torch.empty((B, Ho, Wo, C), dtype=x.dtype, device=x.device)
-    fn = _build.entry("relu6_pool_bn", "rn_relu6_pool_bn", _ARGS)
-    rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B, H, W, C, ksize, stride,
-            dtype, device, stream)
-    relu6_pool_bn.launches += 1
-    _build.check("relu6_pool_bn", "rn_relu6_pool_bn", rc)
+    _build.launch("relu6_pool_bn", "rn_relu6_pool_bn", _ARGS, x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                  B, H, W, C, ksize, stride, dtype, device, stream)
     return y
-
-
-relu6_pool_bn.launches = 0
 
 
 def relu6_grad(x: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,6 @@ round; ds and dt are the sums of ``g * (x + resize(res))`` and of ``g``.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 
@@ -31,9 +30,8 @@ import torch
 
 from ..resize import device_matrix, interp_matrix_tf1, resize_bilinear_tf1
 from . import _build
+from ._build import I, P
 
-P = ctypes.c_void_p
-I = ctypes.c_int
 _ARGS = [P] * 11 + [I] * 13 + [P]
 # The kernel's limits (csrc/residual_bn.cu): threads per block, output rows
 # per block (held in registers) and a block's shared memory, which four
@@ -164,14 +162,14 @@ def residual_bn(x: torch.Tensor, res: torch.Tensor, s: torch.Tensor, t: torch.Te
     """x (B,Ho,Wo,C), res (B,Hi,Wi,C) in the io dtype; s, t (C,) f32 (the
     folded BN). Returns (B,Ho,Wo,C) in x.dtype."""
     if x.device.type == "cpu":
+        _build.count_plain("residual_bn")
         return residual_bn_plain(x, res, s, t)
     B, Ho, Wo, C = x.shape
     Bi, Hi, Wi, Ci = res.shape
     if (Bi, Ci) != (B, C) or res.dtype != x.dtype:
         raise ValueError(f"residual_bn: res {tuple(res.shape)} {res.dtype} does not fit "
                          f"x {tuple(x.shape)} {x.dtype}")
-    s = s.float().contiguous()
-    t = t.float().contiguous()
+    s, t = s.float().contiguous(), t.float().contiguous()
     if s.shape != (C,) or t.shape != (C,):
         raise ValueError(f"residual_bn: s, t must be ({C},)")
     dtype, device, stream = _build.launch_args("residual_bn", x, res, s, t)
@@ -180,17 +178,11 @@ def residual_bn(x: torch.Tensor, res: torch.Tensor, s: torch.Tensor, t: torch.Te
     p = plan_for(x, res)
     strips, spans = _device_plan(p, x.device)
     y = torch.empty_like(x)
-    fn = _build.entry("residual_bn", "rn_residual_bn", _ARGS)
-    rc = fn(x.data_ptr(), res.data_ptr(), hidx.data_ptr(), hwt.data_ptr(), widx.data_ptr(),
-            wwt.data_ptr(), strips.data_ptr(), spans.data_ptr(), s.data_ptr(), t.data_ptr(),
-            y.data_ptr(), B, Hi, Wi, Ho, Wo, C, p.vec, p.strip, p.span, p.rows_in, p.cols_in,
-            dtype, device, stream)
-    residual_bn.launches += 1
-    _build.check("residual_bn", "rn_residual_bn", rc)
+    _build.launch("residual_bn", "rn_residual_bn", _ARGS, x.data_ptr(), res.data_ptr(), hidx.data_ptr(),
+                  hwt.data_ptr(), widx.data_ptr(), wwt.data_ptr(), strips.data_ptr(), spans.data_ptr(), s.data_ptr(),
+                  t.data_ptr(), y.data_ptr(), B, Hi, Wi, Ho, Wo, C, p.vec, p.strip, p.span, p.rows_in, p.cols_in,
+                  dtype, device, stream)
     return y
-
-
-residual_bn.launches = 0
 
 
 def resize_tf1_transpose(g: torch.Tensor, in_hw: tuple[int, int], dtype: torch.dtype) -> torch.Tensor:

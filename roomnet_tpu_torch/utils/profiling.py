@@ -44,6 +44,11 @@ class _Registry:
             self._counters[name] += value
             self._counter_events[name] += 1
 
+    def total(self, name: str) -> float:
+        """A counter's total so far: 0 if it never counted."""
+        with self._lock:
+            return self._counters.get(name, 0.0)
+
     def add(self, name: str, dt: float):
         with self._lock:
             self.totals[name] += dt

@@ -7,8 +7,9 @@ steps by STEP seconds a call, `value` and `vs_baseline` are bench.py's
 formulas (without bench.py's rounding: the port reports numbers unrounded);
 the e2e stage keys are the `e2e/*` spans; a failing segment raises
 SegmentError naming itself and leaves no temp directory; the launches of a
-run are chip_smoke.bench_forwards' count (the plain versions counted as
-launches); without CUDA and without --device the bench raises.
+run (the plain versions count in the launches' place) are
+chip_smoke.bench_forwards' count; without CUDA and without --device the
+bench raises.
 """
 
 import ast
@@ -29,10 +30,7 @@ from roomnet_tpu_torch import cli as tcli
 from roomnet_tpu_torch.infer.classify import RoomNetClassifier
 from roomnet_tpu_torch.infer.server import ClassifierServer
 from roomnet_tpu_torch.models.roomnet import init_variables
-from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
-from roomnet_tpu_torch.ops.kernels import dense_head as KD
-from roomnet_tpu_torch.ops.kernels import pool as KP
-from roomnet_tpu_torch.ops.kernels import residual as KR
+from roomnet_tpu_torch.ops.kernels import _build
 from roomnet_tpu_torch.params import schema
 from roomnet_tpu_torch.utils.profiling import SPANS
 
@@ -45,20 +43,6 @@ SIZES = {"batch": 4, "infer_iters": 2, "latency_calls": 3, "train_batch": 3, "ca
 STEP = 0.25
 # The tiny geometry's launches per forward: one conv and pool per block layer, one residual, the head.
 TINY_PER_FORWARD = {"conv3x3": 3, "relu6_pool_bn": 3, "residual_bn": 1, "dense_head": 1}
-KERNELS = ((KC, "conv3x3", "conv3x3_plain"), (KP, "relu6_pool_bn", "relu6_pool_bn_plain"),
-           (KR, "residual_bn", "residual_bn_plain"), (KD, "dense_head", "dense_head_plain"))
-
-
-def count_plain_launches(mp):
-    """Count each kernel's plain version as a launch of its wrapper, outside a
-    backward (the head's backward calls its plain version again)."""
-    for mod, wrapper, plain in KERNELS:
-        def counted(*args, _w=getattr(mod, wrapper), _p=getattr(mod, plain), **kwargs):
-            if torch._C._current_graph_task_id() == -1:
-                _w.launches += 1
-            return _p(*args, **kwargs)
-        mp.setattr(mod, plain, counted)
-        mp.setattr(getattr(mod, wrapper), "launches", 0)
 
 
 def tiny_run(**kw) -> dict:
@@ -75,9 +59,9 @@ def one_run(clock: str) -> dict:
         if clock == "stepping":
             ticks = itertools.count()
             mp.setattr(B, "clock", lambda: STEP * next(ticks))
-        count_plain_launches(mp)
+        before = _build.launch_counts()
         line = tiny_run()
-        launches = {name: getattr(mod, name).launches for mod, name, _ in KERNELS}
+        launches = _build.launches_since(before, TINY_PER_FORWARD)
         spans = {k.split("/", 1)[1] for k in SPANS.summary() if k.startswith("e2e/")}
         forwards = chip_smoke.bench_forwards(line["extras"]["serving_burst_device_calls"], **SIZES)
     return {"line": line, "launches": launches, "spans": spans, "forwards": forwards}

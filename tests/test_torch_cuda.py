@@ -11,7 +11,7 @@ with tensors on the card; the mesh server (a world of one over NCCL, and
 two ranks on the card over gloo) against the server without a mesh;
 ResNet-50's streamed conv3x3 path and persistent conv1x1 GEMM against their
 plain versions at every site and at the edges of the 1x1's tile walk, the
-1x1's tile and block counters over a forward, RoomNet's conv variants and
+launches of a ResNet-50 forward, RoomNet's conv variants and
 ResNet-50's 3x3 variants pinned to the reports they had before the streamed
 path and the persistent 1x1, and the benchmark's ResNet-50 reference
 against torchvision's where torchvision is installed.
@@ -41,6 +41,7 @@ from roomnet_tpu_torch.models import registry
 from roomnet_tpu_torch.models import roomnet as M
 from roomnet_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_plain
 from roomnet_tpu_torch.ops.blocks import bn_fold
+from roomnet_tpu_torch.ops.kernels import _build
 from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
 from roomnet_tpu_torch.ops.kernels import dense_head as KD
 from roomnet_tpu_torch.ops.kernels import pool as KP
@@ -52,7 +53,7 @@ from roomnet_tpu_torch.params.schema import load_npz
 # Imported by its own name (pytest puts tests/ on sys.path): on a machine with
 # another `tests` package installed, `tests.torch_port_util` would not resolve.
 import torch_port_util as U
-from torch_port_util import (cuda_device, img_bytes, outputs, post, random_bn,  # noqa: F401
+from torch_port_util import (cuda_device, img_bytes, launched, outputs, post, random_bn,  # noqa: F401
                              tiny_classifier, torch_tree, wrapper_cases)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -64,10 +65,10 @@ BF16_ULP = 2.0 ** -7
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_cuda_kernel_matches_plain(cuda_device, case, dtype):
     kern, plain, args, kwargs = wrapper_cases(cuda_device, dtype)[case]
-    before = kern.launches
+    before = _build.launch_counts()
     got, want = outputs(kern(*args, **kwargs)), outputs(plain(*args, **kwargs))
     torch.cuda.synchronize()
-    assert kern.launches == before + 1
+    assert launched(before, _build.SOURCES) == [int(n == kern.__name__) for n in _build.SOURCES]
     f32 = dtype == torch.float32 or kern is dense_head
     for a, b in zip(got, want):
         rtol = (1e-4 if kern is conv3x3 else 1e-5) if f32 else BF16_ULP
@@ -99,11 +100,9 @@ def test_cuda_forward_golden_through_the_kernels(cuda_device, cfg_name):
     g = dict(np.load(REPO / "tests" / "golden" / "forward_golden.npz"))
     variables = load_npz(REPO / "artifacts" / "roomnet_params.npz", device=cuda_device)
     x = M.normalize_bgr_uint8(torch.from_numpy(g["x_uint8_bgr"]).to(cuda_device))
-    kernels = (conv3x3, relu6_pool_bn, residual_bn, dense_head)
-    for k in kernels:
-        k.launches = 0
+    before = _build.launch_counts()
     logits = M.forward(variables, x, registry.get(cfg_name)).cpu().numpy()
-    assert [k.launches for k in kernels] == [10, 10, 3, 1]
+    assert launched(before) == [10, 10, 3, 1]
     np.testing.assert_array_equal(logits.argmax(-1), g["argmax"])
     limit = 1e-4 if cfg_name == "roomnet-224" else 0.15
     assert np.abs(logits - g["logits"]).max() <= limit
@@ -176,9 +175,6 @@ def test_cuda_conv3x3_blocks_walk_many_tiles(cuda_device, cin, cout, dtype):
 def test_cuda_conv3x3_entry_refuses_a_layout_it_does_not_know(cuda_device, dtype, cp):
     """The C entry takes the packed layout's Cout_p (bf16) or NT (f32) from
     the wrapper and refuses one narrower than Cout or not one of its tiles."""
-    from roomnet_tpu_torch.ops.kernels import _build
-    from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
-
     x = torch.zeros((1, 5, 5, 8), dtype=dtype, device=cuda_device)
     packed = KC.packed_kernel(torch.zeros((3, 3, 8, 16), dtype=dtype, device=cuda_device), dtype)
     y = torch.empty((1, 3, 3, 16), dtype=dtype, device=cuda_device)
@@ -602,11 +598,9 @@ def test_cuda_predict_stream_leaves_out_unread_items(cuda_device, classifiers):
 def test_cuda_predict_counts_launches_per_forward(cuda_device, classifiers):
     clf = classifiers("roomnet-224-bf16", cuda_device)
     x = np.random.RandomState(8).randint(0, 256, size=(33, 224, 224, 3), dtype=np.uint8)
-    kernels = (conv3x3, relu6_pool_bn, residual_bn, dense_head)
-    for k in kernels:
-        k.launches = 0
+    before = _build.launch_counts()
     clf.predict(x)
-    assert [k.launches for k in kernels] == [30, 30, 9, 3]
+    assert launched(before) == [30, 30, 9, 3]
 
 
 # -- the autograd Functions of the training step ------------------------------
@@ -702,14 +696,12 @@ def test_cuda_train_step_launches_and_updates(cuda_device, cfg_name):
     rng = np.random.RandomState(9)
     x = torch.from_numpy(rng.randint(0, 256, size=(2, 224, 224, 3), dtype=np.uint8)).to(cuda_device)
     y = torch.tensor([1, 4], device=cuda_device)
-    kernels = (conv3x3, relu6_pool_bn, residual_bn, dense_head)
     for batch_stats, head in ((False, 1), (True, 0)):
         hp = TrainHParams(compute_bn_mean_var=batch_stats, update_bn_moving=batch_stats)
         state = init_train_state(variables, hp)
-        for k in kernels:
-            k.launches = 0
+        counts = _build.launch_counts()
         new, metrics = make_train_step(hp, registry.get(cfg_name))(state, x, y)
-        assert [k.launches for k in kernels] == [10, 10, 3, head]
+        assert launched(counts) == [10, 10, 3, head]
         assert torch.isfinite(metrics["loss"]) and int(new.step) == 1
         assert all(not torch.equal(v, state.train_vars[p]) for p, v in new.train_vars.items())
     for k, v in schema.flatten_tensors(variables).items():
@@ -750,10 +742,8 @@ def test_cuda_server_buckets_match_the_batch_forward(cuda_device):
     clf.predict(_decoded(clf, bodies * 3))
     assert SPANS.summary()["e2e/device_put"]["count"] == 3 and SPANS.summary()["e2e/wait_put"]["count"] == 3
     srv = ClassifierServer(clf, port=0, warmup=True).start()
-    kernels = (conv3x3, relu6_pool_bn, residual_bn, dense_head)
     try:
-        for k in kernels:
-            k.launches = 0
+        before = _build.launch_counts()
         calls0 = SPANS.summary().get("serve/device_call", {}).get("count", 0)
         for n in (1, 2, 3, 4):
             status, out = post(srv, "/classify_batch",
@@ -766,7 +756,7 @@ def test_cuda_server_buckets_match_the_batch_forward(cuda_device):
             _assert_results([out], ids[i:i + 1], probs[i:i + 1])
         calls = SPANS.summary()["serve/device_call"]["count"] - calls0
         assert calls == 8
-        assert [k.launches for k in kernels] == [3 * calls, 3 * calls, calls, calls]
+        assert launched(before) == [3 * calls, 3 * calls, calls, calls]
     finally:
         srv.stop()
 
@@ -928,11 +918,9 @@ def test_cuda_trainer_matches_hand_driven_steps(cuda_device, tmp_path, steps_per
     with chip_smoke.deterministic():
         states, want_losses = chip_smoke.hand_driven(tr, 6)
         losses = chip_smoke.record_losses(tr)
-        kernels = (conv3x3, relu6_pool_bn, residual_bn, dense_head)
-        for k in kernels:
-            k.launches = 0
+        before = _build.launch_counts()
         state = tr.train(total_steps=6, log_every=1)
-    assert [k.launches for k in kernels] == [21, 21, 7, 7]
+    assert launched(before) == [21, 21, 7, 7]
     assert chip_smoke.state_gap(chip_smoke.state_tensors(state), chip_smoke.state_tensors(states[-1]), 1e-5) <= 1e-5
     if steps_per_call == 1:
         np.testing.assert_allclose([float(v) for v in losses], want_losses, rtol=1e-5, atol=1e-5)
@@ -1163,10 +1151,9 @@ def test_cuda_world_of_one_mesh_server_equals_no_mesh(cuda_device):
         srv = ClassifierServer(clf, port=0, warmup=True).start()
         try:
             sizes = chip_smoke.count_predicts(clf)
-            kernels = (conv3x3, relu6_pool_bn, residual_bn, dense_head)
-            before = [k.launches for k in kernels]
+            before = _build.launch_counts()
             got = chip_smoke.classify_requests(srv.port, requests)
-            launches = [k.launches - b for k, b in zip(kernels, before)]
+            launches = launched(before)
         finally:
             srv.stop()
         assert srv._bucket_sizes == [1, 2, 4, 8]
@@ -1240,10 +1227,10 @@ def _r50_case(device, site, batch, seed):
                                                                          for i in R50_B256])
 def test_cuda_resnet50_convs_match_plain(cuda_device, batch, site):
     kern, plain, args, kwargs = _r50_case(cuda_device, R50_SITES[site], batch, seed=site)
-    before = kern.launches
+    before = _build.launch_counts()
     got, want = kern(*args, **kwargs), plain(*args, **kwargs)
     torch.cuda.synchronize()
-    assert kern.launches == before + 1 and got.shape == want.shape
+    assert launched(before, [kern.__name__]) == [1] and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=BF16_ULP, atol=BF16_ULP * 8)
 
 
@@ -1290,30 +1277,23 @@ def test_cuda_conv1x1_persistent_walk_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
-def test_cuda_resnet50_forward_counts_conv1x1_tiles_and_blocks(cuda_device):
-    """One ResNet-50 forward (batch 8) moves kernel/launches.conv1x1 by 36 and
-    the persistent plan's counters by the sums of variant()'s tiles and
-    blocks over the 36 1x1 sites."""
+def test_cuda_resnet50_forward_counts_conv1x1_and_conv3x3_launches(cuda_device):
+    """One ResNet-50 forward (batch 8) moves kernel/launches.conv1x1 by 36
+    and kernel/launches.conv3x3 by 16, and no other kernel's counter."""
     from roomnet_tpu_torch.models import resnet as R
-    from roomnet_tpu_torch.ops.kernels import conv1x1 as K1
-    from roomnet_tpu_torch.utils.profiling import SPANS
 
     cfg, batch = registry.get("resnet50-v1.5-224-bf16"), 8
-    sites = [s for s in cfg.conv_sites() if s["kernel"] == "conv1x1"]
-    plans = [K1.variant((batch, s["side"], s["side"], s["cin"]), s["cout"], stride=s["stride"],
-                        residual=s["residual"]) for s in sites]
+    assert [s["kernel"] for s in cfg.conv_sites()].count("conv1x1") == 36
     clf = RoomNetClassifier(R.init_variables(torch.Generator(device=cuda_device).manual_seed(0), cfg), cfg,
                             batch_size=batch, device=cuda_device)
     x = torch.randint(0, 256, (batch, cfg.im_side, cfg.im_side, 3), dtype=torch.uint8, device=cuda_device)
-    names = ("kernel/launches.conv1x1", "kernel/conv1x1.tiles", "kernel/conv1x1.blocks")
-    before = SPANS.summary()
+    before = _build.launch_counts()
     clf._predict(clf.variables, x)
     torch.cuda.synchronize()
-    after = SPANS.summary()
+    moved = launched(before, _build.SOURCES)
     clf.close()
-    moved = [after[n]["total"] - before.get(n, {}).get("total", 0) for n in names]
-    assert len(sites) == 36
-    assert moved == [36, sum(v["tiles"] for v in plans), sum(v["blocks"] for v in plans)]
+    assert dict(zip(_build.SOURCES, moved)) == {"conv3x3": 16, "conv1x1": 36, "relu6_pool_bn": 0, "residual_bn": 0,
+                                                "dense_head": 0}
 
 
 @pytest.mark.cuda

@@ -10,6 +10,9 @@ CUDA kernels themselves are held against these plain versions on the card
 by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import ctypes
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +27,7 @@ from roomnet_tpu.ops.pallas.residual import residual_bn_pallas
 from roomnet_tpu.params import schema as jschema
 from roomnet_tpu_torch.ops import blocks as TB
 from roomnet_tpu_torch.ops.kernels import _build
+from roomnet_tpu_torch.ops.kernels import conv1x1 as KC1
 from roomnet_tpu_torch.ops.kernels import conv3x3 as KC
 from roomnet_tpu_torch.ops.kernels import dense_head as KD
 from roomnet_tpu_torch.ops.kernels import pool as KP
@@ -840,21 +844,71 @@ def test_dense_head_plain_takes_any_widths():
 
 # -- the wrappers: plain on CPU, kernel or raise elsewhere -----------------------
 
-@pytest.mark.parametrize("case", range(4))
-def test_wrapper_on_cpu_runs_plain_and_counts_nothing(case):
-    kern, plain, args, kwargs = wrapper_cases("cpu")[case]
-    before = kern.launches
+def _cpu_cases():
+    """wrapper_cases on the CPU, then conv1x1's (bf16 on the card, any dtype
+    in its plain version): stride 2, bias, residual and ReLU."""
+    g = torch.Generator().manual_seed(5)
+    x, k, bias = torch.randn(2, 7, 6, 64, generator=g), torch.randn(1, 1, 64, 64, generator=g), torch.randn(64)
+    conv1x1 = (KC1.conv1x1, KC1.conv1x1_plain, (x, k, bias),
+               {"stride": 2, "relu": True, "residual": torch.randn(2, 4, 3, 64, generator=g)})
+    return wrapper_cases("cpu") + [conv1x1]
+
+
+@pytest.mark.parametrize("case", range(5), ids=["conv3x3", "relu6_pool_bn", "residual_bn", "dense_head", "conv1x1"])
+def test_wrapper_on_cpu_runs_plain_and_counts_one_launch(case):
+    """The plain version stands in the launch's place: the wrapper's call
+    moves its kernel's counter by one, and no other; the plain version
+    called by itself counts nothing."""
+    kern, plain, args, kwargs = _cpu_cases()[case]
+    before = _build.launch_counts()
     for a, b in zip(outputs(kern(*args, **kwargs)), outputs(plain(*args, **kwargs))):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert kern.launches == before
+    assert _build.launches_since(before) == {n: int(n == kern.__name__) for n in _build.SOURCES}
+
+
+@pytest.mark.parametrize("case", range(5), ids=["conv3x3", "relu6_pool_bn", "residual_bn", "dense_head", "conv1x1"])
+def test_card_reading_refuses_a_region_that_ran_a_plain_version(case):
+    """A wrapper's CPU call also moves `kernel/plain.<kernel>`, so the reading
+    that the card's checks take fails where a plain version stood in a
+    launch's place, while `launches_since` counts it."""
+    kern, _, args, kwargs = _cpu_cases()[case]
+    before = _build.launch_counts()
+    kern(*args, **kwargs)
+    assert _build.launches_since(before, [kern.__name__]) == {kern.__name__: 1}
+    with pytest.raises(AssertionError, match=rf"^plain versions ran in place of launches: "
+                                             rf"\{{'kernel/plain\.{kern.__name__}': 1\}}$"):
+        _build.card_launches_since(before)
 
 
 @pytest.mark.parametrize("case", range(4))
 def test_wrapper_on_meta_device_raises(case):
-    """No fallback: a tensor that is neither on the CPU nor on a CUDA card is refused."""
+    """No fallback: a tensor that is neither on the CPU nor on a CUDA card is
+    refused, and a refused call counts no launch."""
     kern, _, args, kwargs = wrapper_cases("meta")[case]
+    before = _build.launch_counts()
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kern(*args, **kwargs)
+    assert _build.launch_counts() == before
+
+
+def test_launch_binds_each_entry_once_counts_and_raises(monkeypatch):
+    """`_build.launch` binds an entry at its first call and no more, counts
+    every launch that reaches the entry, a failing one too, and raises with
+    the library's error string."""
+    def rn_fake(rc):
+        return rc
+
+    loads = []
+    lib = types.SimpleNamespace(rn_fake=rn_fake, rn_error_string=lambda rc: b"fake error")
+    monkeypatch.setattr(_build, "load", lambda name: loads.append(name) or lib)
+    monkeypatch.setattr(_build, "_entries", {})
+    before = _build.launch_counts()
+    for _ in range(3):
+        _build.launch("dense_head", "rn_fake", [ctypes.c_int], 0)
+    assert loads == ["dense_head"] and rn_fake.argtypes == [ctypes.c_int] and rn_fake.restype is ctypes.c_int
+    with pytest.raises(RuntimeError, match=r"^rn_fake: CUDA error 7 \(fake error\)$"):
+        _build.launch("dense_head", "rn_fake", [ctypes.c_int], 7)
+    assert _build.card_launches_since(before) == {n: 4 * (n == "dense_head") for n in _build.SOURCES}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

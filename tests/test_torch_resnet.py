@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from benchmark.lib import harness, images
 from roomnet_tpu_torch.infer.classify import RoomNetClassifier
 from roomnet_tpu_torch.models import family, registry, resnet
+from roomnet_tpu_torch.ops.kernels import _build
 from roomnet_tpu_torch.ops.kernels import conv1x1 as C1
 from roomnet_tpu_torch.ops.kernels import conv3x3 as C3
 from roomnet_tpu_torch.utils.profiling import SPANS
@@ -118,17 +119,17 @@ def test_the_classifier_runs_resnet_through_its_configuration():
     clf = RoomNetClassifier(variables, cfg, batch_size=4, device="cpu")
     assert clf.class_labels == [f"class_{i}" for i in range(10)]
     x = np.random.RandomState(0).randint(0, 256, (6, 32, 32, 3), dtype=np.uint8)
-    before = SPANS.summary()
+    before = _build.launch_counts()
     ids, probs = clf.predict(x)
     after = SPANS.summary()
+    launches = _build.launches_since(before)
     clf.close()
     _, want = resnet.forward_folded(resnet.fold_variables(variables, cfg),
                                     resnet.normalize_bgr_uint8(torch.from_numpy(x), cfg), cfg)
     assert probs.shape == (6, 10) and np.abs(probs - want.numpy()).max() < 1e-6
     assert (ids == want.argmax(-1).numpy()).all()
-    launches = {k: after[k]["total"] - before.get(k, {}).get("total", 0) for k in
-                ("kernel/launches.conv1x1", "kernel/launches.conv3x3")}
-    assert launches == {"kernel/launches.conv1x1": 2 * 8, "kernel/launches.conv3x3": 2 * 3}  # two batches
+    assert launches == {"conv3x3": 2 * 3, "conv1x1": 2 * 8, "relu6_pool_bn": 0, "residual_bn": 0,
+                        "dense_head": 0}  # two batches
     assert {f"forward/r50.{p}" for p in ("stem", "stage1", "stage2", "head")} <= set(after)
 
 
@@ -189,17 +190,6 @@ def test_conv1x1_plain_strides_and_fuses_its_epilogue(stride, dtype):
     assert got.dtype == dtype and _close(got, want)
     res = torch.randn(want.shape, generator=g).to(dtype)
     assert _close(C1.conv1x1(x, k, bias, stride=stride, relu=True, residual=res), torch.relu(want + res.float()))
-
-
-def test_conv1x1_plain_counts_its_launch_and_no_tiles():
-    """`kernel/launches.conv1x1` counts every call; the persistent plan's
-    tile and block counters count the kernel's launches alone."""
-    names = ("kernel/launches.conv1x1", "kernel/conv1x1.tiles", "kernel/conv1x1.blocks")
-    before = SPANS.summary()
-    C1.conv1x1(torch.zeros(1, 4, 4, 64), torch.zeros(1, 1, 64, 64), relu=True)
-    after = SPANS.summary()
-    moved = [after.get(n, {}).get("total", 0) - before.get(n, {}).get("total", 0) for n in names]
-    assert moved == [1, 0, 0]
 
 
 def test_stream_packing_is_the_kernels_layout():

@@ -199,6 +199,7 @@ def _steps(flat, x, y, hp_kw, steps, *, mask=None, group, rank, world, seed=7, g
     metrics, and the kernels' launches over the steps."""
     import torch
 
+    from roomnet_tpu_torch.ops.kernels import _build
     from roomnet_tpu_torch.params.schema import variables_from_numpy
     from roomnet_tpu_torch.train import step as TS
 
@@ -206,21 +207,19 @@ def _steps(flat, x, y, hp_kw, steps, *, mask=None, group, rank, world, seed=7, g
     hp = TS.TrainHParams(**hp_kw)
     n = x.shape[0] // world
     rows = slice(rank * n, (rank + 1) * n)
-    from roomnet_tpu_torch.models import roomnet as M
-
     state = TS.init_train_state(variables_from_numpy(flat, cfg, device), hp)
     step = TS.make_train_step(hp, cfg, group=group)
     gen = torch.Generator(device).manual_seed(seed if gen_seed is None else gen_seed)
     xt, yt = torch.from_numpy(x[rows]).to(device), torch.from_numpy(y[rows]).to(device)
     mt = None if mask is None else torch.from_numpy(mask[rows]).to(device)
-    kernels = (M.conv3x3, M.relu6_pool_bn, M.residual_bn, M.dense_head)
-    before = [k.launches for k in kernels]
+    since = _build.card_launches_since if torch.device(device).type == "cuda" else _build.launches_since
+    before = _build.launch_counts()
     metrics = []
     for _ in range(steps):
         state, m = step(state, xt, yt, gen, mt)
         metrics.append({k: float(v) for k, v in m.items()})
     return {"state": numpy_state(state), "metrics": metrics,
-            "launches": [k.launches - b for k, b in zip(kernels, before)]}
+            "launches": list(since(before, ("conv3x3", "relu6_pool_bn", "residual_bn", "dense_head")).values())}
 
 
 def dp_steps(rank, world, workdir, flat, x, y, cases, faults=(), device="cpu"):

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from roomnet_tpu_torch.ops.blocks import bn_fold
+from roomnet_tpu_torch.ops.kernels import _build
 from roomnet_tpu_torch.ops.kernels.conv3x3 import conv3x3, conv3x3_plain
 from roomnet_tpu_torch.ops.kernels.dense_head import dense_head, dense_head_plain, pack_head
 from roomnet_tpu_torch.ops.kernels.pool import relu6_pool_bn, relu6_pool_bn_plain
@@ -64,6 +65,15 @@ def wrapper_cases(device, dtype=torch.float32):
         (residual_bn, residual_bn_plain, (x, res, s, t), {}),
         (dense_head, dense_head_plain, (flat, packed.to(device), widths), {}),
     ]
+
+
+ROOMNET_KERNELS = ("conv3x3", "relu6_pool_bn", "residual_bn", "dense_head")
+
+
+def launched(before: dict, names=ROOMNET_KERNELS) -> list[int]:
+    """Each kernel of `names`' launches on the card since `before`, a reading
+    of _build.launch_counts(), in order (_build.card_launches_since)."""
+    return list(_build.card_launches_since(before, names).values())
 
 
 def outputs(y):

@@ -19,7 +19,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 def setup(script: str):
     """What chip_smoke.main hands a phase, after building the kernels: the
     converted weights on the card, the f32 and bf16 configs, the launch
-    counters' read and reset, the device and the card's name and power
+    counters' read and its start, the device and the card's name and power
     limit. Exits where there is no CUDA device."""
     import torch
 
@@ -41,20 +41,19 @@ def setup(script: str):
                          capture_output=True, text=True, check=True).stdout.strip()
     dev = torch.device("cuda")
     variables = load_npz(pathlib.Path(C.__file__).resolve().parent / "artifacts" / "roomnet_params.npz", device=dev)
-    kernels = C.kernel_counters()
+    base = _build.launch_counts()
 
     def counts():
-        return {n: k.launches for n, k in kernels.items()}
+        return _build.card_launches_since(base, C.PER_FORWARD)
 
-    def zero_counts():
-        for k in kernels.values():
-            k.launches = 0
+    def start_counts():
+        base.update(_build.launch_counts())
 
-    return variables, {"f32": M.DEFAULT_CONFIG, "bf16": M.FAST_CONFIG}, counts, zero_counts, dev, smi
+    return variables, {"f32": M.DEFAULT_CONFIG, "bf16": M.FAST_CONFIG}, counts, start_counts, dev, smi
 
 
 if __name__ == "__main__":
     import chip_smoke as C
 
-    variables, cfgs, counts, zero_counts, dev, smi = setup("chip_phase10")
-    print(json.dumps(C.phase10(variables, cfgs, counts, zero_counts, dev, smi), default=str))
+    variables, cfgs, counts, start_counts, dev, smi = setup("chip_phase10")
+    print(json.dumps(C.phase10(variables, cfgs, counts, start_counts, dev, smi), default=str))

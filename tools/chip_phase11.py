@@ -18,6 +18,6 @@ if __name__ == "__main__":
     import chip_smoke as C
     from chip_phase10 import setup
 
-    variables, cfgs, counts, zero_counts, dev, smi = setup("chip_phase11")
+    variables, cfgs, counts, start_counts, dev, smi = setup("chip_phase11")
     per_forward = {"conv3x3": 10, "relu6_pool_bn": 10, "residual_bn": 3, "dense_head": 1}
-    print(json.dumps(C.phase11(variables, cfgs, counts, zero_counts, per_forward, dev, smi), default=str))
+    print(json.dumps(C.phase11(variables, cfgs, counts, start_counts, per_forward, dev, smi), default=str))

@@ -18,5 +18,5 @@ if __name__ == "__main__":
     import chip_smoke as C
     from chip_phase10 import setup
 
-    variables, cfgs, counts, zero_counts, dev, smi = setup("chip_phase12")
-    print(json.dumps(C.phase12(variables, counts, zero_counts, dev, smi), default=str))
+    variables, cfgs, counts, start_counts, dev, smi = setup("chip_phase12")
+    print(json.dumps(C.phase12(variables, counts, start_counts, dev, smi), default=str))

@@ -17,5 +17,5 @@ if __name__ == "__main__":
     import chip_smoke as C
     from chip_phase10 import setup
 
-    _, cfgs, counts, zero_counts, dev, smi = setup("chip_phase13")
-    print(json.dumps(C.phase13(cfgs, counts, zero_counts, C.PER_FORWARD, dev, smi), default=str))
+    _, cfgs, counts, start_counts, dev, smi = setup("chip_phase13")
+    print(json.dumps(C.phase13(cfgs, counts, start_counts, C.PER_FORWARD, dev, smi), default=str))

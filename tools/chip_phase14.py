@@ -22,10 +22,10 @@ if __name__ == "__main__":
     from chip_phase10 import setup
     from roomnet_tpu_torch.infer.classify import RoomNetClassifier
 
-    variables, cfgs, counts, zero_counts, dev, smi = setup("chip_phase14")
+    variables, cfgs, counts, start_counts, dev, smi = setup("chip_phase14")
     clf = RoomNetClassifier(variables, cfgs["bf16"], batch_size=256, device=dev)
     xb = torch.from_numpy(np.random.RandomState(0).randint(0, 256, size=(256, 224, 224, 3), dtype=np.uint8)).to(dev)
     serving = {"bf16": {"device_forward_ms_batch256": C.cuda_ms(lambda: clf._predict(clf.variables, xb))}}
     clf.close()
     del clf, xb
-    print(json.dumps(C.phase14(counts, zero_counts, C.PER_FORWARD, serving, dev, smi), default=str))
+    print(json.dumps(C.phase14(counts, start_counts, C.PER_FORWARD, serving, dev, smi), default=str))
